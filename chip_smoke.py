@@ -11,8 +11,11 @@ Phases (each asserts; any failure exits non-zero):
  2. batch_cluster kernel vs its plain PyTorch version: interior -1
     slots, an all-empty row, a coincident target/source pair, ragged
     NB and m, free and periodic space, Coulomb and Yukawa at two kappas,
-    Kahan and the matmul-r2 form; f32 rtol/atol 2e-4, f64 rtol 1e-12
-    (f64 cases use positive charges, so no entry cancels towards 0);
+    Kahan and the matmul-r2 form, each without and with target and
+    source counts (ragged, a row and a cluster with count 0, full
+    counts, counts off the unroll and the tile; phi must be exactly 0 on
+    padded target slots); f32 rtol/atol 2e-4, f64 rtol 1e-12 (f64 cases
+    use positive charges, so no entry cancels towards 0);
  3. modified_charges kernel vs its plain version at degrees 1, 4, 8, 14
     with random points, exact hits on the nodes and center-filled
     padding; f32 rtol 3e-3 / atol 3e-4, f64 rtol 1e-10 / atol 1e-12
@@ -26,7 +29,10 @@ Phases (each asserts; any failure exits non-zero):
     tensors execute feeds them (there the atol is relative to
     max|q_hat| or median|phi|: the sums run over up to 10^6 terms), and
     the launch counters of the run (modified charges: one launch per
-    tree level, plus the split reduction on levels that split);
+    tree level, plus the split reduction on levels that split); per
+    batch-cluster lane, the pairs its launch geometry sweeps beside the
+    pairs the data needs, the tiles it launches beside those with a
+    target, and the SM clock and power nvidia-smi reads while it runs;
  5. a Yukawa sweep (kappa 0.5, then 1.0) on the same geometry with
     the kappas as device tensors: no rebuild, and no host sync
     (torch.cuda.set_sync_debug_mode("error") around the calls);
@@ -39,6 +45,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -110,8 +117,13 @@ def phase_batch_cluster(dev):
     import torch
     from repro_torch.core.potentials import coulomb, yukawa
     from repro_torch.core.space import FREE, PeriodicBox
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
     from repro_torch.kernels import ops
 
+    lib = _build.load("batch_cluster", bcm._SIGNATURES)
+    assert (lib.bc_geometry(0), lib.bc_geometry(1)) == (
+        bcm._TARGETS_PER_BLOCK, bcm._SOURCE_UNROLL), "geometry constants"
     rng = np.random.default_rng(11)
     kernels = (coulomb(), yukawa(0.5), yukawa(1.7))
     box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
@@ -125,8 +137,9 @@ def phase_batch_cluster(dev):
             for space in (FREE, box):
                 for kern in kernels:
                     for kahan in (False, True):
-                        for r2 in (("diff", "matmul") if not space.periodic
-                                   else ("diff",)):
+                        for r2, counts in itertools.product(
+                                ("diff", "matmul") if not space.periodic
+                                else ("diff",), (False, True)):
                             tgt = rng.uniform(-1, 1, (B, NB, 3))
                             src = rng.uniform(-1, 1, (C, m, 3))
                             if r2 == "matmul":   # MAC-separated geometry
@@ -145,22 +158,107 @@ def phase_batch_cluster(dev):
                                                  device=dev)
                             kw = dict(kernel=kern, space=space, kahan=kahan,
                                       r2_mode=r2)
+                            if counts:
+                                kw.update(count_case(rng, B, NB, C, m, dev))
                             got = ops.batch_cluster_eval(
                                 it, *t, backend="cuda", **kw)
                             want = ops.batch_cluster_eval(
                                 it, *t, backend="torch", **kw)
                             what = (f"batch_cluster {dtype} {(B, S, NB, C, m)}"
                                     f" {space} {kern.name}{kern.params} "
-                                    f"kahan={kahan} r2={r2}")
+                                    f"kahan={kahan} r2={r2} counts={counts}")
                             err = close(got, want, rtol, atol, what)
                             worst[dtype] = max(worst[dtype], err)
                             if B > 1:
                                 assert (got[0] == 0).all(), what
+                            if counts:
+                                pad = (torch.arange(NB, device=dev)[None]
+                                       >= kw["tgt_count"][:, None])
+                                assert (got[pad] == 0).all(), what
                             n += 1
     torch.cuda.synchronize()
     print(f"[2] batch_cluster vs plain: {n} cases ok; max abs err "
           f"f32 {worst[torch.float32]:.3e} (rtol/atol 2e-4), f64 "
           f"{worst[torch.float64]:.3e} (rtol 1e-12)", flush=True)
+
+
+def count_case(rng, B, NB, C, m, dev):
+    """Target and source counts for a phase-2 case: ragged, row 0 and the
+    last cluster empty, row 1 and cluster 0 full."""
+    import torch
+    tc = rng.integers(0, NB + 1, B)
+    sc = rng.integers(0, m + 1, C)
+    tc[0] = 0
+    sc[-1] = 0
+    if B > 1:
+        tc[1] = NB
+    if C > 1:
+        sc[0] = m
+    return {"tgt_count": torch.as_tensor(tc, dtype=torch.int32, device=dev),
+            "src_count": torch.as_tensor(sc, dtype=torch.int32, device=dev)}
+
+
+def smi_sampler():
+    """Start nvidia-smi sampling the SM clock and power every 100 ms."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def smi_samples(proc):
+    """Stop a sampler; (median SM clock MHz, median power W, samples),
+    or None without samples."""
+    proc.terminate()
+    try:
+        out, _ = proc.communicate(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    rows = []
+    for line in out.strip().splitlines():
+        try:
+            rows.append([float(v) for v in line.split(",")])
+        except ValueError:                  # "[N/A]" or a torn line
+            continue
+    rows = [r for r in rows if len(r) == 2]
+    if not rows:
+        return None
+    return (statistics.median(r[0] for r in rows),
+            statistics.median(r[1] for r in rows), len(rows))
+
+
+def sass_inner_loop(lib_path, symbol):
+    """Instructions per pair of the innermost loop of one kernel variant,
+    read from its SASS (cuobjdump): the backward branch whose body holds
+    the MUFU.RSQ instructions, one per pair. Returns (instructions,
+    pairs) or None where cuobjdump is missing."""
+    import re
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = symbol in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2)))
+    best = None
+    for addr, ins in body:
+        m = re.search(r"BRA (?:`\(\S+\) )?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        loop = [i for a, i in body if int(m.group(1), 16) <= a <= addr]
+        mufu = sum("MUFU.RSQ" in i for i in loop)
+        if mufu and (best is None or len(loop) < best[0]):
+            best = (len(loop), mufu)
+    return best
 
 
 def phase_modified_charges(dev):
@@ -328,15 +426,25 @@ def phase_main(dev, smi):
     tgt = a["tgt_batched"]
     b = tgt.shape[0]
     rows = torch.arange(0, b, max(1, b // 32), device=dev)
+    # the counts execute passes: target counts on both lanes, leaf
+    # particle counts on the direct lane (every grid point is real)
+    counts = {"approx": {"tgt_count": inp.tgt_count},
+              "direct": {"tgt_count": inp.tgt_count,
+                         "src_count": inp.leaf_count}}
     bc_err = 0.0
     for lane, (idx, pts, qq) in lanes.items():
         sub_idx, sub_tgt = idx[rows], tgt[rows]
+        sub_kw = dict(counts[lane], tgt_count=inp.tgt_count[rows])
         got = ops.batch_cluster_eval(sub_idx, sub_tgt, pts, qq, kernel=kern,
-                                     backend="cuda")
+                                     backend="cuda", **sub_kw)
         want = ops.batch_cluster_eval(sub_idx, sub_tgt, pts, qq, kernel=kern,
-                                      backend="torch")
+                                      backend="torch", **sub_kw)
+        real = a["tgt_mask"][rows]
+        assert (got[~real] == 0).all(), f"{lane}: padded target slots"
+        got, want = got[real], want[real]
         # near pairs make a few |phi| large (1/r at the smallest
         # separations), so atol follows the typical value, median|phi|
+        # of the real target slots
         err = close(got, want, 2e-4, 2e-4, f"batch_cluster {lane} lane rows",
                     scale="median")
         bc_err = max(bc_err, err)
@@ -344,8 +452,9 @@ def phase_main(dev, smi):
         print(f"[4] batch_cluster {lane} lane on {rows.numel()} batch rows: "
               f"max abs err {err:.3e}; |phi| max {mag.max().item():.4e}, "
               f"median {mag.median().item():.4e}, rms "
-              f"{mag.square().mean().sqrt().item():.4e} (rtol 2e-4, atol "
-              f"2e-4 median|phi|)", flush=True)
+              f"{mag.square().mean().sqrt().item():.4e} over {got.numel()} "
+              f"real target slots (rtol 2e-4, atol 2e-4 median|phi|)",
+              flush=True)
     print(f"[4] on the real plan: modified_charges all {len(inp.levels)} "
           f"levels max abs err {mc_err:.3e} (rtol 3e-3, atol 3e-4 "
           f"max|q_hat|); max|phi| {phi.abs().max().item():.4e}", flush=True)
@@ -364,15 +473,21 @@ def phase_main(dev, smi):
         splits = mcm.split_count(p.shape[0], p.shape[1], 256, sms)
         per_level.append(f"C={p.shape[0]} m={p.shape[1]} splits={splits}: "
                          f"{ms:.3f} ms")
-    lane_ms, lane_plain_ms, lane_bound = {}, {}, {}
+    lane_ms, lane_plain_ms, lane_bound, lane_clock = {}, {}, {}, {}
     leaf_counts = (a["leaf_gather"] >= 0).sum(1)
     n1c = torch.full((a["node_lo"].shape[0],), (degree + 1) ** 3,
                      device=dev)
     for lane, (idx, pts, qq) in lanes.items():
-        lane_ms[lane] = event_ms(lambda: ops.batch_cluster_eval(
-            idx, tgt, pts, qq, kernel=kern, backend="cuda"), 5)
+        sampler = smi_sampler()
+        try:
+            lane_ms[lane] = event_ms(lambda: ops.batch_cluster_eval(
+                idx, tgt, pts, qq, kernel=kern, backend="cuda",
+                **counts[lane]), 5)
+        finally:
+            lane_clock[lane] = smi_samples(sampler)
         lane_plain_ms[lane] = event_ms(lambda: ops.batch_cluster_eval(
-            idx, tgt, pts, qq, kernel=kern, backend="torch"), 1)
+            idx, tgt, pts, qq, kernel=kern, backend="torch",
+            **counts[lane]), 1)
         lane_bound[lane] = bc_bound(
             plan, idx, leaf_counts if lane == "direct" else n1c, 4,
             pts.shape[0] * pts.shape[1])
@@ -380,11 +495,27 @@ def phase_main(dev, smi):
     bc_side = ("operations" if all(v[1] == "operations"
                                    for v in lane_bound.values()) else "bytes")
     mc_bound_ms, mc_side = mc_bound(plan, degree, 4)
-    for lane in lanes:
+    for lane, (idx, pts, _) in lanes.items():
         bms, side, pairs = lane_bound[lane]
+        nb, m = tgt.shape[1], pts.shape[1]
+        geo = bcm.swept_pairs(idx, nb, m, **counts[lane])
+        full = bcm.swept_pairs(idx, nb, m)
+        clock = "no nvidia-smi samples"
+        if lane_clock[lane] is not None:
+            mhz, watts, k = lane_clock[lane]
+            # lane-issue slots the SMs had per swept pair at that clock
+            slots = lane_ms[lane] * 1e-3 * mhz * 1e6 * sms * 128
+            clock = (f"SM clock {mhz:.0f} MHz, power {watts:.1f} W (median "
+                     f"of {k} samples): {slots / geo['pairs']:.2f} issue "
+                     f"slots per swept pair")
         print(f"[4] batch_cluster {lane} lane: {lane_ms[lane]:.3f} ms "
               f"(plain {lane_plain_ms[lane]:.1f} ms), {pairs:.4e} pairs "
-              f"needed, bound {bms:.3f} ms by {side} ({smi})", flush=True)
+              f"needed, bound {bms:.3f} ms by {side} ({smi}); launch "
+              f"geometry sweeps {geo['pairs']:.4e} pairs "
+              f"({geo['pairs'] / pairs:.3f}x needed; without counts "
+              f"{full['pairs']:.4e}), {geo['tiles']} of "
+              f"{geo['tiles_launched']} tiles hold a target; {clock}",
+              flush=True)
     print(f"[4] modified_charges, {len(inp.levels)} levels: {mc_ms:.3f} ms "
           f"(plain {mc_plain_ms:.1f} ms), bound {mc_bound_ms:.4f} ms by "
           f"{mc_side} ({smi}); by level: {'; '.join(per_level)}",
@@ -514,6 +645,13 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line and " 0 bytes" not in line:
                 print(f"    {name}: {line.strip()}")
+    # the main path's variant: f32, Coulomb, free space, no Kahan, diff r2
+    loop = sass_inner_loop(_build.library_path("batch_cluster"),
+                           "batch_cluster_kernelIfLi0ELb0ELb0ELb0E")
+    print("[1] batch_cluster f32 Coulomb inner loop (SASS): " + (
+        f"{loop[0]} instructions for {loop[1]} pairs, "
+        f"{loop[0] / loop[1]:.2f} per pair" if loop else "not measured "
+        "(no cuobjdump)"), flush=True)
 
     phase_batch_cluster(dev)
     phase_modified_charges(dev)

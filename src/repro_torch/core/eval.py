@@ -274,11 +274,18 @@ class KernelInputs:
     grids: torch.Tensor       # (num_nodes, (n+1)^3, 3) Chebyshev grids
     leaf_pts: torch.Tensor    # (num_leaves, nl_pad, 3)
     leaf_q: torch.Tensor      # (num_leaves, nl_pad)
+    # prefix lengths of the kernels' count contract (int32): real targets
+    # of each batch row, real particles of each leaf
+    tgt_count: torch.Tensor   # (B,)
+    leaf_count: torch.Tensor  # (num_leaves,)
 
 
 def kernel_inputs(arrays: dict, charges: torch.Tensor, *,
                   degree: int) -> KernelInputs:
-    """Gather the kernels' inputs from the plan arrays and `charges`."""
+    """Gather the kernels' inputs from the plan arrays and `charges`.
+
+    The packing fills batch rows and leaves from slot 0, so the counts are
+    the prefix lengths the batch-cluster kernel sweeps."""
     q_sorted = charges[arrays["src_perm"]]
     lo, hi = arrays["node_lo"], arrays["node_hi"]
     levels = []
@@ -289,9 +296,12 @@ def kernel_inputs(arrays: dict, charges: torch.Tensor, *,
         levels.append((nodes, pts, qb, lo_n, hi_n))
     leaf_pts, leaf_q = _gathered(arrays["src_sorted"], q_sorted,
                                  arrays["leaf_gather"])
-    return KernelInputs(q_sorted=q_sorted, levels=levels,
-                        grids=cheby.cluster_grid(lo, hi, degree),
-                        leaf_pts=leaf_pts, leaf_q=leaf_q)
+    return KernelInputs(
+        q_sorted=q_sorted, levels=levels,
+        grids=cheby.cluster_grid(lo, hi, degree),
+        leaf_pts=leaf_pts, leaf_q=leaf_q,
+        tgt_count=arrays["tgt_mask"].sum(1, dtype=torch.int32),
+        leaf_count=(arrays["leaf_gather"] >= 0).sum(1, dtype=torch.int32))
 
 
 def compute_qhat_direct(levels, num_nodes: int, *, degree, backend):
@@ -352,7 +362,10 @@ def _execute_impl(
     `charges` lives on the plan's device. `params` carries kernel
     parameter values (tensors on the device, or None for the kernel's
     defaults). With ``skin > 0`` the Verlet-skin dual lists are routed by
-    the runtime MAC gate before the kernels run."""
+    the runtime MAC gate before the kernels run. Both lanes pass the
+    batch rows' target counts; the direct lane (skin-routed slots
+    included, which are leaf ids too) also the leaves' particle counts,
+    while every Chebyshev grid is all real points."""
     inp = kernel_inputs(arrays, charges, degree=degree)
     with _trace.span("eval.modified_charges"):
         qhat = compute_qhat_direct(inp.levels, arrays["node_lo"].shape[0],
@@ -368,13 +381,14 @@ def _execute_impl(
         phi_a = ops.batch_cluster_eval(
             approx_idx, tgt, inp.grids, qhat, params,
             kernel=kernel, space=space, backend=backend, kahan=kahan,
-            r2_mode=approx_r2)
+            r2_mode=approx_r2, tgt_count=inp.tgt_count)
         _trace.sync(charges.device)
 
     with _trace.span("eval.direct_lane"):
         phi_d = ops.batch_cluster_eval(
             direct_idx, tgt, inp.leaf_pts, inp.leaf_q, params,
-            kernel=kernel, space=space, backend=backend, kahan=kahan)
+            kernel=kernel, space=space, backend=backend, kahan=kahan,
+            tgt_count=inp.tgt_count, src_count=inp.leaf_count)
         _trace.sync(charges.device)
 
     phi = (phi_a + phi_d).reshape(-1)

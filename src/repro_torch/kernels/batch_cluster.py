@@ -8,9 +8,10 @@ interaction, so ONE kernel evaluates both: against leaf source particles
 (approximation lane, Eq. 11).
 
 - `batch_cluster_eval_cuda` launches `csrc/batch_cluster.cu` (one block
-  per (batch, target tile), the slot loop inside the block, sources
-  staged through shared memory). It is bound by fp32 operations on the
-  H100; the source's header says what the design does about that.
+  of four warps per (batch, 128-target tile), four targets per lane, the
+  warps splitting the row's source chunks, the slot loop inside the
+  block). fp32 issue and the SFU bound it on the H100; the source's
+  header says what the design does about that.
 - `batch_cluster_eval_plain` is the same function in plain PyTorch,
   chunked over batches and list slots like the reference's XLA scan, so
   it runs at 10^6 particles on the card. The CPU path and the tests use
@@ -18,6 +19,12 @@ interaction, so ONE kernel evaluates both: against leaf source particles
 
 Sentinel contract: a ``-1`` slot contributes exactly zero wherever it
 sits in a row (the Verlet-skin gate writes interior sentinels).
+
+Count contract: targets are packed from slot 0 of each batch row and
+source points from slot 0 of each cluster, so `tgt_count` (B,) and
+`src_count` (C,) are prefix lengths. Both functions sum only over the
+first ``src_count[c]`` points of cluster c, and give phi = 0 on target
+slots at or beyond ``tgt_count[b]``. None means every slot is real.
 """
 from __future__ import annotations
 
@@ -35,17 +42,22 @@ LAUNCHES = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_SIG = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+_SIG = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _D, _D, _D, _P)
-_SIGNATURES = {"bc_eval_f32": _SIG, "bc_eval_f64": _SIG}
+_SIGNATURES = {"bc_eval_f32": _SIG, "bc_eval_f64": _SIG,
+               "bc_geometry": (_I,)}
 
 #: Element budget of one (batch chunk, NB, m) pairwise block in the plain
 #: version.
 _PAIR_BUDGET = 1 << 25
 
-#: kThreads of csrc/batch_cluster.cu: one block per 128 targets of a row,
-#: and the grid's second dimension is at most 65535 blocks.
+#: kTile of csrc/batch_cluster.cu (`bc_geometry(0)`): one block per 128
+#: targets of a row, and the grid's second dimension is at most 65535
+#: blocks.
 _TARGETS_PER_BLOCK = 128
+#: kUnroll of csrc/batch_cluster.cu (`bc_geometry(1)`): a cluster's sweep
+#: rounds its point count up to a multiple of it.
+_SOURCE_UNROLL = 4
 
 
 def kernel_id(kernel: Kernel) -> int:
@@ -59,18 +71,61 @@ def kernel_id(kernel: Kernel) -> int:
     return kid
 
 
+def swept_pairs(idx: torch.Tensor, nb: int, m: int,
+                tgt_count: torch.Tensor | None = None,
+                src_count: torch.Tensor | None = None) -> dict:
+    """What one launch of the CUDA kernel sweeps for these inputs.
+
+    Returns {"pairs": (target, source) pairs its tiles run, counting each
+    128-target tile with a real target in full and each cluster's points
+    rounded up to the unroll; "tiles": tiles with a real target;
+    "tiles_launched": blocks in the grid}. Without counts every slot is
+    real: what a launch without counts sweeps."""
+    b = idx.shape[0]
+    tile, unroll = _TARGETS_PER_BLOCK, _SOURCE_UNROLL
+    nt = (torch.full((b,), nb, dtype=torch.int64, device=idx.device)
+          if tgt_count is None else tgt_count.long().clamp(0, nb))
+    tiles = -(-nt // tile)                                  # (B,)
+    valid = idx >= 0
+    if src_count is None:
+        n = torch.full(idx.shape, m, dtype=torch.int64, device=idx.device)
+    else:
+        n = src_count.long().clamp(0, m)[idx.clamp(min=0).long()]
+    swept = (-(-n // unroll) * unroll * valid).sum(1)       # (B,)
+    return {"pairs": float((tiles * tile * swept).sum()),
+            "tiles": int(tiles.sum()),
+            "tiles_launched": b * -(-nb // tile)}
+
+
+def _check_count(name: str, t: torch.Tensor, n: int, dev) -> None:
+    if t.device != dev or not t.is_cuda:
+        raise ValueError(f"batch_cluster_eval_cuda: {name} is on "
+                         f"{t.device}, expected the CUDA device {dev}")
+    if t.dtype != torch.int32 or not t.is_contiguous():
+        raise TypeError(f"batch_cluster_eval_cuda: {name} must be a "
+                        f"contiguous int32 tensor")
+    if tuple(t.shape) != (n,):
+        raise ValueError(f"batch_cluster_eval_cuda: {name} has shape "
+                         f"{tuple(t.shape)}, expected ({n},)")
+
+
 def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
                             tgt: torch.Tensor, src_pts: torch.Tensor,
                             src_q: torch.Tensor, *, kernel: Kernel,
                             space=_FREE, kahan: bool = False,
-                            r2_mode: str = "diff") -> torch.Tensor:
+                            r2_mode: str = "diff",
+                            tgt_count: torch.Tensor | None = None,
+                            src_count: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """phi (B, NB) by one launch of the CUDA kernel.
 
     idx (B, S) int32 (-1 = empty slot), par the packed kernel parameters
     (`potentials.pack_params`), tgt (B, NB, 3), src_pts (C, m, 3), src_q
     (C, m), all contiguous CUDA tensors on one device, float32 or
-    float64 alike. `r2_mode="matmul"` takes |x|^2+|y|^2-2x.y in free
-    space; periodic spaces always take the difference form."""
+    float64 alike; tgt_count (B,) and src_count (C,) optional int32
+    prefix lengths (the module's count contract). `r2_mode="matmul"`
+    takes |x|^2+|y|^2-2x.y in free space; periodic spaces always take
+    the difference form."""
     global LAUNCHES
     dev = tgt.device
     dtype = tgt.dtype
@@ -99,6 +154,10 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
             f"batch_cluster_eval_cuda: shapes idx {tuple(idx.shape)}, tgt "
             f"{tuple(tgt.shape)}, src_pts {tuple(src_pts.shape)}, src_q "
             f"{tuple(src_q.shape)} do not match (B,S),(B,NB,3),(C,m,3),(C,m)")
+    if tgt_count is not None:
+        _check_count("tgt_count", tgt_count, b, dev)
+    if src_count is not None:
+        _check_count("src_count", src_count, c, dev)
     if -(-nb // _TARGETS_PER_BLOCK) > 65535:
         raise ValueError(f"batch_cluster_eval_cuda: NB={nb} exceeds the "
                          f"grid limit of {65535 * _TARGETS_PER_BLOCK} "
@@ -116,9 +175,11 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(idx.data_ptr(), par.data_ptr(), tgt.data_ptr(),
-                src_pts.data_ptr(), src_q.data_ptr(), out.data_ptr(),
-                b, s, nb, m, kid, int(periodic), int(kahan), int(matmul),
-                *map(float, lengths), stream)
+                src_pts.data_ptr(), src_q.data_ptr(),
+                None if tgt_count is None else tgt_count.data_ptr(),
+                None if src_count is None else src_count.data_ptr(),
+                out.data_ptr(), b, s, nb, m, kid, int(periodic), int(kahan),
+                int(matmul), *map(float, lengths), stream)
     _build.check(rc, "batch_cluster")
     if b > 0 and nb > 0:        # the C entry launches nothing otherwise
         LAUNCHES += 1
@@ -128,17 +189,24 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
 def batch_cluster_eval_plain(idx: torch.Tensor, tgt: torch.Tensor,
                              src_pts: torch.Tensor, src_q: torch.Tensor,
                              params=None, *, kernel: Kernel, space=_FREE,
-                             kahan: bool = False,
-                             r2_mode: str = "diff") -> torch.Tensor:
+                             kahan: bool = False, r2_mode: str = "diff",
+                             tgt_count: torch.Tensor | None = None,
+                             src_count: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """phi (B, NB), the same function in plain PyTorch (any device).
 
     A loop over batch chunks and list slots bounds the (chunk, NB, m)
     intermediate; Kahan compensates across slots in list order, as the
-    kernel does."""
+    kernel does. Points at or beyond `src_count` get charge 0, and target
+    slots at or beyond `tgt_count` phi = 0 (the count contract)."""
     pw = kernel.pairwise_matmul if r2_mode == "matmul" else kernel.pairwise
     bsz, nb = tgt.shape[0], tgt.shape[1]
     m = src_pts.shape[1]
     dtype = tgt.dtype
+    if src_count is not None:
+        keep = (torch.arange(m, device=src_q.device)[None, :]
+                < src_count.to(src_q.device)[:, None])
+        src_q = torch.where(keep, src_q, torch.zeros_like(src_q))
     chunk = max(1, min(bsz, _PAIR_BUDGET // max(nb * m, 1)))
     out = torch.empty((bsz, nb), dtype=dtype, device=tgt.device)
     for b0 in range(0, bsz, chunk):
@@ -160,4 +228,8 @@ def batch_cluster_eval_plain(idx: torch.Tensor, tgt: torch.Tensor,
             else:
                 phi = phi + pot
         out[b0:b0 + chunk] = phi
+    if tgt_count is not None:
+        real = (torch.arange(nb, device=out.device)[None, :]
+                < tgt_count.to(out.device)[:, None])
+        out = torch.where(real, out, torch.zeros_like(out))
     return out

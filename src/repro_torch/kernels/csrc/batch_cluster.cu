@@ -4,62 +4,124 @@
 //   src/repro/kernels/batch_cluster.py:batch_cluster_eval_pallas
 //   (bodies _body, _body_kahan, _pair_r2, _min_image_1d).
 //
-//   phi[b, i] = sum_s [idx[b,s] >= 0] sum_j G(r2(x_bi, y_cj); par) q_cj,
-//   c = idx[b, s].
+//   phi[b, i] = sum_s [idx[b,s] >= 0] sum_{j < n_c} G(r2(x_bi, y_cj); par) q_cj,
+//   c = idx[b, s],  n_c = src_count[c] (m without counts),
+//   phi[b, i] = 0 for i >= tgt_count[b] (NB without counts).
 //
 // The same direct-sum form serves the direct lane (leaf particles, Eq. 9)
 // and the approximation lane (Chebyshev grid points with modified charges,
 // Eq. 11).
 //
-// What bounds it on the H100: operations. Every (target, source) pair
-// costs ~12 fp32 operations, an IEEE square root and an IEEE division
-// (plus an exp for Yukawa), against a few bytes of input per target and
-// per cluster, so the fp32 pipeline (and the multi-instruction sqrt/div
-// sequences) binds long before the 3.35 TB/s of HBM does.
+// What bounds it on the H100: instruction issue on the fp32 pipe, and the
+// SFU (MUFU) for the one reciprocal square root of each pair. A pair needs
+// ~8 fp32 instructions (3 sub, 1 mul + 2 fma for r2, the r2 == 0 test,
+// one fma into the sum, predicated by the test) and one MUFU, against a few
+// bytes of input per target and per cluster; the 3.35 TB/s of HBM (and
+// the tensor cores: G is nonlinear, and TF32 would break the f32 bar)
+// play no part. So the design removes every instruction a pair does not
+// need:
 //
-// Design (first version, right before fast):
-//   - one block of kThreads threads per (batch, target tile); one target
-//     per thread, its coordinates and accumulator live in registers;
+//   - count-aware work. Targets are packed from slot 0 of each batch row
+//     and particles from slot 0 of each leaf, so a count is a prefix
+//     length. A block whose target tile starts at or beyond
+//     tgt_count[b] writes zeros and returns before it loads anything,
+//     and the sweep of cluster c stops at src_count[c]: the padding of
+//     the (B, NB) slab and of the (C, m) leaves is never swept. Padded
+//     target slots get phi = 0 (the contract of the plain version too);
+//   - f32 pairs: rinv = rsqrt(r2), one MUFU.RSQ instead of an IEEE sqrt
+//     and division, two multi-instruction sequences with slow-path
+//     branches. Coulomb G = rinv; Yukawa r = r2 * rinv,
+//     G = expf(-kappa r) * rinv (accurate expf, no division); the sum
+//     takes G q only where r2 >= FLT_MIN, a predicate on its fma. The
+//     reciprocal square root is rsqrtf's approximation (within 2 ulp, far
+//     inside the f32 bar against the plain version, rtol 2e-4, and the
+//     end-to-end bar, 1e-5), written as PTX rsqrt.approx.ftz.f32: rsqrtf
+//     itself keeps denormal inputs, which costs every pair a range check,
+//     a predicate, two rescaling multiplies and moves (in the SASS, about
+//     as many issues again as the pair needs). So r2 below FLT_MIN, the
+//     smallest normal float (r < 1.1e-19, where 1/r > 9e18), adds 0 like
+//     r2 == 0. f64 keeps IEEE sqrt and division: its bar against the
+//     plain version is rtol 1e-12. No --use_fast_math or -ftz for the
+//     file;
+//   - each staged source is one (x, y, z, q) record in shared memory
+//     (a float4, or two double2 for f64): one 16-byte broadcast load
+//     (two for f64) instead of four 4-byte ones;
+//   - register-tiled targets: each lane owns kPerThread = 4 targets of
+//     the 128-target tile, so every loaded source feeds 4 independent
+//     pairs (4 dependency chains for the MUFU and fma latencies);
+//   - the inner loop is unrolled kUnroll times at compile time; a chunk's
+//     ragged tail is rounded up to kUnroll with zero-charge records
+//     (G is finite there, so they add exactly 0);
+//   - the four warps of a block hold the same 128 targets and split the
+//     row's source chunks round-robin (chunk g of the row goes to warp
+//     g % 4, over all slots): each warp stages its own chunks and syncs
+//     with __syncwarp only, the warps stay balanced to one chunk, and a
+//     block's work is a quarter as long as with one warp per tile. One
+//     __syncthreads at the end adds the four partial sums per target in
+//     a fixed order (deterministic, no atomics; phi is written once);
 //   - the slot loop runs INSIDE the block (the TPU's sequential
-//     "arbitrary" grid axis); phi is written once, no atomics;
-//   - each cluster's sources stream through shared memory in kChunk-point
-//     chunks that all threads of the block load together, then every
-//     thread sweeps the chunk (a broadcast read, free of bank conflicts);
-//   - a -1 slot adds exactly 0 wherever it sits in the row: the block
-//     skips it (the Kahan variant still applies its compensation update,
-//     as _body_kahan does with valid = 0);
-//   - G is exactly 0 at r2 == 0; Coulomb is IEEE 1/sqrt(r2), Yukawa
-//     exp(-kappa r)/r, never the approximate reciprocal square root (the
-//     f64 bar is 1e-12, and the build uses no --use_fast_math);
+//     "arbitrary" grid axis): per slot a warp sums its chunks into `slot`
+//     and then adds the slot total to its accumulator, plainly or
+//     Kahan-compensated across slots like _body_kahan. The Kahan update
+//     runs on every slot, -1 sentinels and slots with no chunk of this
+//     warp included (they add 0), as _body_kahan does with valid = 0;
+//   - a -1 slot adds exactly 0 wherever it sits in the row;
+//   - G is exactly 0 at r2 == 0 (and for a NaN r2; in f32 below FLT_MIN);
 //   - periodic fold d - L*rint(d/L): rint rounds half to even as
 //     jnp.round / torch.round do (CUDA's round() would round half away);
 //   - kernel parameters come through a device pointer, so a kappa sweep
 //     reuses this binary and never waits on the host;
-//   - the ragged target edge (NB not a multiple of kThreads) and the
-//     ragged source edge (m not a multiple of kChunk) are masked here;
 //   - layouts are the natural (..., P, 3) ones of the callers, so the
-//     wrapper makes no transposed copies: a chunk of m x 3 coordinates is
-//     contiguous, loaded by the block and broadcast from shared memory.
-// Per slot the chunk sums go into `slot` first and the slot total is then
-// added to phi (plainly or Kahan-compensated across slots, like
-// _body_kahan).
+//     wrapper makes no transposed copies.
+// Double-buffering the chunks (cp.async) is left out: a warp's chunk
+// loads (16 records a lane) are ~1% of its instructions, and the other
+// warps of the SM cover their latency (a chunk load unrolled to put all
+// 16 in flight at once measured slower, not faster).
+
+#include <cfloat>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // targets per block (one per thread)
-constexpr int kChunk = 256;    // sources staged in shared memory per pass
+constexpr int kWarps = 4;                  // warps per block
+constexpr int kThreads = 32 * kWarps;      // 128
+constexpr int kPerThread = 4;              // targets per lane
+constexpr int kTile = 32 * kPerThread;     // 128 targets per block
+constexpr int kChunk = 128;                // sources per staged chunk
+constexpr int kUnroll = 4;                 // inner-loop unroll
+static_assert(kTile == kThreads, "the final combine maps thread t to target t");
+static_assert(kChunk % kUnroll == 0, "a chunk rounds up inside its buffer");
 
 constexpr int kCoulomb = 0;
 constexpr int kYukawa = 1;
 
+// Blocks per SM the register budget is sized for: 8 x 4 warps of f32
+// (<= 64 registers a thread), 4 x 4 warps of f64.
+constexpr int min_blocks(int dtype_size) { return dtype_size == 4 ? 8 : 4; }
+
+// MUFU.RSQ on its own: a denormal x reads as 0 and gives +inf.
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// s + G(r2) q, or s where r2 is 0 (G = 0 there).
 template <typename T, int KID>
-__device__ __forceinline__ T green(T r2, T kappa) {
-  if (!(r2 > T(0))) return T(0);  // r2 == 0 (and padding) adds exactly 0
-  const T r = sqrt(r2);
-  if (KID == kCoulomb) return T(1) / r;
-  return exp(-kappa * r) / r;
+__device__ __forceinline__ T add_pair(T s, T r2, T q, T kappa) {
+  if constexpr (sizeof(T) == 4) {
+    // The MUFU runs for every pair; the r2 test predicates the fma, so
+    // r2 == 0 costs no select (the unused rinv is +inf there).
+    const float rinv = rsqrt_ftz(r2);
+    const float g = KID == kCoulomb ? rinv : expf(-kappa * (r2 * rinv)) * rinv;
+    return r2 >= FLT_MIN ? fmaf(g, q, s) : s;
+  } else {
+    if (!(r2 > 0.0)) return s;
+    const double r = sqrt(r2);
+    const double g = KID == kCoulomb ? 1.0 / r : exp(-kappa * r) / r;
+    return s + g * q;
+  }
 }
 
 template <typename T>
@@ -67,134 +129,227 @@ __device__ __forceinline__ T fold(T d, T len, T inv_len) {
   return d - len * rint(d * inv_len);
 }
 
+// One staged source: 4 consecutive T (x, y, z, q) in shared memory.
+template <typename T>
+struct Src {
+  T x, y, z, q;
+};
+
+__device__ __forceinline__ Src<float> load_src(const float* s, int t) {
+  const float4 v = reinterpret_cast<const float4*>(s)[t];
+  return {v.x, v.y, v.z, v.w};
+}
+
+__device__ __forceinline__ Src<double> load_src(const double* s, int t) {
+  const double2 a = reinterpret_cast<const double2*>(s)[2 * t];
+  const double2 b = reinterpret_cast<const double2*>(s)[2 * t + 1];
+  return {a.x, a.y, b.x, b.y};
+}
+
+__device__ __forceinline__ void store_src(float* s, int t, float x, float y,
+                                          float z, float q) {
+  reinterpret_cast<float4*>(s)[t] = make_float4(x, y, z, q);
+}
+
+__device__ __forceinline__ void store_src(double* s, int t, double x,
+                                          double y, double z, double q) {
+  reinterpret_cast<double2*>(s)[2 * t] = make_double2(x, y);
+  reinterpret_cast<double2*>(s)[2 * t + 1] = make_double2(z, q);
+}
+
 template <typename T, int KID, bool PERIODIC, bool KAHAN, bool MATMUL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(sizeof(T)))
 batch_cluster_kernel(const int* __restrict__ idx, const T* __restrict__ par,
                      const T* __restrict__ tgt, const T* __restrict__ src,
-                     const T* __restrict__ q, T* __restrict__ out, int S,
-                     int NB, int m, T Lx, T Ly, T Lz) {
-  __shared__ T sx[kChunk];
-  __shared__ T sy[kChunk];
-  __shared__ T sz[kChunk];
-  __shared__ T sq[kChunk];
-  __shared__ T sy2[MATMUL ? kChunk : 1];
-
+                     const T* __restrict__ q,
+                     const int* __restrict__ tgt_count,
+                     const int* __restrict__ src_count, T* __restrict__ out,
+                     int S, int NB, int m, T Lx, T Ly, T Lz) {
   const int b = blockIdx.x;
-  const int i = blockIdx.y * kThreads + threadIdx.x;
-  const bool active = i < NB;
-  T x = T(0), y = T(0), z = T(0);
-  if (active) {
-    const T* p = tgt + (static_cast<size_t>(b) * NB + i) * 3;
-    x = p[0];
-    y = p[1];
-    z = p[2];
+  const int i0 = blockIdx.y * kTile;
+  const int nt = tgt_count ? min(max(tgt_count[b], 0), NB) : NB;
+  T* orow = out + static_cast<size_t>(b) * NB;
+  if (i0 >= nt) {  // no real target in this tile: the whole block leaves
+    const int i = i0 + threadIdx.x;
+    if (i < NB) orow[i] = T(0);
+    return;
   }
-  const T x2 = x * x + y * y + z * z;
+
+  __shared__ __align__(16) T stage[kWarps][4 * kChunk];
+  __shared__ T stage_y2[kWarps][MATMUL ? kChunk : 1];
+  __shared__ T part[kWarps][kTile];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T tx[kPerThread], ty[kPerThread], tz[kPerThread], t2[kPerThread];
+  T acc[kPerThread], comp[kPerThread];
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    const int i = i0 + lane + 32 * r;  // lanes own neighbouring targets
+    tx[r] = ty[r] = tz[r] = T(0);
+    if (i < nt) {
+      const T* p = tgt + (static_cast<size_t>(b) * NB + i) * 3;
+      tx[r] = p[0];
+      ty[r] = p[1];
+      tz[r] = p[2];
+    }
+    t2[r] = tx[r] * tx[r] + ty[r] * ty[r] + tz[r] * tz[r];
+    acc[r] = T(0);
+    comp[r] = T(0);
+  }
   const T kappa = KID == kYukawa ? par[0] : T(0);
   const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
 
-  T acc = T(0);
-  T comp = T(0);
+  T* buf = stage[warp];
+  T* buf_y2 = stage_y2[warp];
   const int* row = idx + static_cast<size_t>(b) * S;
+  int g = 0;  // chunk counter over the row, the same in every warp
   for (int s = 0; s < S; ++s) {
     const int c = row[s];  // the same for every thread: uniform branch
-    T slot = T(0);
+    T slot[kPerThread];
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) slot[r] = T(0);
     if (c >= 0) {
+      const int n = src_count ? min(max(src_count[c], 0), m) : m;
       const T* cp = src + static_cast<size_t>(c) * m * 3;
       const T* cq = q + static_cast<size_t>(c) * m;
-      for (int j0 = 0; j0 < m; j0 += kChunk) {
-        const int n = min(kChunk, m - j0);
-        __syncthreads();  // the previous chunk is fully consumed
-        for (int t = threadIdx.x; t < n; t += kThreads) {
-          const T* pt = cp + static_cast<size_t>(j0 + t) * 3;
-          const T px = pt[0], py = pt[1], pz = pt[2];
-          sx[t] = px;
-          sy[t] = py;
-          sz[t] = pz;
-          sq[t] = cq[j0 + t];
-          if (MATMUL) sy2[t] = px * px + py * py + pz * pz;
+      for (int j0 = 0; j0 < n; j0 += kChunk, ++g) {
+        if (g % kWarps != warp) continue;  // another warp's chunk
+        const int len = min(kChunk, n - j0);
+        const int padded = (len + kUnroll - 1) / kUnroll * kUnroll;
+        __syncwarp();  // this warp's previous chunk is consumed
+        for (int t = lane; t < padded; t += 32) {
+          T px = T(0), py = T(0), pz = T(0), pq = T(0);
+          if (t < len) {
+            const T* pt = cp + static_cast<size_t>(j0 + t) * 3;
+            px = pt[0];
+            py = pt[1];
+            pz = pt[2];
+            pq = cq[j0 + t];
+          }
+          store_src(buf, t, px, py, pz, pq);
+          if (MATMUL) buf_y2[t] = px * px + py * py + pz * pz;
         }
-        __syncthreads();
-        if (active) {
-          for (int t = 0; t < n; ++t) {
-            T r2;
-            if (MATMUL) {
-              const T xy = x * sx[t] + y * sy[t] + z * sz[t];
-              r2 = fmax(x2 + sy2[t] - T(2) * xy, T(0));
-            } else {
-              T dx = x - sx[t], dy = y - sy[t], dz = z - sz[t];
-              if (PERIODIC) {
-                dx = fold(dx, Lx, iLx);
-                dy = fold(dy, Ly, iLy);
-                dz = fold(dz, Lz, iLz);
+        __syncwarp();
+        for (int t = 0; t < padded; t += kUnroll) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const Src<T> sv = load_src(buf, t + u);
+            const T sy2 = MATMUL ? buf_y2[t + u] : T(0);
+#pragma unroll
+            for (int r = 0; r < kPerThread; ++r) {
+              T r2;
+              if (MATMUL) {
+                const T xy = tx[r] * sv.x + ty[r] * sv.y + tz[r] * sv.z;
+                r2 = fmax(t2[r] + sy2 - T(2) * xy, T(0));
+              } else {
+                T dx = tx[r] - sv.x, dy = ty[r] - sv.y, dz = tz[r] - sv.z;
+                if (PERIODIC) {
+                  dx = fold(dx, Lx, iLx);
+                  dy = fold(dy, Ly, iLy);
+                  dz = fold(dz, Lz, iLz);
+                }
+                r2 = dx * dx + dy * dy + dz * dz;
               }
-              r2 = dx * dx + dy * dy + dz * dz;
+              slot[r] = add_pair<T, KID>(slot[r], r2, sv.q, kappa);
             }
-            slot += green<T, KID>(r2, kappa) * sq[t];
           }
         }
       }
     }
-    if (KAHAN) {
-      const T yk = slot - comp;
-      const T ts = acc + yk;
-      comp = (ts - acc) - yk;
-      acc = ts;
-    } else {
-      acc += slot;
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      if (KAHAN) {
+        const T yk = slot[r] - comp[r];
+        const T ts = acc[r] + yk;
+        comp[r] = (ts - acc[r]) - yk;
+        acc[r] = ts;
+      } else {
+        acc[r] += slot[r];
+      }
     }
   }
-  if (active) out[static_cast<size_t>(b) * NB + i] = acc;
+
+  // The four warps' partial sums of each target, added in warp order by
+  // the thread that owns the target's output slot.
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) part[warp][lane + 32 * r] = acc[r];
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int i = i0 + t;
+  if (i < NB) {
+    T sum = T(0);
+    if (i < nt) {
+      T cmp = T(0);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        if (KAHAN) {
+          const T yk = part[w][t] - cmp;
+          const T ts = sum + yk;
+          cmp = (ts - sum) - yk;
+          sum = ts;
+        } else {
+          sum += part[w][t];
+        }
+      }
+    }
+    orow[i] = sum;
+  }
 }
 
+struct Args {
+  const int* idx;
+  const int* tgt_count;
+  const int* src_count;
+  int B, S, NB, m;
+};
+
 template <typename T, int KID, bool PERIODIC, bool KAHAN, bool MATMUL>
-void launch_one(const int* idx, const T* par, const T* tgt, const T* src,
-                const T* q, T* out, int B, int S, int NB, int m, T Lx, T Ly,
-                T Lz, cudaStream_t stream) {
-  const dim3 grid(B, (NB + kThreads - 1) / kThreads);
+void launch_one(const Args& a, const T* par, const T* tgt, const T* src,
+                const T* q, T* out, T Lx, T Ly, T Lz, cudaStream_t stream) {
+  const dim3 grid(a.B, (a.NB + kTile - 1) / kTile);
   batch_cluster_kernel<T, KID, PERIODIC, KAHAN, MATMUL>
-      <<<grid, kThreads, 0, stream>>>(idx, par, tgt, src, q, out, S, NB, m,
-                                      Lx, Ly, Lz);
+      <<<grid, kThreads, 0, stream>>>(a.idx, par, tgt, src, q, a.tgt_count,
+                                      a.src_count, out, a.S, a.NB, a.m, Lx,
+                                      Ly, Lz);
 }
 
 template <typename T, int KID, bool KAHAN>
-void launch_space(const int* idx, const T* par, const T* tgt, const T* src,
-                  const T* q, T* out, int B, int S, int NB, int m,
-                  int periodic, int matmul, T Lx, T Ly, T Lz,
-                  cudaStream_t st) {
+void launch_space(const Args& a, const T* par, const T* tgt, const T* src,
+                  const T* q, T* out, int periodic, int matmul, T Lx, T Ly,
+                  T Lz, cudaStream_t st) {
   if (periodic)
-    launch_one<T, KID, true, KAHAN, false>(idx, par, tgt, src, q, out, B, S,
-                                           NB, m, Lx, Ly, Lz, st);
+    launch_one<T, KID, true, KAHAN, false>(a, par, tgt, src, q, out, Lx, Ly,
+                                           Lz, st);
   else if (matmul)
-    launch_one<T, KID, false, KAHAN, true>(idx, par, tgt, src, q, out, B, S,
-                                           NB, m, Lx, Ly, Lz, st);
+    launch_one<T, KID, false, KAHAN, true>(a, par, tgt, src, q, out, Lx, Ly,
+                                           Lz, st);
   else
-    launch_one<T, KID, false, KAHAN, false>(idx, par, tgt, src, q, out, B, S,
-                                            NB, m, Lx, Ly, Lz, st);
+    launch_one<T, KID, false, KAHAN, false>(a, par, tgt, src, q, out, Lx, Ly,
+                                            Lz, st);
 }
 
 template <typename T>
-int launch(const int* idx, const T* par, const T* tgt, const T* src,
-           const T* q, T* out, int B, int S, int NB, int m, int kernel_id,
-           int periodic, int kahan, int matmul, T Lx, T Ly, T Lz,
-           cudaStream_t st) {
+int launch(const Args& a, const T* par, const T* tgt, const T* src,
+           const T* q, T* out, int kernel_id, int periodic, int kahan,
+           int matmul, T Lx, T Ly, T Lz, cudaStream_t st) {
   if (kernel_id != kCoulomb && kernel_id != kYukawa)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B > 0 && NB > 0) {
+  if (a.B > 0 && a.NB > 0) {
     if (kernel_id == kCoulomb) {
       if (kahan)
-        launch_space<T, kCoulomb, true>(idx, par, tgt, src, q, out, B, S, NB,
-                                        m, periodic, matmul, Lx, Ly, Lz, st);
+        launch_space<T, kCoulomb, true>(a, par, tgt, src, q, out, periodic,
+                                        matmul, Lx, Ly, Lz, st);
       else
-        launch_space<T, kCoulomb, false>(idx, par, tgt, src, q, out, B, S, NB,
-                                         m, periodic, matmul, Lx, Ly, Lz, st);
+        launch_space<T, kCoulomb, false>(a, par, tgt, src, q, out, periodic,
+                                         matmul, Lx, Ly, Lz, st);
     } else {
       if (kahan)
-        launch_space<T, kYukawa, true>(idx, par, tgt, src, q, out, B, S, NB,
-                                       m, periodic, matmul, Lx, Ly, Lz, st);
+        launch_space<T, kYukawa, true>(a, par, tgt, src, q, out, periodic,
+                                       matmul, Lx, Ly, Lz, st);
       else
-        launch_space<T, kYukawa, false>(idx, par, tgt, src, q, out, B, S, NB,
-                                        m, periodic, matmul, Lx, Ly, Lz, st);
+        launch_space<T, kYukawa, false>(a, par, tgt, src, q, out, periodic,
+                                        matmul, Lx, Ly, Lz, st);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -203,26 +358,35 @@ int launch(const int* idx, const T* par, const T* tgt, const T* src,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Pointers are device pointers,
-// `stream` the caller's cudaStream_t; the launch is asynchronous and the
-// return value is cudaGetLastError() right after it (0 = launched).
+// `stream` the caller's cudaStream_t; tgt_count (B,) and src_count (C,)
+// may be null (every target slot and every source point is real). The
+// launch is asynchronous and the return value is cudaGetLastError() right
+// after it (0 = launched).
 extern "C" int bc_eval_f32(const int* idx, const float* par, const float* tgt,
-                           const float* src, const float* q, float* out,
-                           int B, int S, int NB, int m, int kernel_id,
-                           int periodic, int kahan, int matmul, double Lx,
-                           double Ly, double Lz, void* stream) {
-  return launch<float>(idx, par, tgt, src, q, out, B, S, NB, m, kernel_id,
-                       periodic, kahan, matmul, static_cast<float>(Lx),
-                       static_cast<float>(Ly), static_cast<float>(Lz),
+                           const float* src, const float* q,
+                           const int* tgt_count, const int* src_count,
+                           float* out, int B, int S, int NB, int m,
+                           int kernel_id, int periodic, int kahan, int matmul,
+                           double Lx, double Ly, double Lz, void* stream) {
+  const Args a{idx, tgt_count, src_count, B, S, NB, m};
+  return launch<float>(a, par, tgt, src, q, out, kernel_id, periodic, kahan,
+                       matmul, static_cast<float>(Lx), static_cast<float>(Ly),
+                       static_cast<float>(Lz),
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bc_eval_f64(const int* idx, const double* par,
                            const double* tgt, const double* src,
-                           const double* q, double* out, int B, int S, int NB,
-                           int m, int kernel_id, int periodic, int kahan,
-                           int matmul, double Lx, double Ly, double Lz,
-                           void* stream) {
-  return launch<double>(idx, par, tgt, src, q, out, B, S, NB, m, kernel_id,
-                        periodic, kahan, matmul, Lx, Ly, Lz,
-                        static_cast<cudaStream_t>(stream));
+                           const double* q, const int* tgt_count,
+                           const int* src_count, double* out, int B, int S,
+                           int NB, int m, int kernel_id, int periodic,
+                           int kahan, int matmul, double Lx, double Ly,
+                           double Lz, void* stream) {
+  const Args a{idx, tgt_count, src_count, B, S, NB, m};
+  return launch<double>(a, par, tgt, src, q, out, kernel_id, periodic, kahan,
+                        matmul, Lx, Ly, Lz, static_cast<cudaStream_t>(stream));
 }
+
+// The launch geometry, for the wrapper's grid check and the accounting of
+// swept pairs: 0 -> targets per block, 1 -> the source unroll.
+extern "C" int bc_geometry(int what) { return what == 0 ? kTile : kUnroll; }

@@ -103,18 +103,28 @@ def batch_cluster_eval(
     backend: str = "auto",
     kahan: bool = False,
     r2_mode: str = "diff",
+    tgt_count: torch.Tensor | None = None,  # (B,) real targets per row
+    src_count: torch.Tensor | None = None,  # (C,) real points per cluster
 ) -> torch.Tensor:
-    """phi (B, NB) = sum over list slots of batch-cluster interactions."""
+    """phi (B, NB) = sum over list slots of batch-cluster interactions.
+
+    With counts, only the first `src_count[c]` points of a cluster are
+    summed and phi is 0 on target slots at or beyond `tgt_count[b]` (the
+    count contract of `kernels/batch_cluster.py`)."""
     if resolve_backend(backend, tgt) == "cuda":
         par = pack_params(kernel.params if params is None else params,
                           dtype=tgt.dtype, device=tgt.device)
+        counts = [None if c is None else c.to(torch.int32).contiguous()
+                  for c in (tgt_count, src_count)]
         return _bc.batch_cluster_eval_cuda(
             idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
             src_pts.contiguous(), src_q.contiguous(), kernel=kernel,
-            space=space, kahan=kahan, r2_mode=r2_mode)
+            space=space, kahan=kahan, r2_mode=r2_mode, tgt_count=counts[0],
+            src_count=counts[1])
     return _bc.batch_cluster_eval_plain(
         idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
-        kahan=kahan, r2_mode=r2_mode)
+        kahan=kahan, r2_mode=r2_mode, tgt_count=tgt_count,
+        src_count=src_count)
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,49 @@ def test_batch_cluster_kernel_matches_plain(cuda_device, dtype, periodic,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_batch_cluster_kernel_counts_match_plain(cuda_device, dtype,
+                                                 periodic, kahan):
+    """Target and source counts: ragged, a row and a cluster with count 0,
+    counts off the unroll and the 128-target tile; phi is exactly 0 on
+    padded target slots, and the real slots match the plain version."""
+    rng = np.random.default_rng(1)
+    B, S, NB, C, m = 5, 7, 300, 9, 301
+    qlo = -1.0 if dtype == torch.float32 else 0.0
+    tgt = rng.uniform(-1, 1, (B, NB, 3))
+    src = rng.uniform(-1, 1, (C, m, 3))
+    tgt[1, 0] = src[0, 0]                      # coincident pair
+    idx = rng.integers(-1, C, (B, S))
+    idx[:, 3] = -1                             # interior sentinels
+    idx[1, 0] = 0
+    idx[2, 1] = C - 1                          # the empty cluster
+    tc = np.array([0, NB, 129, 7, 250], dtype=np.int32)
+    sc = rng.integers(1, m + 1, C).astype(np.int32)
+    sc[0], sc[1], sc[C - 1] = m, 5, 0
+    dev = cuda_device
+    t = [torch.as_tensor(a, dtype=dtype, device=dev)
+         for a in (tgt, src, rng.uniform(qlo, 1, (C, m)))]
+    it = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+    counts = dict(tgt_count=torch.as_tensor(tc, device=dev),
+                  src_count=torch.as_tensor(sc, device=dev))
+    space = PeriodicBox((1.5, 2.0, 1.7)) if periodic else FREE
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-12, 0.0)
+    lib = bcm._build.load("batch_cluster", bcm._SIGNATURES)
+    assert lib.bc_geometry(0) == bcm._TARGETS_PER_BLOCK
+    assert lib.bc_geometry(1) == bcm._SOURCE_UNROLL
+    pad = torch.arange(NB, device=dev)[None] >= counts["tgt_count"][:, None]
+    for kern in (coulomb(), yukawa(0.5)):
+        got = ops.batch_cluster_eval(it, *t, kernel=kern, space=space,
+                                     kahan=kahan, **counts)
+        want = ops.batch_cluster_eval(it, *t, kernel=kern, space=space,
+                                      kahan=kahan, backend="torch", **counts)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        assert (got[pad] == 0).all() and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("degree", [1, 4, 8, 14])
 def test_modified_charges_kernel_matches_plain(cuda_device, dtype, degree):
     rng = np.random.default_rng(degree)

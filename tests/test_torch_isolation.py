@@ -45,5 +45,11 @@ def test_cuda_sources_are_present():
     for name in names:
         text = open(os.path.join(csrc, name)).read()
         assert 'extern "C"' in text and "cudaGetLastError" in text
-        # IEEE 1/sqrt and division: no approximate intrinsics
+        text = re.sub(r"//.*", "", text)                # the code only
+        # IEEE division and exp, and no approximate intrinsic but the one
+        # f32 reciprocal square root of the batch-cluster pair (MUFU.RSQ,
+        # within 2 ulp; f64 keeps the IEEE 1/sqrt)
         assert not re.search(r"\b(rsqrtf?|__fdividef|__expf)\s*\(", text)
+        assert text.count("rsqrt.approx") == (name == "batch_cluster.cu")
+    from repro_torch.kernels import _build
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
