@@ -16,10 +16,14 @@ Phases (each asserts; any failure exits non-zero):
     counts, counts off the unroll and the tile; phi must be exactly 0 on
     padded target slots); f32 rtol/atol 2e-4, f64 rtol 1e-12 (f64 cases
     use positive charges, so no entry cancels towards 0);
- 3. modified_charges kernel vs its plain version at degrees 1, 4, 8, 14
-    with random points, exact hits on the nodes and center-filled
-    padding; f32 rtol 3e-3 / atol 3e-4, f64 rtol 1e-10 / atol 1e-12
-    times max|q_hat| (signed sums over up to 4096 particles);
+ 3. modified_charges kernel vs its plain version at degrees 1, 4, 8, 14:
+    the dense (C, m) form with random points, exact hits on the nodes and
+    center-filled padding, and the ranged form over ragged node ranges
+    (counts 0 and 1, at the tile and at the chunk size, a node spanning
+    the others), two launches a call and bitwise equal calls; f32 rtol
+    3e-3 / atol 3e-4, f64 rtol 1e-10 / atol 1e-12 times max|q_hat|
+    (signed sums over up to 4096 particles; the ranged atol is relative
+    to max|q_hat| in f32 too: its sums run over 12,000 particles);
  4. the main path: the paper's Fig. 4 setting (theta 0.7, degree 8,
     N_L = N_B = 2000, Coulomb, f32) at N = 10^6 uniform in [-1,1]^3
     with charges uniform in [-1,1]. Plan, one cold and 7 warm
@@ -28,8 +32,10 @@ Phases (each asserts; any failure exits non-zero):
     and the modified charges against their plain versions on the
     tensors execute feeds them (there the atol is relative to
     max|q_hat| or median|phi|: the sums run over up to 10^6 terms), and
-    the launch counters of the run (modified charges: one launch per
-    tree level, plus the split reduction on levels that split); per
+    the launch counters of the run (modified charges: two launches per
+    execute, the chunk kernel and the per-node sum); the modified
+    charges' chunks, particle-levels swept against needed, and the
+    registers and spills of their f32 n+1 = 9 instantiation; per
     batch-cluster lane, the pairs its launch geometry sweeps beside the
     pairs the data needs, the tiles it launches beside those with a
     target, and the SM clock and power nvidia-smi reads while it runs;
@@ -62,6 +68,9 @@ PEAK_BYTES = 3.35e12   # HBM3 bytes/s
 # Operations per (target, source) pair of the batch-cluster sum:
 # 3 sub + 3 mul + 2 add (r^2), sqrt, divide, multiply by q, add.
 FLOPS_PER_PAIR = 12
+# Particles of the main path (Fig. 4) and of the periodic phase.
+MAIN_N = 1_000_000
+PERIODIC_N = 200_000
 
 
 def smi_line() -> str:
@@ -265,6 +274,8 @@ def phase_modified_charges(dev):
     import numpy as np
     import torch
     from repro_torch.core import cheby
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import modified_charges as mcm
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(12)
@@ -297,11 +308,89 @@ def phase_modified_charges(dev):
                     f"modified_charges {dtype} degree={degree} C={C} m={m}",
                     scale="max" if dtype == torch.float64 else None))
                 n += 1
+    lib = _build.load("modified_charges", mcm._SIGNATURES)
+    for dtype in (torch.float32, torch.float64):
+        rtol, atol = (3e-3, 3e-4) if dtype == torch.float32 else (1e-10, 1e-12)
+        for degree in (1, 4, 8, 14):
+            tile = lib.mc_tile(dtype.itemsize, degree + 1)
+            args = ranged_case(rng, dtype, degree, dev, tile)
+            before = mcm.LAUNCHES
+            got = ops.modified_charges_ranged(*args, degree=degree,
+                                              backend="cuda")
+            assert mcm.LAUNCHES == before + 2, "two launches a call"
+            again = ops.modified_charges_ranged(*args, degree=degree,
+                                                backend="cuda")
+            assert torch.equal(got, again), "not bitwise deterministic"
+            want = ops.modified_charges_ranged(*args, degree=degree,
+                                               backend="torch")
+            assert (got[0] == 0).all() and (got[9] == 0).all(), "empty node"
+            worst[dtype] = max(worst[dtype], close(
+                got, want, rtol, atol,
+                f"modified_charges ranged {dtype} degree={degree}",
+                scale="max"))
+            n += 1
     torch.cuda.synchronize()
-    print(f"[3] modified_charges vs plain: {n} cases ok; max abs err f32 "
-          f"{worst[torch.float32]:.3e} (rtol 3e-3 atol 3e-4), f64 "
-          f"{worst[torch.float64]:.3e} (rtol 1e-10, atol 1e-12 max|q_hat|)",
-          flush=True)
+    print(f"[3] modified_charges vs plain: {n} cases ok (dense and ranged); "
+          f"max abs err f32 {worst[torch.float32]:.3e} (rtol 3e-3 atol 3e-4"
+          f"; ranged: times max|q_hat|), f64 {worst[torch.float64]:.3e} "
+          f"(rtol 1e-10, atol 1e-12 max|q_hat|)", flush=True)
+
+
+def ranged_case(rng, dtype, degree, dev, tile):
+    """Ragged node ranges for the ranged modified charges: counts 0 and 1,
+    at the kernel's `tile` and at the chunk size, each node's points in
+    its own box with some ON its Chebyshev nodes (exact hits), and a
+    last node spanning all the others, as a parent level does. Returns
+    the arguments of `ops.modified_charges_ranged`."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cheby
+    from repro_torch.kernels import modified_charges as mcm
+
+    def dev_t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    p = mcm.CHUNK
+    counts = [0, 1, tile - 1, tile, tile + 1, p - 1, p, p + 1, 3 * p + 5,
+              0, 37]
+    lo = dev_t(rng.uniform(-1, 0, (len(counts), 3)))
+    hi = lo + dev_t(rng.uniform(0.3, 1, (len(counts), 3)))
+    grids = cheby.cluster_grid(lo, hi, degree)
+    parts = []
+    for i, c in enumerate(counts):
+        x = lo[i] + (hi[i] - lo[i]) * dev_t(rng.uniform(0, 1, (c, 3)))
+        k = min(c // 3, grids.shape[1])
+        x[:k] = grids[i, :k]                     # exact hits
+        parts.append(x)
+    pts = torch.cat(parts)
+    n = pts.shape[0]
+    start = np.append(np.concatenate([[0], np.cumsum(counts)[:-1]]), 0)
+    lo = torch.cat([lo, pts.amin(0, keepdim=True)])
+    hi = torch.cat([hi, pts.amax(0, keepdim=True)])
+    chunks, ptr = mcm.chunk_table(start, counts + [n])
+    return (pts, dev_t(rng.uniform(-1, 1, n)),
+            torch.as_tensor(chunks, device=dev),
+            torch.as_tensor(ptr, device=dev), lo, hi)
+
+
+def ptxas_usage(log):
+    """{kernel symbol: (registers, spill store bytes, spill load bytes)}
+    from an `nvcc -Xptxas -v` report."""
+    import re
+    out, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
 
 
 def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_elems):
@@ -346,11 +435,12 @@ def phase_main(dev, smi):
     from repro_torch.core.api import TreecodeSolver
     from repro_torch.core import eval as ev
     from repro_torch.core.direct import direct_sum
+    from repro_torch.kernels import _build
     from repro_torch.kernels import batch_cluster as bcm
     from repro_torch.kernels import modified_charges as mcm
     from repro_torch.kernels import ops
 
-    n = 1_000_000
+    n = MAIN_N
     cfg = fig4(theta=0.7, degree=8)
     rng = np.random.default_rng(2020)
     x = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
@@ -369,8 +459,9 @@ def phase_main(dev, smi):
           f"{st['num_leaves']}, batches {st['num_batches']}, depth "
           f"{st['tree_depth']}; tgt slab {tuple(a['tgt_batched'].shape)}, "
           f"approx {tuple(a['approx_idx'].shape)}, direct "
-          f"{tuple(a['direct_idx'].shape)}, levels "
-          f"{[tuple(g.shape) for g in a['bucket_gather']]}", flush=True)
+          f"{tuple(a['direct_idx'].shape)}, modified-charge chunks "
+          f"{a['mc_chunks'].shape[0]} of at most {mcm.CHUNK} particles",
+          flush=True)
 
     q = torch.as_tensor(q_np, device=dev)
     reps = 7
@@ -386,7 +477,7 @@ def phase_main(dev, smi):
                 "modified_charges": mcm.LAUNCHES}
     calls = 1 + reps
     assert launches["batch_cluster"] >= 2 * calls, launches
-    assert launches["modified_charges"] >= calls, launches
+    assert launches["modified_charges"] == 2 * calls, launches
     print(f"[4] execute: cold {cold_ms:.2f} ms, warm median {warm_ms:.3f} ms "
           f"over {reps} (CUDA events); launches over {calls} executes "
           f"{launches}", flush=True)
@@ -407,22 +498,45 @@ def phase_main(dev, smi):
     # ops entry points execute calls
     degree = cfg.degree
     inp = ev.kernel_inputs(a, q, degree=degree)
-    mc_err = 0.0
-    for _, pts, qb, lo, hi in inp.levels:
-        got = ops.modified_charges(pts, qb, lo, hi, degree=degree,
-                                   backend="cuda")
-        want = ops.modified_charges(pts, qb, lo, hi, degree=degree,
-                                    backend="torch")
-        # q_hat sums bounded Lagrange terms: no entry is an outlier, so
-        # atol follows max|q_hat|
-        mc_err = max(mc_err, close(got, want, 3e-3, 3e-4,
-                                   f"modified_charges level C={pts.shape[0]}"
-                                   f" m={pts.shape[1]}", scale="max"))
-    qhat = ev.compute_qhat_direct(inp.levels, a["node_lo"].shape[0],
-                                  degree=degree, backend="cuda")
+    mc_args = (a["src_sorted"], inp.q_sorted, a["mc_chunks"],
+               a["mc_chunk_ptr"], a["node_lo"], a["node_hi"])
+    qhat = ops.modified_charges_ranged(*mc_args, degree=degree,
+                                       backend="cuda")
+    qhat_plain = ops.modified_charges_ranged(*mc_args, degree=degree,
+                                             backend="torch")
+    # q_hat sums bounded Lagrange terms: no entry is an outlier, so atol
+    # follows max|q_hat|
+    mc_err = close(qhat, qhat_plain, 3e-3, 3e-4,
+                   "modified_charges on every node", scale="max")
+    assert torch.equal(qhat, ev.compute_qhat_direct(
+        a, inp.q_sorted, degree=degree, backend="cuda")), "not deterministic"
+    kern = solver.kernel
+    # f32 rounding in q_hat against an f64 q_hat of the same inputs, and
+    # the error of execute's potential with that q_hat (rounded to f32)
+    # in the approximation lane: how much of the error q_hat's sums hold
+    qhat64 = ops.modified_charges_ranged(
+        *(t.double() for t in mc_args[:2]), *mc_args[2:4],
+        *(t.double() for t in mc_args[4:]), degree=degree, backend="torch")
+    top = qhat64.abs().max().item()
+
+    def approx_lane(qh):
+        return ops.batch_cluster_eval(
+            a["approx_idx"], a["tgt_batched"], inp.grids, qh, kernel=kern,
+            backend="cuda", tgt_count=inp.tgt_count).reshape(-1)
+
+    swap = approx_lane(qhat64.float()) - approx_lane(qhat)
+    err64 = rel2((phi + swap[a["gather_index"]])[sample].double(), ref)
+    dev64 = [(t.double() - qhat64).abs().max().item() / top
+             for t in (qhat, qhat_plain)]
+    print(f"[4] on the real plan: modified_charges on all {qhat.shape[0]} "
+          f"nodes max abs err {mc_err:.3e} (rtol 3e-3, atol 3e-4 max|q_hat| "
+          f"= {3e-4 * top:.3e}), two calls bitwise equal; against an f64 "
+          f"q_hat, max abs err / max|q_hat| {dev64[0]:.3e} (kernel), "
+          f"{dev64[1]:.3e} (plain f32); execute's error with the f64 q_hat "
+          f"in the approximation lane {err64:.3e} (with the kernel's "
+          f"{err:.3e})", flush=True)
     lanes = {"approx": (a["approx_idx"], inp.grids, qhat),
              "direct": (a["direct_idx"], inp.leaf_pts, inp.leaf_q)}
-    kern = solver.kernel
     tgt = a["tgt_batched"]
     b = tgt.shape[0]
     rows = torch.arange(0, b, max(1, b // 32), device=dev)
@@ -455,24 +569,13 @@ def phase_main(dev, smi):
               f"{mag.square().mean().sqrt().item():.4e} over {got.numel()} "
               f"real target slots (rtol 2e-4, atol 2e-4 median|phi|)",
               flush=True)
-    print(f"[4] on the real plan: modified_charges all {len(inp.levels)} "
-          f"levels max abs err {mc_err:.3e} (rtol 3e-3, atol 3e-4 "
-          f"max|q_hat|); max|phi| {phi.abs().max().item():.4e}", flush=True)
+    print(f"[4] max|phi| {phi.abs().max().item():.4e}", flush=True)
 
-    mc_ms = event_ms(lambda: [ops.modified_charges(
-        p, qb, lo, hi, degree=degree, backend="cuda")
-        for _, p, qb, lo, hi in inp.levels], 5)
-    mc_plain_ms = event_ms(lambda: [ops.modified_charges(
-        p, qb, lo, hi, degree=degree, backend="torch")
-        for _, p, qb, lo, hi in inp.levels], 1)
+    mc_ms = event_ms(lambda: ops.modified_charges_ranged(
+        *mc_args, degree=degree, backend="cuda"), 20)
+    mc_plain_ms = event_ms(lambda: ops.modified_charges_ranged(
+        *mc_args, degree=degree, backend="torch"), 1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_level = []
-    for _, p, qb, lo, hi in inp.levels:
-        ms = event_ms(lambda: ops.modified_charges(
-            p, qb, lo, hi, degree=degree, backend="cuda"), 5)
-        splits = mcm.split_count(p.shape[0], p.shape[1], 256, sms)
-        per_level.append(f"C={p.shape[0]} m={p.shape[1]} splits={splits}: "
-                         f"{ms:.3f} ms")
     lane_ms, lane_plain_ms, lane_bound, lane_clock = {}, {}, {}, {}
     leaf_counts = (a["leaf_gather"] >= 0).sum(1)
     n1c = torch.full((a["node_lo"].shape[0],), (degree + 1) ** 3,
@@ -516,9 +619,33 @@ def phase_main(dev, smi):
               f"{full['pairs']:.4e}), {geo['tiles']} of "
               f"{geo['tiles_launched']} tiles hold a target; {clock}",
               flush=True)
-    print(f"[4] modified_charges, {len(inp.levels)} levels: {mc_ms:.3f} ms "
-          f"(plain {mc_plain_ms:.1f} ms), bound {mc_bound_ms:.4f} ms by "
-          f"{mc_side} ({smi}); by level: {'; '.join(per_level)}",
+    sizes = (a["mc_chunks"][:, 2] - a["mc_chunks"][:, 1]).double()
+    tile = _build.load("modified_charges", mcm._SIGNATURES).mc_tile(
+        4, degree + 1)
+    needed = float(plan.inner.tree.count.sum())
+    swept = sizes.sum().item()
+    tile_slots = ((sizes / tile).ceil() * tile).sum().item()
+    padded = float(sum(g.numel() for g in a["bucket_gather"]))
+    regs = [v for k, v in ptxas_usage(
+        _build.BUILD_LOG.get("modified_charges", "")).items()
+        if "mc_chunk_kernelIfLi9E" in k]
+    clock = "no nvidia-smi samples"
+    if lane_clock["direct"] is not None:
+        mhz = lane_clock["direct"][0]
+        # warp-instruction issue slots (4 schedulers per SM) per
+        # particle-level at the clock sampled during the direct lane
+        slots = mc_ms * 1e-3 * mhz * 1e6 * sms * 4 / needed
+        clock = (f"{slots:.1f} warp-issue slots per particle-level at "
+                 f"{mhz:.0f} MHz")
+    print(f"[4] modified_charges: {mc_ms:.3f} ms (plain {mc_plain_ms:.1f} "
+          f"ms), bound {mc_bound_ms:.4f} ms by {mc_side} ({smi}); "
+          f"{launches['modified_charges']} launches over {calls} executes; "
+          f"{a['mc_chunks'].shape[0]} chunks = blocks of the chunk kernel "
+          f"({tile}-particle tiles); particle-levels needed {needed:.6g}, "
+          f"swept {swept:.6g}, tile slots {tile_slots:.6g} (the per-level "
+          f"power-of-two buckets hold {padded:.6g}); f32 n+1=9 kernel "
+          f"(registers, spill store bytes, spill load bytes) "
+          f"{regs[0] if regs else 'not in the build log'}; {clock}",
           flush=True)
 
     report = [
@@ -588,7 +715,7 @@ def phase_periodic(dev):
     from repro_torch.core.space import PeriodicBox
     from repro_torch.kernels import batch_cluster as bcm
 
-    n = 200_000
+    n = PERIODIC_N
     # points inside the primary cell, so the plan's f32 wrap is exact and
     # the f64 oracle sees the very coordinates the treecode does
     box = PeriodicBox((2.0, 2.0, 2.0))
@@ -641,10 +768,16 @@ def main() -> int:
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s "
           f"{ {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()} }",
           flush=True)
-    for name, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line and " 0 bytes" not in line:
-                print(f"    {name}: {line.strip()}")
+    for line in _build.BUILD_LOG.get("batch_cluster", "").splitlines():
+        if "Used" in line or "spill" in line and " 0 bytes" not in line:
+            print(f"    batch_cluster: {line.strip()}")
+    usage = ptxas_usage(_build.BUILD_LOG.get("modified_charges", ""))
+    if usage:
+        spills = {k: v for k, v in usage.items() if v[1] or v[2]}
+        print(f"    modified_charges: {len(usage)} kernels, "
+              f"{min(v[0] for v in usage.values())}-"
+              f"{max(v[0] for v in usage.values())} registers, spills "
+              f"{spills or 'none'}", flush=True)
     # the main path's variant: f32, Coulomb, free space, no Kahan, diff r2
     loop = sass_inner_loop(_build.library_path("batch_cluster"),
                            "batch_cluster_kernelIfLi0ELb0ELb0ELb0E")

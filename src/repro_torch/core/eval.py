@@ -4,9 +4,10 @@ PyTorch port of the single-device path of `repro/core/eval.py`. The host
 packs the tree, batches and interaction lists into static padded arrays
 once (`prepare_plan`); `execute` then computes
 
-    modified charges (one launch per tree level)  ->  cluster Chebyshev
-    grids  ->  approximation lane over the approx lists  ->  direct lane
-    over the leaf lists  ->  un-permutation back to input order.
+    modified charges (one ranged launch over every node)  ->  cluster
+    Chebyshev grids  ->  approximation lane over the approx lists  ->
+    direct lane over the leaf lists  ->  un-permutation back to input
+    order.
 
 The packing is NumPy and identical to the reference's, so the same
 points give the same plan arrays; `arrays_from_numpy` moves them onto
@@ -31,6 +32,7 @@ from repro_torch.core.potentials import Kernel
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.core.tree import Batches, Tree, build_batches, build_tree
 from repro_torch.kernels import ops
+from repro_torch.kernels.modified_charges import chunk_table
 from repro_torch.obs import trace as _trace
 
 
@@ -46,6 +48,8 @@ def _round_pow2(x: int) -> int:
 # interaction lists stay int32, the CUDA kernel's index type.
 _INDEX_KEYS = ("src_perm", "gather_index", "leaf_gather", "bucket_gather",
                "bucket_nodes", "parent_of")
+#: The modified-charge chunk table `arrays_from_numpy` adds (int32).
+CHUNK_KEYS = ("mc_chunks", "mc_chunk_ptr")
 
 
 @dataclasses.dataclass
@@ -77,8 +81,12 @@ def arrays_from_numpy(arrays: dict, *, device, dtype) -> dict:
     `arrays` is a packed plan dict of NumPy arrays (tuples of per-level
     buckets included), from this module's packing or from a reference
     plan's arrays. Floating arrays become `dtype`, index tables int64,
-    interaction lists int32, masks bool/uint8, all on `device`."""
+    interaction lists int32, masks bool/uint8, all on `device`. The
+    modified charges' chunk table (`CHUNK_KEYS`) is derived here from
+    the per-level buckets, once per plan."""
     device = torch.device(device)
+    arrays = dict(arrays)
+    arrays.update(zip(CHUNK_KEYS, chunk_table(*node_ranges(arrays))))
 
     def one(key, a):
         a = np.asarray(a)
@@ -99,6 +107,22 @@ def arrays_from_numpy(arrays: dict, *, device, dtype) -> dict:
         else:
             out[key] = one(key, a)
     return out
+
+
+def node_ranges(arrays: dict):
+    """(start, count) int64 of every node's particle range in tree order.
+
+    Each bucket row of a packed plan is the range table of one node, so
+    start = g[:, 0] and count = (g >= 0).sum(1); a node in no bucket
+    keeps count 0."""
+    num_nodes = np.asarray(arrays["node_lo"]).shape[0]
+    start = np.zeros(num_nodes, np.int64)
+    count = np.zeros(num_nodes, np.int64)
+    for g, nodes in zip(arrays["bucket_gather"], arrays["bucket_nodes"]):
+        g, nodes = np.asarray(g), np.asarray(nodes)
+        count[nodes] = (g >= 0).sum(1)
+        start[nodes] = np.maximum(g[:, 0], 0)
+    return start, count
 
 
 def prepare_plan(
@@ -212,8 +236,9 @@ def _pack(targets, sources, tree, batches, lists, dtype) -> dict:
     leaf_gather = _range_table(tree.start[tree.leaf_ids],
                                tree.count[tree.leaf_ids], nl_pad)
 
-    # Per-level cluster buckets for the modified-charge kernel, padded
-    # particle counts rounded up to powers of two.
+    # Per-level cluster buckets (the reference's packing, padded particle
+    # counts rounded up to powers of two); the executor reads them only
+    # through the chunk table `arrays_from_numpy` derives.
     bucket_gather, bucket_nodes = [], []
     for node_ids in tree.levels():
         m_pad = _round_pow2(int(tree.count[node_ids].max()))
@@ -241,21 +266,13 @@ def _pack(targets, sources, tree, batches, lists, dtype) -> dict:
     )
 
 
-def _gathered(src_sorted, q_sorted, gather, fill=None):
+def _gathered(src_sorted, q_sorted, gather):
     """(rows, pad, 3) points and (rows, pad) charges from a -1-padded
-    gather table.
-
-    `fill` (rows, 3) replaces padded coordinates: the modified-charge
-    kernel passes the cluster center so padded slots stay INSIDE the box
-    (a padded point outside it makes the alternating barycentric
-    denominator cancel to exactly 0 in f32 at degree 10, and 0/0 = NaN).
-    Charges on padding are always 0."""
+    gather table; padded slots hold the origin and charge 0."""
     valid = gather >= 0
     safe = gather.clamp(min=0)
-    pts = src_sorted[safe]
-    zero = torch.zeros((), dtype=pts.dtype, device=pts.device)
-    fill_b = zero if fill is None else fill[:, None, :]
-    pts = torch.where(valid[..., None], pts, fill_b)
+    zero = torch.zeros((), dtype=src_sorted.dtype, device=src_sorted.device)
+    pts = torch.where(valid[..., None], src_sorted[safe], zero)
     q = torch.where(valid, q_sorted[safe], zero)
     return pts, q
 
@@ -263,14 +280,11 @@ def _gathered(src_sorted, q_sorted, gather, fill=None):
 @dataclasses.dataclass
 class KernelInputs:
     """What `_execute_impl` feeds the kernels for one charge vector, apart
-    from q_hat (which the modified-charge kernel computes from `levels`).
-    `chip_smoke.py` holds the kernels against their plain versions on
-    these very tensors."""
+    from q_hat (which the modified-charge kernel computes from `q_sorted`
+    and the plan's chunk table). `chip_smoke.py` holds the kernels
+    against their plain versions on these very tensors."""
 
     q_sorted: torch.Tensor    # (N,) charges in tree order
-    # per tree level: node ids, points (C, m, 3) with the cluster center
-    # on padded slots, charges (C, m) with 0 there, lo and hi (C, 3)
-    levels: list
     grids: torch.Tensor       # (num_nodes, (n+1)^3, 3) Chebyshev grids
     leaf_pts: torch.Tensor    # (num_leaves, nl_pad, 3)
     leaf_q: torch.Tensor      # (num_leaves, nl_pad)
@@ -287,34 +301,24 @@ def kernel_inputs(arrays: dict, charges: torch.Tensor, *,
     The packing fills batch rows and leaves from slot 0, so the counts are
     the prefix lengths the batch-cluster kernel sweeps."""
     q_sorted = charges[arrays["src_perm"]]
-    lo, hi = arrays["node_lo"], arrays["node_hi"]
-    levels = []
-    for gidx, nodes in zip(arrays["bucket_gather"], arrays["bucket_nodes"]):
-        lo_n, hi_n = lo[nodes], hi[nodes]
-        pts, qb = _gathered(arrays["src_sorted"], q_sorted, gidx,
-                            fill=0.5 * (lo_n + hi_n))
-        levels.append((nodes, pts, qb, lo_n, hi_n))
     leaf_pts, leaf_q = _gathered(arrays["src_sorted"], q_sorted,
                                  arrays["leaf_gather"])
     return KernelInputs(
-        q_sorted=q_sorted, levels=levels,
-        grids=cheby.cluster_grid(lo, hi, degree),
+        q_sorted=q_sorted,
+        grids=cheby.cluster_grid(arrays["node_lo"], arrays["node_hi"],
+                                 degree),
         leaf_pts=leaf_pts, leaf_q=leaf_q,
         tgt_count=arrays["tgt_mask"].sum(1, dtype=torch.int32),
         leaf_count=(arrays["leaf_gather"] >= 0).sum(1, dtype=torch.int32))
 
 
-def compute_qhat_direct(levels, num_nodes: int, *, degree, backend):
+def compute_qhat_direct(arrays, q_sorted, *, degree, backend):
     """Paper-faithful q_hat: every cluster from its own particles (Eq. 12),
-    one modified-charge call per tree level of `KernelInputs.levels`."""
-    n1 = degree + 1
-    q = levels[0][2]
-    qhat = torch.zeros((num_nodes, n1 ** 3), dtype=q.dtype, device=q.device)
-    for nodes, pts, qb, lo_n, hi_n in levels:
-        # in-place index write where the reference used .at[nodes].set
-        qhat[nodes] = ops.modified_charges(
-            pts, qb, lo_n, hi_n, degree=degree, backend=backend)
-    return qhat
+    one ranged modified-charge call over every node's particle range."""
+    return ops.modified_charges_ranged(
+        arrays["src_sorted"], q_sorted, arrays["mc_chunks"],
+        arrays["mc_chunk_ptr"], arrays["node_lo"], arrays["node_hi"],
+        degree=degree, backend=backend)
 
 
 def _skin_routed_lists(arrays: dict, theta: float, space):
@@ -368,8 +372,8 @@ def _execute_impl(
     while every Chebyshev grid is all real points."""
     inp = kernel_inputs(arrays, charges, degree=degree)
     with _trace.span("eval.modified_charges"):
-        qhat = compute_qhat_direct(inp.levels, arrays["node_lo"].shape[0],
-                                   degree=degree, backend=backend)
+        qhat = compute_qhat_direct(arrays, inp.q_sorted, degree=degree,
+                                   backend=backend)
         _trace.sync(charges.device)
 
     tgt = arrays["tgt_batched"]

@@ -6,103 +6,143 @@ with the exact-hit handling of Sec. 2.3 and q_tilde = q / (D1 D2 D3);
 stage 2 (Eq. 15) accumulates the rank-1 tensor products into q_hat,
 flattened k3-fastest (the `cheby.cluster_grid` order).
 
-- `modified_charges_cuda` launches `csrc/modified_charges.cu`: one block
-  per (cluster, particle split), the (n+1)^3 outputs in registers,
-  reduced with IEEE FMAs (no tensor cores, never TF32), and a second
-  kernel, `reduce_splits`, that adds the splits in order when a level
-  has too few clusters to fill the card. Operations (through
-  shared-memory reads) bound it.
-- `modified_charges_plain` is the same function in plain PyTorch (the
-  reference's XLA path), used on the CPU and as the kernel's yardstick.
+The work is ranged: every node's particles are a contiguous range of the
+tree-ordered sources, cut into chunks of at most `CHUNK` particles by
+`chunk_table` (once per plan, on the host).
 
-Both take the per-dimension mapped nodes (C, 3, n+1) built by
-`ops._cluster_nodes`, so the exact-hit compare sees identical nodes.
+- `modified_charges_ranged_cuda` launches `csrc/modified_charges.cu`: one
+  block per chunk, a register-tiled outer product in IEEE FMAs (no tensor
+  cores, never TF32), then a second kernel that adds each node's chunk
+  partials in order. Operations bound it.
+- `modified_charges_ranged_plain` is the same function in plain PyTorch,
+  a chunked einsum over the same table: the CPU path, and the kernel's
+  yardstick on the card.
+- `modified_charges_plain` is the per-cluster form on padded (C, m)
+  blocks (the reference's XLA path).
+
+All take the per-dimension mapped nodes built by `ops._cluster_nodes`,
+so the exact-hit compare sees identical nodes.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core import cheby
 from repro_torch.kernels import _build
 
 #: Kernel launches since import (or the last reset by a caller): one for
-#: `modified_charges_kernel`, and one more for `reduce_splits` when a
-#: call splits its clusters' particles.
+#: `mc_chunk_kernel` and one for `mc_reduce` per call.
 LAUNCHES = 0
+
+#: Particles per chunk at most (one CUDA block each).
+CHUNK = 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-_SIGNATURES = {"mc_eval_f32": _SIG, "mc_eval_f64": _SIG, "mc_tile": (_I,)}
+_SIG = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
+_SIGNATURES = {"mc_eval_f32": _SIG, "mc_eval_f64": _SIG, "mc_tile": (_I, _I)}
 
-MAX_DEGREE = 14  # n + 1 <= 15: the kernel's register/shared-memory tables
+MAX_DEGREE = 14  # n + 1 <= 15: the kernel's instantiations
 
 
-def split_count(num_clusters: int, m: int, tile: int, sms: int) -> int:
-    """Particle splits per cluster so a launch has ~2 blocks per SM.
+def chunk_table(start, count, chunk: int = CHUNK):
+    """Cut each node's range [start, start+count) into chunks.
 
-    Whole tiles only, and no empty split."""
-    ntiles = max(1, -(-m // tile))
-    want = max(1, min(ntiles, -(-2 * sms // max(num_clusters, 1))))
-    per = -(-ntiles // want)
-    return -(-ntiles // per)
+    Returns (chunks, chunk_ptr) as int32 numpy arrays: chunks
+    (num_chunks, 3) rows (node, begin, end) of at most `chunk` particles,
+    each node's chunks contiguous and in order, and chunk_ptr
+    (num_nodes + 1,) such that node i owns rows chunk_ptr[i] to
+    chunk_ptr[i+1]. A node with count 0 owns no row."""
+    start = np.asarray(start, dtype=np.int64)
+    count = np.asarray(count, dtype=np.int64)
+    per = -(-count // chunk)
+    chunk_ptr = np.concatenate([[0], np.cumsum(per)])
+    node = np.repeat(np.arange(count.shape[0]), per)
+    k = np.arange(node.shape[0]) - chunk_ptr[node]
+    begin = start[node] + k * chunk
+    end = np.minimum(begin + chunk, start[node] + count[node])
+    return (np.stack([node, begin, end], axis=1).astype(np.int32),
+            chunk_ptr.astype(np.int32))
+
+
+def _check(what, tensors, dtype, dev):
+    for name, t in tensors.items():
+        if t.device != dev or not t.is_cuda:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected the "
+                             f"CUDA device {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected {dtype}")
+
+
+def modified_charges_ranged_cuda(pts: torch.Tensor, q: torch.Tensor,
+                                 chunks: torch.Tensor,
+                                 chunk_ptr: torch.Tensor,
+                                 nodes: torch.Tensor, w: torch.Tensor,
+                                 degree: int) -> torch.Tensor:
+    """q_hat (num_nodes, (n+1)^3) by the CUDA kernel.
+
+    pts (N, 3) and q (N,) tree-ordered particles; chunks (K, 3) and
+    chunk_ptr (num_nodes + 1,) int32 from `chunk_table`; nodes
+    (num_nodes, 3, n+1); w (n+1,): contiguous CUDA tensors on one device,
+    the floating ones float32 or float64 alike."""
+    global LAUNCHES
+    dev, dtype = pts.device, pts.dtype
+    what = "modified_charges_ranged_cuda"
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: dtype {dtype} (float32 or float64)")
+    _check(what, {"pts": pts, "q": q, "nodes": nodes, "w": w}, dtype, dev)
+    _check(what, {"chunks": chunks, "chunk_ptr": chunk_ptr}, torch.int32,
+           dev)
+    if not 1 <= degree <= MAX_DEGREE:
+        raise NotImplementedError(
+            f"{what}: degree {degree} outside 1..{MAX_DEGREE}")
+    n1 = degree + 1
+    num_nodes = chunk_ptr.shape[0] - 1
+    k = chunks.shape[0]
+    if (pts.dim() != 2 or pts.shape[1] != 3 or tuple(q.shape) != (len(pts),)
+            or chunks.dim() != 2 or chunks.shape[1] != 3
+            or tuple(nodes.shape) != (num_nodes, 3, n1)
+            or tuple(w.shape) != (n1,)):
+        raise ValueError(
+            f"{what}: shapes pts {tuple(pts.shape)}, q {tuple(q.shape)}, "
+            f"chunks {tuple(chunks.shape)}, chunk_ptr "
+            f"{tuple(chunk_ptr.shape)}, nodes {tuple(nodes.shape)}, w "
+            f"{tuple(w.shape)} do not match (N,3),(N,),(K,3),(M+1,),"
+            f"(M,3,n+1),(n+1,)")
+
+    lib = _build.load("modified_charges", _SIGNATURES)
+    n3 = n1 ** 3
+    out = torch.empty((num_nodes, n3), dtype=dtype, device=dev)
+    partial = torch.empty((k, n3), dtype=dtype, device=dev)
+    fn = lib.mc_eval_f32 if dtype == torch.float32 else lib.mc_eval_f64
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(pts.data_ptr(), q.data_ptr(), nodes.data_ptr(), w.data_ptr(),
+                chunks.data_ptr(), chunk_ptr.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), k, num_nodes, n1, stream)
+    _build.check(rc, "modified_charges")
+    LAUNCHES += (k > 0) + (num_nodes > 0)   # what the C entry launched
+    return out
 
 
 def modified_charges_cuda(pts: torch.Tensor, q: torch.Tensor,
                           nodes: torch.Tensor, w: torch.Tensor,
                           degree: int) -> torch.Tensor:
-    """q_hat (C, (n+1)^3) by the CUDA kernel.
+    """q_hat (C, (n+1)^3) by the CUDA kernel for C clusters of m points.
 
-    pts (C, m, 3) cluster particles (padding at the cluster center),
-    q (C, m) charges (0 on padding), nodes (C, 3, n+1), w (n+1,):
-    contiguous CUDA tensors on one device, float32 or float64 alike."""
-    global LAUNCHES
-    dev = pts.device
-    dtype = pts.dtype
-    for name, t in (("pts", pts), ("q", q), ("nodes", nodes), ("w", w)):
-        if t.device != dev or not t.is_cuda:
-            raise ValueError(f"modified_charges_cuda: {name} is on "
-                             f"{t.device}, expected the CUDA device {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"modified_charges_cuda: {name} must be "
-                             f"contiguous")
-        if t.dtype != dtype:
-            raise TypeError("modified_charges_cuda: pts, q, nodes and w "
-                            "must share one dtype")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"modified_charges_cuda: dtype {dtype} "
-                        f"(float32 or float64)")
-    if not 1 <= degree <= MAX_DEGREE:
-        raise NotImplementedError(
-            f"modified_charges_cuda: degree {degree} outside 1..{MAX_DEGREE}")
-    c, m, three = pts.shape
-    n1 = degree + 1
-    if (three != 3 or tuple(q.shape) != (c, m)
-            or tuple(nodes.shape) != (c, 3, n1) or tuple(w.shape) != (n1,)):
-        raise ValueError(
-            f"modified_charges_cuda: shapes pts {tuple(pts.shape)}, q "
-            f"{tuple(q.shape)}, nodes {tuple(nodes.shape)}, w "
-            f"{tuple(w.shape)} do not match (C,m,3),(C,m),(C,3,n+1),(n+1,)")
-
-    lib = _build.load("modified_charges", _SIGNATURES)
-    tile = lib.mc_tile(dtype.itemsize)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = split_count(c, m, tile, sms)
-    n3 = n1 ** 3
-    out = torch.empty((c, n3), dtype=dtype, device=dev)
-    partial = (torch.empty((c, splits, n3), dtype=dtype, device=dev)
-               if splits > 1 else out)
-    fn = lib.mc_eval_f32 if dtype == torch.float32 else lib.mc_eval_f64
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(pts.data_ptr(), q.data_ptr(), nodes.data_ptr(), w.data_ptr(),
-                out.data_ptr(), partial.data_ptr(), c, m, n1, splits, stream)
-    _build.check(rc, "modified_charges")
-    if c > 0:                   # the C entry launches nothing otherwise
-        LAUNCHES += 2 if splits > 1 else 1
-    return out
+    pts (C, m, 3), q (C, m): the ranged kernel over the flattened points,
+    cluster c owning [c*m, c*m + m)."""
+    c, m = q.shape
+    chunks, ptr = (torch.as_tensor(a, device=pts.device) for a in
+                   chunk_table(np.arange(c) * m, np.full(c, m)))
+    return modified_charges_ranged_cuda(
+        pts.reshape(c * m, 3), q.reshape(c * m), chunks, ptr, nodes, w,
+        degree)
 
 
 def modified_charges_plain(pts: torch.Tensor, q: torch.Tensor,
@@ -124,3 +164,38 @@ def modified_charges_plain(pts: torch.Tensor, q: torch.Tensor,
     qhat = torch.einsum("cmp,cmk->cpk", g2, r3)
     return qhat.reshape(-1, n1 * n1 * n1)
 
+
+#: Particle slots x (n+1)^2 per batch of chunks in the plain version
+#: (bounds its temporaries at 10^6 particles on the card).
+_PLAIN_BUDGET = 1 << 26
+
+
+def modified_charges_ranged_plain(pts: torch.Tensor, q: torch.Tensor,
+                                  chunks: torch.Tensor,
+                                  chunk_ptr: torch.Tensor,
+                                  nodes: torch.Tensor, w: torch.Tensor,
+                                  degree: int) -> torch.Tensor:
+    """q_hat (num_nodes, (n+1)^3) in plain PyTorch: each chunk gathered to
+    the longest chunk's width (padded slots repeat the chunk's first
+    particle with charge 0), `modified_charges_plain` per chunk, and the
+    chunks added into their nodes."""
+    n1 = degree + 1
+    num_nodes = chunk_ptr.shape[0] - 1
+    out = torch.zeros((num_nodes, n1 ** 3), dtype=pts.dtype,
+                      device=pts.device)
+    if chunks.shape[0] == 0:
+        return out
+    node, begin, end = chunks.long().unbind(1)
+    width = max(1, int((end - begin).max()))    # a host read
+    step = max(1, _PLAIN_BUDGET // (width * n1 * n1))
+    ar = torch.arange(width, device=pts.device)
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    for s in range(0, chunks.shape[0], step):
+        b, e, nd = begin[s:s + step], end[s:s + step], node[s:s + step]
+        idx = b[:, None] + ar
+        valid = idx < e[:, None]
+        idx = torch.where(valid, idx, b[:, None])
+        part = modified_charges_plain(
+            pts[idx], torch.where(valid, q[idx], zero), nodes[nd], w, degree)
+        out.index_add_(0, nd, part)
+    return out

@@ -159,3 +159,31 @@ def modified_charges(
         return _mc.modified_charges_cuda(
             pts.contiguous(), q.contiguous(), nodes.contiguous(), w, degree)
     return _mc.modified_charges_plain(pts, q, nodes, w, degree)
+
+
+def modified_charges_ranged(
+    src_sorted: torch.Tensor,  # (N, 3) tree-ordered particles
+    q_sorted: torch.Tensor,    # (N,)
+    chunks: torch.Tensor,      # (K, 3) int32 rows (node, begin, end)
+    chunk_ptr: torch.Tensor,   # (num_nodes + 1,) int32
+    node_lo: torch.Tensor,     # (num_nodes, 3)
+    node_hi: torch.Tensor,     # (num_nodes, 3)
+    *,
+    degree: int,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """q_hat (num_nodes, (n+1)^3) of every node from its own particles.
+
+    Node i's particles are the rows chunk_ptr[i] to chunk_ptr[i+1] of
+    `chunks` (`modified_charges.chunk_table`, which the plan holds as
+    `mc_chunks` / `mc_chunk_ptr`); a node without chunks gets q_hat 0."""
+    nodes = _cluster_nodes(node_lo, node_hi, degree)
+    w = cheby.bary_weights_1d(degree, src_sorted.dtype, src_sorted.device)
+    if resolve_backend(backend, src_sorted) == "cuda":
+        return _mc.modified_charges_ranged_cuda(
+            src_sorted.contiguous(), q_sorted.contiguous(),
+            chunks.to(torch.int32).contiguous(),
+            chunk_ptr.to(torch.int32).contiguous(), nodes.contiguous(), w,
+            degree)
+    return _mc.modified_charges_ranged_plain(
+        src_sorted, q_sorted, chunks, chunk_ptr, nodes, w, degree)

@@ -115,14 +115,10 @@ def test_modified_charges_kernel_matches_plain(cuda_device, dtype, degree):
                         device=cuda_device)
     pts[:, -20:] = (0.5 * (lo + hi))[:, None]  # center padding
     q[:, -20:] = 0
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    tile = mcm._build.load("modified_charges", mcm._SIGNATURES).mc_tile(
-        dtype.itemsize)
-    splits = mcm.split_count(C, m, tile, sms)
     before = mcm.LAUNCHES
     got = ops.modified_charges(pts, q, lo, hi, degree=degree)
-    # the split reduction is a launch of its own
-    assert mcm.LAUNCHES == before + (2 if splits > 1 else 1)
+    # the chunk kernel and the per-node sum
+    assert mcm.LAUNCHES == before + 2
     want = ops.modified_charges(pts, q, lo, hi, degree=degree,
                                 backend="torch")
     if dtype == torch.float32:
@@ -130,3 +126,63 @@ def test_modified_charges_kernel_matches_plain(cuda_device, dtype, degree):
     else:
         torch.testing.assert_close(got, want, rtol=1e-10,
                                    atol=1e-12 * want.abs().max().item())
+
+
+def ranged_case(rng, dtype, degree, dev, tile):
+    """Ragged node ranges for the ranged kernel: counts 0 and 1, at the
+    kernel's `tile` and at the chunk size, each node's points in its own
+    box with some ON its Chebyshev nodes (exact hits), and a last node
+    that spans all of them, as a parent level does."""
+    from repro_torch.core import cheby
+    p = mcm.CHUNK
+    counts = [0, 1, tile - 1, tile, tile + 1, p - 1, p, p + 1, 3 * p + 5,
+              0, 37]
+    def dev_t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    lo = dev_t(rng.uniform(-1, 0, (len(counts), 3)))
+    hi = lo + dev_t(rng.uniform(0.3, 1, (len(counts), 3)))
+    grids = cheby.cluster_grid(lo, hi, degree)   # in the working dtype
+    parts = []
+    for i, c in enumerate(counts):
+        x = lo[i] + (hi[i] - lo[i]) * dev_t(rng.uniform(0, 1, (c, 3)))
+        k = min(c // 3, grids.shape[1])
+        x[:k] = grids[i, :k]                     # exact hits
+        parts.append(x)
+    pts = torch.cat(parts)
+    n = pts.shape[0]
+    # the last node spans all the others
+    start = np.append(np.concatenate([[0], np.cumsum(counts)[:-1]]), 0)
+    lo = torch.cat([lo, pts.amin(0, keepdim=True)])
+    hi = torch.cat([hi, pts.amax(0, keepdim=True)])
+    chunks, ptr = mcm.chunk_table(start, counts + [n])
+    return (pts, dev_t(rng.uniform(-1, 1, n)),
+            torch.as_tensor(chunks, device=dev),
+            torch.as_tensor(ptr, device=dev), lo, hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("degree", [1, 4, 8, 14])
+def test_modified_charges_ranged_kernel_matches_plain(cuda_device, dtype,
+                                                      degree):
+    """The ranged kernel against its plain version on ragged ranges: two
+    launches a call, bitwise equal calls, 0 on nodes without particles."""
+    lib = mcm._build.load("modified_charges", mcm._SIGNATURES)
+    tile = lib.mc_tile(dtype.itemsize, degree + 1)
+    args = ranged_case(np.random.default_rng(100 + degree), dtype, degree,
+                       cuda_device, tile)
+    before = mcm.LAUNCHES
+    got = ops.modified_charges_ranged(*args, degree=degree)
+    assert mcm.LAUNCHES == before + 2
+    again = ops.modified_charges_ranged(*args, degree=degree)
+    assert torch.equal(got, again)
+    want = ops.modified_charges_ranged(*args, degree=degree,
+                                       backend="torch")
+    assert (got[0] == 0).all() and (got[9] == 0).all()
+    scale = want.abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=3e-3, atol=3e-4 * scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-10,
+                                   atol=1e-12 * scale)

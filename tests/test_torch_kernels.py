@@ -200,15 +200,17 @@ def test_modified_charges_center_padding_and_split_count():
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), base.numpy(), rtol=1e-5,
                                atol=1e-5)
-    # the CUDA launch geometry: whole tiles, no empty split, ~2 blocks/SM
-    assert tmc.split_count(1, 1 << 20, 256, 132) == 256
-    assert tmc.split_count(512, 2048, 256, 132) == 1
-    assert tmc.split_count(8, 1 << 17, 256, 132) == 32
-    for c, m in ((1, 100), (3, 5000), (64, 1 << 14)):
-        s = tmc.split_count(c, m, 128, 132)
-        ntiles = -(-m // 128)
-        per = -(-ntiles // s)
-        assert 1 <= s <= ntiles and (s - 1) * per < ntiles
+    # the CUDA launch geometry: one block per chunk of at most CHUNK
+    # particles, cluster c of the dense form owning [c*m, c*m + m)
+    chunks, ptr = tmc.chunk_table(np.arange(2) * 64, np.full(2, 64))
+    assert chunks.tolist() == [[0, 0, 64], [1, 64, 128]]
+    assert ptr.tolist() == [0, 1, 2]
+    p = tmc.CHUNK
+    chunks, ptr = tmc.chunk_table([0], [1 << 20])
+    assert len(chunks) == (1 << 20) // p and ptr.tolist() == [0, len(chunks)]
+    assert ((chunks[:, 2] - chunks[:, 1]) == p).all()
+    chunks, _ = tmc.chunk_table([5], [p + 66])
+    assert chunks.tolist() == [[0, 5, 5 + p], [0, 5 + p, 5 + p + 66]]
 
 
 def test_cuda_backend_refuses_cpu_tensors():
