@@ -44,6 +44,26 @@ Phases (each asserts; any failure exits non-zero):
     (torch.cuda.set_sync_debug_mode("error") around the calls);
  6. a periodic box with a Verlet skin at N = 2*10^5 against an f64
     minimum-image direct sum on sampled targets;
+ 2f. batch_cluster_field kernel vs its plain version on phase 2's
+    ragged cases (Coulomb and Yukawa, free and periodic, f32 and f64,
+    Kahan, counts of 0), with exact hits (r^2 = 0) that must give 0 in
+    all four outputs, and its phi against the potential kernel's;
+ 4f. Fig. 4 forces on the main phase's plan: `potential_and_forces`
+    time, its phi against `execute`, forces against an f64 direct sum on
+    1000 sampled targets (relative 2-norm <= FORCE_BAR), the two field
+    lanes' times and bounds, and the kernel against its plain version
+    (timed once) on every batch row of both lanes;
+ 8. MD at N = 10^6 and the Fig. 4 settings: `Simulation` over a
+    jittered 100^3 lattice with +-1 charges, velocity Verlet, 20 steps,
+    refit interval 10; steps 2-20 run with the launch counters at 0
+    (field and modified-charge kernels each 2 launches a step), exactly
+    one host sync per refit step (torch.cuda.set_sync_debug_mode
+    "warn"), no capacity growth and no kernel build after step 1; ms per
+    refit and rebuild step, span times of two traced refit steps,
+    refit/rebuild counts by cause, energy and momentum drift;
+ 9. a periodic Yukawa MD (58^3 salt box, skin 0.02): skin gate and
+    minimum-image forces through refits and a rebuild, final forces
+    against an f64 minimum-image direct sum;
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -68,9 +88,31 @@ PEAK_BYTES = 3.35e12   # HBM3 bytes/s
 # Operations per (target, source) pair of the batch-cluster sum:
 # 3 sub + 3 mul + 2 add (r^2), sqrt, divide, multiply by q, add.
 FLOPS_PER_PAIR = 12
+# Operations per pair of the field kernel (3 sub, 5 for r^2, the rsqrt,
+# 2 for phi, 3 mul and 3 fma for the gradient).
+FIELD_FLOPS_PER_PAIR = 20
 # Particles of the main path (Fig. 4) and of the periodic phase.
 MAIN_N = 1_000_000
 PERIODIC_N = 200_000
+# Relative 2-norm bar of the Fig. 4 forces against an f64 direct sum.
+FORCE_BAR = 1e-4
+# ... and of the periodic MD's f32 forces: on a +-1 salt lattice the net
+# force is ~100x smaller than the sum of its terms' magnitudes, and an
+# f32 sum keeps ~1e-7 of the latter (plain f32 sums with every pair
+# direct were 1.8e-4 / 3.0e-4 off for Yukawa / Coulomb on a 30^3 piece).
+# The approximation itself is held to FORCE_BAR in f64.
+F32_CANCEL_BAR = 1e-3
+# The MD runs: a jittered 100^3 lattice in [-1,1]^3 at the Fig. 4
+# setting, and a periodic Yukawa salt box of 58^3 (about 2*10^5). With
+# +-1 charges and no repulsive core, the closest opposite pairs (about
+# 0.45 of the 0.02 spacing apart, F ~ 1e4) collapse within ~3e-4 time
+# units, and the Fig. 4 plan (skin 0) at 10^6 allows ~8e-7 of drift per
+# step before a refit is no longer provably MAC-valid. So dt = 5e-7: 22
+# steps move the fastest particle ~22 F dt^2 = 6e-8 a step. The periodic
+# box has a skin (budget >= skin/2) but the same collapse: dt = 1e-5.
+MD_M, MD_STEPS, MD_DT, MD_REFIT = 100, 20, 5e-7, 10
+PMD_M, PMD_DT, PMD_L, PMD_KAPPA = 58, 1e-5, 2.0, 1.0
+MD_JITTER = 0.08                       # of the lattice spacing
 
 
 def smi_line() -> str:
@@ -189,6 +231,115 @@ def phase_batch_cluster(dev):
     print(f"[2] batch_cluster vs plain: {n} cases ok; max abs err "
           f"f32 {worst[torch.float32]:.3e} (rtol/atol 2e-4), f64 "
           f"{worst[torch.float64]:.3e} (rtol 1e-12)", flush=True)
+
+
+def phase_field(dev):
+    """The field kernel against its plain version on ragged cases, exact
+    hits included, and its phi against the potential kernel's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.potentials import coulomb, yukawa
+    from repro_torch.core.space import FREE, PeriodicBox
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import ops
+
+    lib = _build.load("batch_cluster_field", bcm.FIELD_SIGNATURES)
+    assert (lib.bcf_geometry(0), lib.bcf_geometry(1)) == (
+        bcm._TARGETS_PER_BLOCK, bcm._SOURCE_UNROLL), "geometry constants"
+    rng = np.random.default_rng(13)
+    box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
+    n = 0
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    phi_worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        rtol, atol = FIELD_TOL[dtype.itemsize]
+        qlo = -1.0 if dtype == torch.float32 else 0.0
+        for (B, S, NB, C, m) in [(5, 9, 300, 11, 700), (3, 4, 40, 5, 24),
+                                 (2, 3, 129, 3, 257), (1, 1, 8, 1, 8)]:
+            for space, kern, kahan, counts in itertools.product(
+                    (FREE, box), (coulomb(), yukawa(0.5), yukawa(1.7)),
+                    (False, True), (False, True)):
+                tgt = rng.uniform(-1, 1, (B, NB, 3))
+                src = rng.uniform(-1, 1, (C, m, 3))
+                q = rng.uniform(qlo, 1, (C, m))
+                idx = rng.integers(-1, C, (B, S))
+                idx[:, S // 2] = -1                  # interior sentinel
+                if B > 1:
+                    idx[0] = -1                      # all-empty row
+                k = min(NB, m, 3)
+                tgt[-1, :k] = src[0, :k]             # exact hits
+                idx[-1, 0] = 0
+                t = [torch.as_tensor(a, dtype=dtype, device=dev)
+                     for a in (tgt, src, q)]
+                it = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+                kw = dict(kernel=kern, space=space, kahan=kahan)
+                if counts:
+                    kw.update(count_case(rng, B, NB, C, m, dev))
+                before = bcm.FIELD_LAUNCHES
+                got = ops.batch_cluster_field(it, *t, backend="cuda", **kw)
+                assert bcm.FIELD_LAUNCHES == before + 1, "one launch a call"
+                want = ops.batch_cluster_field(it, *t, backend="torch", **kw)
+                what = (f"batch_cluster_field {dtype} {(B, S, NB, C, m)} "
+                        f"{space} {kern.name}{kern.params} kahan={kahan} "
+                        f"counts={counts}")
+                err = field_close(got, want, rtol, atol, what)
+                worst[dtype] = max(worst[dtype], err)
+                phi = ops.batch_cluster_eval(it, *t, backend="cuda", **kw)
+                phi_worst = max(phi_worst, close(
+                    got[..., 0], phi, *FIELD_PHI_TOL[dtype.itemsize],
+                    f"{what}: field phi vs potential kernel"))
+                if B > 1:
+                    assert (got[0] == 0).all(), what
+                if counts:
+                    pad = (torch.arange(NB, device=dev)[None]
+                           >= kw["tgt_count"][:, None])
+                    assert (got[pad] == 0).all(), what
+                n += 1
+    # a lone particle meeting itself: exactly 0 in all four outputs
+    hits = 0
+    for dtype, space, kern in itertools.product(
+            (torch.float32, torch.float64), (FREE, box),
+            (coulomb(), yukawa(0.5))):
+        x = torch.as_tensor(rng.uniform(-0.7, 0.7, (1, 1, 3)), dtype=dtype,
+                            device=dev)
+        it = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        got = ops.batch_cluster_field(it, x, x.clone(),
+                                      torch.ones((1, 1), dtype=dtype,
+                                                 device=dev),
+                                      kernel=kern, space=space,
+                                      backend="cuda")
+        assert (got == 0).all(), f"exact hit {dtype} {space} {kern.name}"
+        hits += 1
+    torch.cuda.synchronize()
+    print(f"[2f] batch_cluster_field vs plain: {n} cases ok; max abs err "
+          f"f32 {worst[torch.float32]:.3e}, f64 {worst[torch.float64]:.3e} "
+          f"(rtol/atol {FIELD_TOL[4]} f32, {FIELD_TOL[8]} f64; gradient atol "
+          f"times max|grad|; f64 phi atol 0); "
+          f"{hits} lone exact hits give 0 in all four outputs; field phi vs "
+          f"the potential kernel's max abs err {phi_worst:.3e}", flush=True)
+
+
+#: (rtol, atol) of the field kernel against its plain version: phi takes
+#: phase 2's; a gradient component sums signed terms (d changes sign), so
+#: its atol is relative to max|grad| of the case.
+FIELD_TOL = {4: (2e-4, 2e-4), 8: (1e-12, 1e-12)}   # by itemsize
+#: (rtol, atol) of the field kernel's phi against the potential kernel's:
+#: the same expression in the same order, so they agree to rounding.
+FIELD_PHI_TOL = {4: (1e-6, 1e-6), 8: (1e-14, 0.0)}
+
+
+def field_close(got, want, rtol, atol, what):
+    """`close` for (..., 4) field outputs: phi with atol as given (0 in
+    f64, whose cases take positive charges), each gradient component
+    with atol times max|grad|."""
+    import torch
+    assert torch.isfinite(got).all(), f"{what}: non-finite output"
+    f64 = got.dtype == torch.float64
+    err = close(got[..., 0], want[..., 0], rtol, 0.0 if f64 else atol,
+                f"{what}: phi")
+    return max(err, close(got[..., 1:], want[..., 1:], rtol, atol,
+                          f"{what}: gradient", scale="max"))
 
 
 def count_case(rng, B, NB, C, m, dev):
@@ -393,9 +544,11 @@ def ptxas_usage(log):
     return out
 
 
-def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_elems):
-    """(bound_ms, side, pairs) of one batch-cluster launch: the pairs the
-    data needs (real targets x real sources of every valid slot)."""
+def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_elems,
+             flops_per_pair=FLOPS_PER_PAIR, outputs=1):
+    """(bound_ms, side, pairs) of one batch-cluster (or field) launch: the
+    pairs the data needs (real targets x real sources of every valid
+    slot); `outputs` values written per target slot."""
     import torch
     a = plan.arrays
     nt = a["tgt_mask"].sum(1).to(torch.float64)           # (B,)
@@ -404,8 +557,8 @@ def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_elems):
     pairs = float((nt[:, None] * mc * valid).sum())
     b, nb = a["tgt_batched"].shape[:2]
     nbytes = (idx.numel() * 4 + b * nb * 3 * dtype_bytes
-              + src_elems * 4 * dtype_bytes + b * nb * dtype_bytes)
-    t_ops = pairs * FLOPS_PER_PAIR / PEAK_FP32
+              + src_elems * 4 * dtype_bytes + b * nb * outputs * dtype_bytes)
+    t_ops = pairs * flops_per_pair / PEAK_FP32
     t_bytes = nbytes / PEAK_BYTES
     side = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes) * 1e3, side, pairs
@@ -665,6 +818,268 @@ def phase_main(dev, smi):
     return plan, x, q, report
 
 
+def phase_forces(dev, plan, x, q, smi):
+    """Fig. 4 forces at 10^6 on the main phase's plan: the two field
+    lanes' times, phi against `execute`, forces against an f64 direct
+    sum on sampled targets, and the field kernel against its plain
+    version on every batch row of both lanes. Returns the field kernel's
+    report entry (its launches are the MD run's)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import eval as ev
+    from repro_torch.core.direct import direct_field
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import ops
+
+    a = plan.arrays
+    kern = plan.kernel
+    bcm.FIELD_LAUNCHES = 0
+    phi, force = plan.potential_and_forces(q)
+    torch.cuda.synchronize()
+    assert bcm.FIELD_LAUNCHES == 2, bcm.FIELD_LAUNCHES
+    pf_ms = event_ms(lambda: plan.potential_and_forces(q), 3)
+    exec_phi = plan.execute(q)
+    phi_err = close(phi, exec_phi, *FIELD_PHI_TOL[4],
+                    "potential_and_forces phi vs execute", scale="median")
+    n = x.shape[0]
+    rng = np.random.default_rng(2021)
+    sample = torch.as_tensor(rng.choice(n, 1000, replace=False), device=dev)
+    x64 = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    q64 = q.double()
+    _, grad = direct_field(x64[sample], x64, q64, kernel=kern,
+                           source_chunk=1 << 14)
+    ref = -q64[sample, None] * grad
+    assert force.shape == (n, 3) and torch.isfinite(force).all()
+    ferr = rel2(force[sample].double(), ref)
+    assert ferr <= FORCE_BAR, ferr
+    print(f"[4f] potential_and_forces at Fig. 4, N={n}: {pf_ms:.3f} ms warm "
+          f"median of 3 (CUDA events), 2 field launches a call; phi vs "
+          f"execute max abs err {phi_err:.3e} (rtol {FIELD_PHI_TOL[4][0]}, "
+          f"atol {FIELD_PHI_TOL[4][1]} median|phi|); forces vs f64 direct "
+          f"sum on 1000 sampled targets: relative 2-norm error {ferr:.3e} "
+          f"(bar {FORCE_BAR})", flush=True)
+
+    degree = plan.config.degree
+    inp = ev.kernel_inputs(a, q, degree=degree)
+    qhat = ev.compute_qhat_direct(a, inp.q_sorted, degree=degree,
+                                  backend="cuda")
+    tgt = a["tgt_batched"]
+    lanes = {"approx": (a["approx_idx"], inp.grids, qhat,
+                        {"tgt_count": inp.tgt_count}),
+             "direct": (a["direct_idx"], inp.leaf_pts, inp.leaf_q,
+                        {"tgt_count": inp.tgt_count,
+                         "src_count": inp.leaf_count})}
+    ms, plain_ms, bound, err = {}, {}, {}, 0.0
+    leaf_counts = (a["leaf_gather"] >= 0).sum(1)
+    n1c = torch.full((a["node_lo"].shape[0],), (degree + 1) ** 3,
+                     device=dev)
+    real = a["tgt_mask"]
+    for lane, (idx, pts, qq, cnt) in lanes.items():
+        def run(backend):
+            return ops.batch_cluster_field(idx, tgt, pts, qq, kernel=kern,
+                                           backend=backend, **cnt)
+        got = run("cuda")
+        ms[lane] = event_ms(lambda: run("cuda"), 5)
+        t0 = time.perf_counter()
+        want = run("torch")
+        torch.cuda.synchronize()
+        plain_ms[lane] = (time.perf_counter() - t0) * 1e3
+        assert (got[~real] == 0).all(), f"{lane}: padded target slots"
+        # phi: atol relative to median|phi| (near pairs make a few |phi|
+        # large); gradient: to max|grad| (signed terms)
+        e = close(got[real][:, 0], want[real][:, 0], 2e-4, 2e-4,
+                  f"field {lane} lane phi", scale="median")
+        e = max(e, close(got[real][:, 1:], want[real][:, 1:], 2e-4, 2e-4,
+                         f"field {lane} lane gradient", scale="max"))
+        err = max(err, e)
+        bound[lane] = bc_bound(plan, idx,
+                               leaf_counts if lane == "direct" else n1c, 4,
+                               pts.shape[0] * pts.shape[1],
+                               FIELD_FLOPS_PER_PAIR, 4)
+        print(f"[4f] field {lane} lane: {ms[lane]:.3f} ms (plain "
+              f"{plain_ms[lane]:.1f} ms, host clock, one call), "
+              f"{bound[lane][2]:.4e} pairs needed, bound "
+              f"{bound[lane][0]:.3f} ms by {bound[lane][1]} ({smi}); "
+              f"against the plain version on all {int(real.any(1).sum())} "
+              f"batch rows: max abs err {e:.3e} (rtol 2e-4, atol 2e-4 "
+              f"median|phi| / max|grad|)", flush=True)
+    side = ("operations" if all(v[1] == "operations" for v in bound.values())
+            else "bytes")
+    return dict(name="batch_cluster_field", route="cuda",
+                source="src/repro_torch/kernels/csrc/batch_cluster_field.cu",
+                replaces="src/repro/core/eval.py:442 (XLA JVP forces path; "
+                         "no TPU kernel)",
+                launches=0, max_abs_err=err, ms=sum(ms.values()),
+                plain_ms=sum(plain_ms.values()),
+                bound_ms=sum(v[0] for v in bound.values()), bound_by=side,
+                library_ms=None)
+
+
+def salt_lattice(m, lo, spacing, seed):
+    """m^3 alternating +-1 charges on a cubic lattice jittered by
+    MD_JITTER of the spacing (zero net charge for even m)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    x = lo + spacing * (g + 0.5 + MD_JITTER * rng.standard_normal(g.shape))
+    q = np.where(g.sum(1) % 2 == 0, 1.0, -1.0)
+    return x.astype(np.float32), q.astype(np.float32)
+
+
+def phase_md(dev):
+    """`Simulation` at N = 10^6 and the Fig. 4 settings: a jittered 100^3
+    lattice in [-1,1]^3, velocity Verlet, MD_STEPS steps, refit interval
+    MD_REFIT. Steps 2.. run with every launch counter at 0 before them;
+    each refit step must make exactly one host sync; no capacity growth
+    and no kernel build after step 1. Returns the field kernel's
+    launches in that run."""
+    import warnings
+    import torch
+    from repro_torch.configs.bltc import fig4
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.dynamics import Simulation
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.obs import events, trace
+
+    x, q = salt_lattice(MD_M, -1.0, 2.0 / MD_M, 31)
+    n = x.shape[0]
+    assert q.sum() == 0
+    t0 = time.perf_counter()
+    plan = TreecodeSolver(fig4(theta=0.7, degree=8)).plan(
+        x, capacities="auto")
+    sim = Simulation(plan, q, dt=MD_DT, refit_interval=MD_REFIT)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    sim.log.record(0, sim.diagnostics())
+    sim.step()
+    torch.cuda.synchronize()
+    builds0 = events.build_count()
+    bcm.LAUNCHES = bcm.FIELD_LAUNCHES = mcm.LAUNCHES = 0
+    step_ms = {"refit": [], "rebuild": []}
+    syncs = []
+    for _ in range(MD_STEPS - 1):
+        refits0 = sim.refits
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sim.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        kind = "refit" if sim.refits > refits0 else "rebuild"
+        step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        if kind == "refit":
+            syncs.append(sum("called a synchronizing CUDA operation"
+                             in str(w.message) for w in caught))
+    launches = {"batch_cluster_field": bcm.FIELD_LAUNCHES,
+                "modified_charges": mcm.LAUNCHES,
+                "batch_cluster": bcm.LAUNCHES}
+    steps = MD_STEPS - 1
+    assert launches["batch_cluster_field"] == 2 * steps, launches
+    assert launches["modified_charges"] == 2 * steps, launches
+    sim.log.record(sim.steps, sim.diagnostics())
+    st = sim.stats()
+    builds = events.build_count() - builds0
+    assert st["capacity_growths"] == 0 and st["retraces"] == 0, st
+    assert builds == 0, builds
+    assert syncs and all(k == 1 for k in syncs), syncs
+    assert torch.isfinite(sim.state.x).all() and torch.isfinite(
+        sim.state.f).all()
+    drift, mom = sim.log.drift(), sim.log.momentum_drift()
+    assert drift < 1e-3, drift
+    # span breakdown of two more refit steps, traced (tracing syncs
+    # inside each span)
+    trace.clear()
+    trace.enable()
+    try:
+        for _ in range(2):
+            sim.step()
+    finally:
+        trace.disable()
+    spans = {k: v / 2 for k, v in trace.phase_totals("md.").items()}
+    med = {k: (statistics.median(v) if v else float("nan"))
+           for k, v in step_ms.items()}
+    print(f"[8] MD at Fig. 4, N={n} (jittered {MD_M}^3 lattice, +-1 "
+          f"charges), velocity Verlet, dt {MD_DT}, refit interval "
+          f"{MD_REFIT}: setup {setup_ms:.0f} ms; steps 2-{MD_STEPS}: "
+          f"{len(step_ms['refit'])} refit steps, median {med['refit']:.2f} "
+          f"ms, {len(step_ms['rebuild'])} rebuild steps, median "
+          f"{med['rebuild']:.1f} ms (host clock to a synchronize); "
+          f"refits {st['refits']}, rebuilds {st['rebuilds']} (drift "
+          f"{st['rebuilds_drift']}, interval {st['rebuilds_interval']}, "
+          f"forced {st['rebuilds_forced']}); relative energy drift "
+          f"{drift:.3e}, momentum drift {mom:.3e}; capacity growths "
+          f"{st['capacity_growths']}, retraces {st['retraces']}, kernel "
+          f"builds after step 1 {builds}; host syncs per refit step "
+          f"{sorted(set(syncs))}; launches over steps 2-{MD_STEPS} "
+          f"{launches}", flush=True)
+    print("[8] traced refit step, ms per step by span: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(spans.items())), flush=True)
+    return launches["batch_cluster_field"]
+
+
+def phase_md_periodic(dev):
+    """A periodic Yukawa MD with a Verlet skin: the skin gate and
+    minimum-image forces through refits and a rebuild; at the final
+    positions an f64 plan's forces and the MD's f32 forces against an f64
+    minimum-image direct sum."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import TreecodeConfig, TreecodeSolver
+    from repro_torch.core.direct import direct_field
+    from repro_torch.core.space import PeriodicBox
+    from repro_torch.dynamics import Simulation
+
+    x, q = salt_lattice(PMD_M, 0.0, PMD_L / PMD_M, 32)
+    n = x.shape[0]
+    box = PeriodicBox((PMD_L,) * 3)
+    cfg = TreecodeConfig(theta=0.7, degree=8, leaf_size=2000, space=box,
+                         skin=0.02, kernel="yukawa",
+                         kernel_params={"kappa": PMD_KAPPA})
+    sim = Simulation(TreecodeSolver(cfg).plan(box.wrap(x)), q, dt=PMD_DT,
+                     refit_interval=MD_REFIT, profile=True)
+    t0 = time.perf_counter()
+    sim.run(MD_STEPS, record_every=MD_STEPS // 2)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    st = sim.stats()
+    assert st["refits"] >= 1 and st["retraces"] == 0, st
+    drift = sim.log.drift()
+    assert drift < 1e-3, drift
+    _, force = sim.plan.potential_and_forces(q)
+    # the approximation at the final positions, in f64: a fresh plan
+    x_fin = box.wrap(sim.state.x.double())
+    plan64 = TreecodeSolver(dataclasses.replace(cfg, dtype="float64")).plan(
+        x_fin)
+    q64 = torch.as_tensor(q, dtype=torch.float64, device=dev)
+    _, force64 = plan64.potential_and_forces(q64)
+    rng = np.random.default_rng(33)
+    sample = torch.as_tensor(rng.choice(n, 500, replace=False), device=dev)
+    _, grad = direct_field(x_fin[sample], x_fin, q64, kernel=plan64.kernel,
+                           space=box, source_chunk=1 << 14)
+    ref = -q64[sample, None] * grad
+    err64 = rel2(force64[sample], ref)
+    err32 = rel2(force[sample].double(), ref)
+    assert err64 <= FORCE_BAR, err64
+    assert err32 <= F32_CANCEL_BAR, err32
+    occ = st.get("occupancy", {})
+    print(f"[9] periodic Yukawa MD (kappa {PMD_KAPPA}, box {PMD_L}, skin "
+          f"0.02, N={n}): {MD_STEPS} steps in {run_ms:.0f} ms; refits "
+          f"{st['refits']}, rebuilds {st['rebuilds']} (drift "
+          f"{st['rebuilds_drift']}, interval {st['rebuilds_interval']}); "
+          f"relative energy drift {drift:.3e}; skin pairs "
+          f"{occ.get('skin_pairs', float('nan')):.0f}, accept rate "
+          f"{occ.get('skin_accept_rate', float('nan')):.3f}; at the final "
+          f"positions, forces vs an f64 minimum-image direct sum on 500 "
+          f"targets, relative 2-norm: f64 plan {err64:.3e} (bar "
+          f"{FORCE_BAR}), the MD's f32 forces {err32:.3e} (bar "
+          f"{F32_CANCEL_BAR}, f32 cancellation)", flush=True)
+
+
 def phase_yukawa(dev, plan, x, q):
     import numpy as np
     import torch
@@ -771,6 +1186,10 @@ def main() -> int:
     for line in _build.BUILD_LOG.get("batch_cluster", "").splitlines():
         if "Used" in line or "spill" in line and " 0 bytes" not in line:
             print(f"    batch_cluster: {line.strip()}")
+    usage = ptxas_usage(_build.BUILD_LOG.get("batch_cluster_field", ""))
+    for name, (regs, st, ld) in sorted(usage.items()):
+        print(f"    batch_cluster_field {name}: {regs} registers, spill "
+              f"stores {st} bytes, spill loads {ld} bytes", flush=True)
     usage = ptxas_usage(_build.BUILD_LOG.get("modified_charges", ""))
     if usage:
         spills = {k: v for k, v in usage.items() if v[1] or v[2]}
@@ -785,13 +1204,23 @@ def main() -> int:
         f"{loop[0]} instructions for {loop[1]} pairs, "
         f"{loop[0] / loop[1]:.2f} per pair" if loop else "not measured "
         "(no cuobjdump)"), flush=True)
+    loop = sass_inner_loop(_build.library_path("batch_cluster_field"),
+                           "field_kernelIfLi0ELb0ELb0E")
+    print("[1] batch_cluster_field f32 Coulomb inner loop (SASS): " + (
+        f"{loop[0]} instructions for {loop[1]} pairs, "
+        f"{loop[0] / loop[1]:.2f} per pair" if loop else "not measured "
+        "(no cuobjdump)"), flush=True)
 
     phase_batch_cluster(dev)
+    phase_field(dev)
     phase_modified_charges(dev)
     plan, x, q, report = phase_main(dev, smi)
+    report.append(phase_forces(dev, plan, x, q, smi))
     phase_yukawa(dev, plan, x, q)
     del plan
     phase_periodic(dev)
+    report[-1]["launches"] = phase_md(dev)
+    phase_md_periodic(dev)
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(smi)

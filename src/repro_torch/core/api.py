@@ -4,9 +4,10 @@
 phi_i = sum_j G(x_i, y_j) q_j. `solver.plan(...)` builds a
 `SingleDevicePlan` on the solver's device, and the plan implements
 
-    plan.execute(charges)  -> phi          (input order)
-    plan.stats()           -> dict of geometry/cost counters
-    plan.replan(points)    -> new plan, same config
+    plan.execute(charges)               -> phi          (input order)
+    plan.potential_and_forces(charges)  -> (phi, F)     (input order)
+    plan.stats()                        -> dict of geometry/cost counters
+    plan.replan(points)                 -> new plan, same config
 
 Typical use::
 
@@ -27,9 +28,13 @@ waits for the host::
     for kappa in kappas_on_device:           # 0-d tensors on the card
         phi = plan.execute(charges, kernel_params={"kappa": kappa})
 
+`plan(..., capacities="auto")` pads the plan into a fixed budget
+(`core.eval.Capacities`), and `replan` keeps it, so MD replans keep every
+array shape (`repro_torch.dynamics` relies on it).
+
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): forces (`potential_and_forces`), the hierarchical precompute,
-the device tree build, capacity padding and sharded plans (nranks > 1).
+item): the hierarchical precompute, the device tree build, point
+budgets and sharded plans (nranks > 1).
 """
 from __future__ import annotations
 
@@ -55,12 +60,8 @@ _LATER = {
                     "(ROADMAP queue A: hierarchical precompute)",
     "device": "build_backend='device' is not ported yet "
               "(ROADMAP queue A: device tree build)",
-    "capacities": "capacities= is not ported yet "
-                  "(ROADMAP queue A: capacities and pad_plan)",
     "nranks": "sharded plans (nranks > 1) are not ported yet "
               "(ROADMAP queue A: sharded)",
-    "forces": "potential_and_forces is not ported yet "
-              "(ROADMAP queue A: forces with a CUDA field kernel)",
 }
 
 
@@ -272,7 +273,28 @@ class SingleDevicePlan:
 
     def potential_and_forces(self, charges, weights=None,
                              kernel_params=None):
-        raise NotImplementedError(_LATER["forces"])
+        """(phi, F) with F_i = -w_i * grad_x phi(x_i), input order.
+
+        One field launch per lane (`core.eval.potential_and_gradient`).
+        `weights` defaults to the charges when targets == sources (the
+        physical force on charge q_i); disjoint target/source sets must
+        pass per-target weights explicitly."""
+        q = self._charges(charges)
+        if weights is None:
+            if self.num_targets != self.num_sources:
+                raise ValueError(
+                    "potential_and_forces: targets != sources, so per-target "
+                    "weights cannot default to the source charges; pass "
+                    "weights= explicitly (q of each target)")
+            w = q
+        else:
+            w = self._charges(weights)
+        with _trace.span("eval.potential_and_forces"):
+            out = _eval.potential_and_forces(
+                self.inner.arrays, q, w, self._params(kernel_params),
+                **self.config.exec_opts(self.kernel))
+            _trace.sync(self.device)
+        return out
 
     @property
     def mac_slack(self) -> float:
@@ -290,11 +312,17 @@ class SingleDevicePlan:
     def skin(self) -> float:
         return self.inner.skin
 
+    @property
+    def capacities(self):
+        """`core.eval.Capacities` when capacity-padded, else None."""
+        return self.inner.capacities
+
     def stats(self) -> dict:
         """Geometry / cost counters: tree and batch sizes, padding waste,
         the MAC slacks, build-phase times and static occupancy. Reads
         counts off the device arrays: call it outside timed loops."""
         tree = self.inner.tree
+        caps = self.inner.capacities
         return dict(
             strategy="single_device",
             nranks=1,
@@ -313,30 +341,49 @@ class SingleDevicePlan:
             theta_slack=self.inner.theta_slack,
             fold_slack=self.inner.fold_slack,
             skin=self.inner.skin,
-            capacity_padded=False,
+            capacity_padded=caps is not None,
             build_phases=dict(self.inner.build_ms),
             occupancy=_static_occupancy(self.inner),
+            **({"capacities": dataclasses.asdict(caps)} if caps else {}),
         )
 
     def replan(self, targets, sources=None, *,
-               capacities=None) -> "SingleDevicePlan":
+               capacities="keep") -> "SingleDevicePlan":
         """Rebuild geometry for moved particles under the same config, on
-        the same device."""
-        if capacities is not None:
-            raise NotImplementedError(_LATER["capacities"])
+        the same device.
+
+        `capacities="keep"` (default) re-pads into this plan's own budget
+        when it has one, growing it geometrically if the new geometry no
+        longer fits; None drops the padding; "auto" or a
+        `core.eval.Capacities` pads into that."""
+        if capacities == "keep":
+            capacities = self.inner.capacities
         return _plan_single(self.config, self.kernel, targets,
                             targets if sources is None else sources,
-                            self.device)
+                            self.device, capacities)
 
 
 def _plan_single(config: TreecodeConfig, kernel: Kernel, targets, sources,
-                 device: torch.device) -> SingleDevicePlan:
+                 device: torch.device, capacities=None) -> SingleDevicePlan:
     dtype = _resolve_dtype(config, targets)
     inner = _eval.prepare_plan(
         _host(targets, dtype), _host(sources, dtype),
         theta=config.theta, degree=config.degree,
         leaf_size=config.leaf_size, batch_size=config.resolved_batch_size(),
         space=config.space, skin=config.skin, device=device)
+    if capacities is not None:
+        if isinstance(capacities, str):
+            if capacities != "auto":
+                raise ValueError(f"capacities must be None, 'auto', 'keep' "
+                                 f"or a Capacities, got {capacities!r}")
+            capacities = _eval.Capacities.for_plan(inner)
+        elif not isinstance(capacities, _eval.Capacities):
+            raise NotImplementedError(
+                f"capacities of type {type(capacities).__name__} are not "
+                f"ported (ROADMAP queue A: sharded)")
+        else:
+            capacities = capacities.grown_to_fit(inner)
+        inner = _eval.pad_plan(inner, capacities)
     return SingleDevicePlan(config, kernel, inner, dtype)
 
 
@@ -369,17 +416,21 @@ class TreecodeSolver:
     def plan(self, targets, sources=None, *, nranks: Optional[int] = None,
              capacities=None) -> SingleDevicePlan:
         """Build an execution plan for this geometry (sources default to
-        the targets, the N-body setting)."""
+        the targets, the N-body setting). `capacities`: None (no
+        padding), "auto" or a `core.eval.Capacities` (shape-stable
+        replans, the MD setting)."""
         if nranks is not None and int(nranks) != 1:
             raise NotImplementedError(_LATER["nranks"])
-        if capacities is not None:
-            raise NotImplementedError(_LATER["capacities"])
         return _plan_single(self.config, self._kernel, targets,
                             targets if sources is None else sources,
-                            self.device)
+                            self.device, capacities)
 
     def execute(self, plan: SingleDevicePlan, charges) -> torch.Tensor:
         return plan.execute(charges)
+
+    def potential_and_forces(self, plan: SingleDevicePlan, charges,
+                             weights=None):
+        return plan.potential_and_forces(charges, weights)
 
     def __call__(self, targets, sources, charges) -> torch.Tensor:
         return self.plan(targets, sources).execute(charges)

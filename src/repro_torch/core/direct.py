@@ -4,6 +4,8 @@ PyTorch port of `repro/core/direct.py`:
 
 - `direct_sum`: plain torch, blocked over source chunks so memory stays
   O(NT * chunk); any device and dtype (the f64 reference on the card).
+- `direct_field`: the same for phi and its gradient at the targets (the
+  forces reference on the card).
 - `direct_oracle_f64`: float64 NumPy (phi and forces), the accuracy
   oracle, copied from the reference.
 - `direct_sum_kernel`: ONE batch-cluster kernel launch with one batch of
@@ -18,6 +20,7 @@ import torch
 from repro_torch.core.potentials import Kernel
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.kernels import ops
+from repro_torch.kernels.batch_cluster import field_coefficients
 
 
 def direct_sum(
@@ -39,6 +42,31 @@ def direct_sum(
                             space)
         phi += g @ charges[s:s + source_chunk]
     return phi
+
+
+def direct_field(
+    targets: torch.Tensor,  # (NT, 3)
+    sources: torch.Tensor,  # (NS, 3)
+    charges: torch.Tensor,  # (NS,)
+    params=None,
+    *,
+    kernel: Kernel,
+    space=_FREE,
+    source_chunk: int = 2048,
+):
+    """(phi (NT,), grad (NT, 3)) by blocked direct summation, grad_i =
+    sum_j 2 G'(r2) d_ij q_j with d the `space` displacement target minus
+    source; exact hits add 0 to both. Forces are -q_i grad_i."""
+    phi = targets.new_zeros(targets.shape[0])
+    grad = targets.new_zeros(targets.shape)
+    for s in range(0, sources.shape[0], source_chunk):
+        d = space.displacement(targets[:, None, :],
+                               sources[None, s:s + source_chunk, :])
+        g, c = field_coefficients(kernel, (d * d).sum(-1), params)
+        qs = charges[s:s + source_chunk]
+        phi += g @ qs
+        grad += torch.einsum("nm,nmk->nk", c * qs, d)
+    return phi, grad
 
 
 def direct_oracle_f64(points, charges, *, kernel: Kernel, params=None,

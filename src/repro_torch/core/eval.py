@@ -9,19 +9,24 @@ once (`prepare_plan`); `execute` then computes
     direct lane over the leaf lists  ->  un-permutation back to input
     order.
 
+`potential_and_gradient` and `potential_and_forces` run the same
+pipeline with the field kernel in both lanes: phi and grad_x phi in one
+sweep (the reference takes three forward JVPs through its executor).
+
 The packing is NumPy and identical to the reference's, so the same
 points give the same plan arrays; `arrays_from_numpy` moves them onto
 the plan's device. It also takes a reference plan's arrays (pulled to
 NumPy), which is how the tests run both packages on one plan.
 
-Capacity padding (`Capacities`, `pad_plan`, `plan_signature`) and the
-hierarchical precompute come with later slices (ROADMAP queue A).
+Capacity padding (`Capacities`, `pad_plan`, `plan_signature`) re-pads a
+plan into a fixed budget so MD replans keep every array shape. The
+hierarchical precompute comes with a later slice (ROADMAP queue A).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -66,8 +71,12 @@ class Plan:
     theta_slack: float = float("inf")
     fold_slack: float = float("inf")
     skin: float = 0.0
+    # When capacity-padded (see `Capacities`), the capacities the arrays
+    # were padded to, and the scratch node row absorbing sentinel writes.
+    capacities: "Capacities | None" = None
+    scratch_node: int = -1
     # Host build-phase wall times in ms (tree_build / interaction_lists /
-    # pack), surfaced via plan.stats().
+    # pack / pad), surfaced via plan.stats().
     build_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
@@ -402,3 +411,315 @@ def _execute_impl(
 #: The executor. PyTorch runs eagerly, so there is no jitted twin: the
 #: reference's `execute = jax.jit(_execute_impl, ...)` is the function.
 execute = _execute_impl
+
+
+# ---------------------------------------------------------------------------
+# Gradient with respect to the targets (forces)
+# ---------------------------------------------------------------------------
+#
+# phi_i depends on the target slab only through target i's own slot, so
+# the gradient is one vector per target: the field kernel sums
+# 2 G'(r^2) d q beside G q over the very pairs of `execute` (both lanes,
+# the same counts and skin routing). Sources are held fixed: the tree is
+# rebuilt or refitted, not differentiated, when they move. Under a
+# `PeriodicBox` d is the minimum-image displacement, so forces point
+# along it (the reference's JVP of the fold is the identity too).
+
+
+def potential_and_gradient(arrays: dict, charges: torch.Tensor,
+                           params=None, *, degree: int, kernel: Kernel,
+                           space=_FREE, backend: str = "auto",
+                           kahan: bool = False, approx_r2: str = "diff",
+                           theta: float = 0.7, skin: float = 0.0):
+    """(phi (N,), g (N, 3)) with g_i = d phi_i / d x_i, input order.
+
+    One modified-charge call and one field launch per lane. On the CUDA
+    kernel the approximation lane takes the difference form of r^2
+    whatever `approx_r2` says (the plain version follows it; only
+    rounding differs)."""
+    inp = kernel_inputs(arrays, charges, degree=degree)
+    with _trace.span("eval.modified_charges"):
+        qhat = compute_qhat_direct(arrays, inp.q_sorted, degree=degree,
+                                   backend=backend)
+        _trace.sync(charges.device)
+
+    tgt = arrays["tgt_batched"]
+    if skin > 0.0:
+        approx_idx, direct_idx = _skin_routed_lists(arrays, theta, space)
+    else:
+        approx_idx, direct_idx = arrays["approx_idx"], arrays["direct_idx"]
+    kw = dict(kernel=kernel, space=space, backend=backend, kahan=kahan)
+    with _trace.span("eval.approx_field"):
+        f_a = ops.batch_cluster_field(
+            approx_idx, tgt, inp.grids, qhat, params, r2_mode=approx_r2,
+            tgt_count=inp.tgt_count, **kw)
+        _trace.sync(charges.device)
+    with _trace.span("eval.direct_field"):
+        f_d = ops.batch_cluster_field(
+            direct_idx, tgt, inp.leaf_pts, inp.leaf_q, params,
+            tgt_count=inp.tgt_count, src_count=inp.leaf_count, **kw)
+        _trace.sync(charges.device)
+    f = (f_a + f_d).reshape(-1, 4)[arrays["gather_index"]]
+    return f[:, 0], f[:, 1:]
+
+
+def potential_and_forces(arrays: dict, charges: torch.Tensor,
+                         weights: torch.Tensor, params=None, **opts):
+    """(phi, F) with F_i = -weights_i * d phi_i / d x_i, input order.
+
+    With targets == sources and weights == charges this is the physical
+    force -q_i grad phi(x_i). `opts` are those of
+    `potential_and_gradient`."""
+    phi, g = potential_and_gradient(arrays, charges, params, **opts)
+    return phi, -weights[:, None] * g
+
+
+# ---------------------------------------------------------------------------
+# Capacity padding: shape-stable replans for moving particles (MD)
+# ---------------------------------------------------------------------------
+#
+# `prepare_plan` pads every ragged structure to its immediate need, so a
+# replan over moved particles gives slightly different shapes. PyTorch
+# runs eagerly and compiles nothing per shape, but stable shapes keep
+# device allocations reusable and are what a captured CUDA graph needs.
+# `Capacities` fixes a budget per padded dimension (initial need x
+# headroom, grown geometrically when exceeded) and `pad_plan` re-pads any
+# plan into it (the reference's conventions, every sentinel adds 0):
+#   - node rows: lo = 0, hi = 1 (a non-degenerate box), with one
+#     reserved SCRATCH row (id = num_nodes - 1) absorbing sentinel
+#     writes;
+#   - gather tables (leaf_gather, bucket_gather) and interaction lists:
+#     -1;
+#   - bucket_nodes / parent_of: the scratch row;
+#   - target slab: zero rows, never referenced by gather_index;
+#   - the port's chunk table of the modified charges: `mc_chunk_ptr`
+#     padded to num_nodes + 1 with its last value (scratch and padded
+#     nodes own no chunk, so their q_hat is 0), `mc_chunks` to a chunk
+#     budget with empty ranges (scratch, 0, 0).
+
+#: ROADMAP item that point budgets (the serving setting) wait for.
+_POINTS_LATER = ("point budgets (num_targets / num_sources, the serving "
+                 "setting) are not ported yet (ROADMAP queue A: serving)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Capacities:
+    """Fixed padded-dimension budget for shape-stable replans.
+
+    The reference's single-device schema (without the hierarchical and
+    device-tree rows, which come with those slices) plus `num_chunks`,
+    the budget of the modified charges' chunk table. `num_targets` /
+    `num_sources` are the reference's opt-in point budgets of the
+    serving setting: 0 here, and asking for them raises."""
+
+    num_batches: int
+    batch_width: int
+    num_leaves: int
+    leaf_width: int
+    num_nodes: int                    # includes the +1 scratch row
+    approx_width: int
+    direct_width: int
+    skin_direct_width: int            # gated Verlet-skin direct list
+    depth: int                        # tree levels (bucket count)
+    bucket_rows: Tuple[int, ...]      # len == depth
+    bucket_widths: Tuple[int, ...]    # len == depth, powers of two
+    num_chunks: int = 0               # rows of the chunk table
+    num_targets: int = 0              # 0 = unbudgeted (fixed-N replans)
+    num_sources: int = 0
+    headroom: float = 1.15
+    growth: float = 1.5
+
+    def __post_init__(self):
+        if self.num_targets or self.num_sources:
+            raise NotImplementedError(_POINTS_LATER)
+
+    @property
+    def scratch_node(self) -> int:
+        return self.num_nodes - 1
+
+    @classmethod
+    def for_plan(cls, plan: Plan, headroom: float = 1.15,
+                 growth: float = 1.5) -> "Capacities":
+        """Initial budget: the plan's own shapes inflated by `headroom`."""
+        return cls.for_need(_plan_dims(plan), headroom, growth)
+
+    @classmethod
+    def for_need(cls, need: dict, headroom: float = 1.15,
+                 growth: float = 1.5, base: int = 8) -> "Capacities":
+        """Initial budget from a needs dict (`_plan_dims` keys)."""
+        if need.get("num_targets", 0) or need.get("num_sources", 0):
+            raise NotImplementedError(_POINTS_LATER)
+
+        def h(x):
+            return _round_up(int(np.ceil(x * headroom)), base)
+
+        return cls(
+            num_batches=h(need["num_batches"]),
+            batch_width=h(need["batch_width"]),
+            num_leaves=h(need["num_leaves"]),
+            leaf_width=h(need["leaf_width"]),
+            num_nodes=h(need["num_nodes"]) + 1,
+            approx_width=h(need["approx_width"]),
+            direct_width=h(need["direct_width"]),
+            skin_direct_width=h(need.get("skin_direct_width", 1)),
+            depth=need["depth"],
+            bucket_rows=tuple(h(r) for r in need["bucket_rows"]),
+            bucket_widths=tuple(_round_pow2(w) for w in need["bucket_widths"]),
+            num_chunks=h(need["num_chunks"]),
+            headroom=headroom, growth=growth,
+        )
+
+    def grown_to_fit(self, plan: Plan) -> "Capacities":
+        """Smallest capacities >= self that fit `plan`, growing any
+        insufficient dimension geometrically (never shrinks)."""
+        return self.grown_to_fit_need(_plan_dims(plan))
+
+    def grown_to_fit_need(self, need: dict) -> "Capacities":
+        """`grown_to_fit` from a needs dict (`_plan_dims` keys)."""
+        if need.get("num_targets", 0) or need.get("num_sources", 0):
+            raise NotImplementedError(_POINTS_LATER)
+
+        def g(cap, n, rounder=_round_up):
+            if n <= cap:
+                return cap
+            return rounder(max(n, int(np.ceil(cap * self.growth))))
+
+        def gt(caps, needs, rounder=_round_up):
+            caps = tuple(caps) + tuple(
+                rounder(int(np.ceil(n * self.headroom)))
+                for n in needs[len(caps):])
+            return tuple(g(c, n, rounder) for c, n
+                         in zip(caps, tuple(needs) + (0,) * len(caps)))
+
+        return dataclasses.replace(
+            self,
+            num_batches=g(self.num_batches, need["num_batches"]),
+            batch_width=g(self.batch_width, need["batch_width"]),
+            num_leaves=g(self.num_leaves, need["num_leaves"]),
+            leaf_width=g(self.leaf_width, need["leaf_width"]),
+            num_nodes=g(self.num_nodes, need["num_nodes"] + 1),
+            approx_width=g(self.approx_width, need["approx_width"]),
+            direct_width=g(self.direct_width, need["direct_width"]),
+            skin_direct_width=g(self.skin_direct_width,
+                                need.get("skin_direct_width", 1)),
+            depth=max(self.depth, need["depth"]),
+            bucket_rows=gt(self.bucket_rows, need["bucket_rows"]),
+            bucket_widths=gt(self.bucket_widths, need["bucket_widths"],
+                             _round_pow2),
+            num_chunks=g(self.num_chunks, need["num_chunks"]),
+        )
+
+    def fits(self, plan: Plan) -> bool:
+        return self.grown_to_fit(plan) == self
+
+
+def _plan_dims(plan: Plan) -> dict:
+    """The plan's padded dimensions (the needs a `Capacities` budgets)."""
+    a = plan.arrays
+    bg = a["bucket_gather"]
+    return dict(
+        num_batches=a["tgt_batched"].shape[0],
+        batch_width=a["tgt_batched"].shape[1],
+        num_leaves=a["leaf_gather"].shape[0],
+        leaf_width=a["leaf_gather"].shape[1],
+        num_nodes=a["node_lo"].shape[0],
+        approx_width=a["approx_idx"].shape[1],
+        direct_width=a["direct_idx"].shape[1],
+        skin_direct_width=a["skin_direct"].shape[1],
+        depth=len(bg),
+        bucket_rows=tuple(g.shape[0] for g in bg),
+        bucket_widths=tuple(g.shape[1] for g in bg),
+        num_chunks=a["mc_chunks"].shape[0],
+    )
+
+
+def _pad_to(t: torch.Tensor, shape: Tuple[int, ...], value) -> torch.Tensor:
+    """`t` padded at the end of its leading dims to `shape` with `value`
+    (trailing dims kept), on t's device."""
+    if any(s < d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"cannot pad {tuple(t.shape)} into {shape}")
+    out = t.new_full(tuple(shape) + tuple(t.shape[len(shape):]), value)
+    out[tuple(slice(0, d) for d in t.shape[:len(shape)])] = t
+    return out
+
+
+def pad_plan(plan: Plan, caps: Capacities) -> Plan:
+    """Re-pad a plan's device arrays into the fixed `caps` budget.
+
+    The returned plan computes the same potentials and forces (every
+    padded slot is masked, or owned by the scratch node) but its array
+    shapes depend only on `caps`. The padding runs on the plan's device;
+    the host trees are kept for diagnostics."""
+    with _trace.span("plan.pad"):
+        return _pad_plan_impl(plan, caps)
+
+
+def _pad_plan_impl(plan: Plan, caps: Capacities) -> Plan:
+    t_pad = time.perf_counter()
+    if not caps.fits(plan):
+        raise ValueError(
+            "capacities do not fit this plan; call caps.grown_to_fit(plan) "
+            "first (the growth is a deliberate, counted event)")
+    a = plan.arrays
+    scratch = caps.scratch_node
+    nb_old = a["tgt_batched"].shape[1]
+    gi = a["gather_index"]
+    if nb_old != caps.batch_width:
+        gi = (gi // nb_old) * caps.batch_width + gi % nb_old
+    rows = (caps.num_batches,)
+    out = dict(
+        src_sorted=a["src_sorted"],
+        src_perm=a["src_perm"],
+        tgt_batched=_pad_to(a["tgt_batched"], rows + (caps.batch_width,), 0),
+        gather_index=gi,
+        leaf_gather=_pad_to(a["leaf_gather"],
+                            (caps.num_leaves, caps.leaf_width), -1),
+        node_lo=_pad_to(a["node_lo"], (caps.num_nodes,), 0),
+        node_hi=_pad_to(a["node_hi"], (caps.num_nodes,), 1),
+        approx_idx=_pad_to(a["approx_idx"], rows + (caps.approx_width,), -1),
+        direct_idx=_pad_to(a["direct_idx"], rows + (caps.direct_width,), -1),
+        approx_skin=_pad_to(a["approx_skin"], rows + (caps.approx_width,),
+                            0),
+        skin_direct=_pad_to(a["skin_direct"],
+                            rows + (caps.skin_direct_width,), -1),
+        skin_direct_node=_pad_to(a["skin_direct_node"],
+                                 rows + (caps.skin_direct_width,), -1),
+        tgt_mask=_pad_to(a["tgt_mask"], rows + (caps.batch_width,), False),
+        parent_of=_pad_to(a["parent_of"], (caps.num_nodes,), scratch),
+    )
+    bgs, bns = [], []
+    for lvl in range(caps.depth):
+        shape = (caps.bucket_rows[lvl], caps.bucket_widths[lvl])
+        if lvl < len(a["bucket_gather"]):
+            bgs.append(_pad_to(a["bucket_gather"][lvl], shape, -1))
+            bns.append(_pad_to(a["bucket_nodes"][lvl], shape[:1], scratch))
+        else:
+            like = a["bucket_gather"][0]
+            bgs.append(like.new_full(shape, -1))
+            bns.append(a["bucket_nodes"][0].new_full(shape[:1], scratch))
+    out["bucket_gather"] = tuple(bgs)
+    out["bucket_nodes"] = tuple(bns)
+    ptr = a["mc_chunk_ptr"]
+    out["mc_chunk_ptr"] = _pad_to(ptr, (caps.num_nodes + 1,), 0)
+    out["mc_chunk_ptr"][ptr.shape[0]:] = ptr[-1]
+    chunks = _pad_to(a["mc_chunks"], (caps.num_chunks,), 0)
+    chunks[a["mc_chunks"].shape[0]:, 0] = scratch
+    out["mc_chunks"] = chunks
+    build_ms = dict(plan.build_ms)
+    build_ms["pad"] = build_ms.get("pad", 0.0) \
+        + (time.perf_counter() - t_pad) * 1e3
+    return dataclasses.replace(plan, arrays=out, capacities=caps,
+                               scratch_node=scratch, build_ms=build_ms)
+
+
+def plan_signature(plan: Plan) -> Tuple:
+    """Hashable shape/dtype signature of a plan's device arrays (the chunk
+    table's budget included): equal signatures mean equal shapes, the
+    MD engine's test for a capacity growth."""
+    def leaf_sig(v):
+        return (tuple(v.shape), str(v.dtype))
+
+    return tuple(sorted(
+        (k, tuple(leaf_sig(x) for x in v) if isinstance(v, tuple)
+         else leaf_sig(v))
+        for k, v in plan.arrays.items()))

@@ -1,0 +1,225 @@
+"""Device-side tree refit: moved particles, fixed topology.
+
+Port of the single-device parts of `repro/dynamics/refit.py`. A treecode
+plan is (topology, geometry): the permutation, particle ranges,
+interaction lists, padded gather tables and the modified charges' chunk
+table are topology; the packed coordinates and node bounding boxes are
+geometry. When particles move a little only the geometry is stale, and
+all of it lives in the plan's device arrays. `refit_single_arrays`
+recomputes exactly that, on the device, in O(N log N):
+
+    src_sorted   <- x[perm]                  (tree-order source slab)
+    tgt_batched  <- scatter x by gather_index (batch-packed target slab)
+    node_lo/hi   <- masked min/max over each node's bucket-gather row
+
+Chebyshev grids and modified charges are derived from node_lo/hi on
+every force evaluation, so refitting the boxes refits them too; tree
+order does not change, so the chunk table stays valid. Every particle
+stays inside its refitted cluster box (the box IS the particle bounding
+box); the only thing drift can invalidate is the MAC inequality of the
+frozen approx lists, which the engine guards with the per-step drift
+against the slacks `refresh_slacks_single` recomputes from the refitted
+boxes (DESIGN.md §4).
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from repro_torch.core import eval as _eval
+from repro_torch.core.api import SingleDevicePlan
+from repro_torch.kernels import ops as _ops
+
+#: What the sharded adapter waits for.
+_SHARDED_LATER = ("sharded plans have no dynamics adapter yet (ROADMAP "
+                  "queue A: sharded)")
+
+
+def _masked_boxes(pts, valid, old_lo_rows, old_hi_rows):
+    """(rows, pad, 3) points + validity -> (rows, 3) min/max boxes.
+
+    Rows with no valid entry (pure padding) keep their old box, which the
+    padding convention fixed at the non-degenerate [0, 1]: every padded
+    bucket row names the scratch node, so all of a level's writes to the
+    scratch row carry the same [0, 1] box and the order in which
+    `index_copy_` applies duplicates does not matter."""
+    big = torch.finfo(pts.dtype).max
+    m = valid[..., None]
+    lo = torch.where(m, pts, torch.full_like(pts, big)).amin(dim=1)
+    hi = torch.where(m, pts, torch.full_like(pts, -big)).amax(dim=1)
+    has = valid.any(dim=1)[..., None]
+    return (torch.where(has, lo, old_lo_rows),
+            torch.where(has, hi, old_hi_rows))
+
+
+def refit_single_arrays(arrays: dict, x: torch.Tensor) -> dict:
+    """A single-device plan's arrays refitted to positions `x` (input
+    order), as a new dict; `arrays` is not modified.
+
+    Assumes the MD setting: targets == sources == the N particles the
+    plan was built over (gather_index covers every target once)."""
+    x = x.to(arrays["src_sorted"].dtype)
+    src_sorted = x[arrays["src_perm"]]
+    lo = arrays["node_lo"].clone()
+    hi = arrays["node_hi"].clone()
+    for gidx, nodes in zip(arrays["bucket_gather"], arrays["bucket_nodes"]):
+        pts = src_sorted[gidx.clamp(min=0)]
+        lo_rows, hi_rows = _masked_boxes(pts, gidx >= 0, lo[nodes],
+                                         hi[nodes])
+        lo.index_copy_(0, nodes, lo_rows)
+        hi.index_copy_(0, nodes, hi_rows)
+    b, nb, _ = arrays["tgt_batched"].shape
+    flat = x.new_zeros((b * nb, 3)).index_copy_(0, arrays["gather_index"], x)
+    return dict(arrays, src_sorted=src_sorted, node_lo=lo, node_hi=hi,
+                tgt_batched=flat.reshape(b, nb, 3))
+
+
+def refresh_slacks_single(arrays: dict, *, theta: float,
+                          space) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(theta_slack, fold_slack) 0-d device tensors of a refitted
+    single-device plan (+inf where no safe approx pair exists)."""
+    bc, bhw, rb, has = _ops.batch_boxes(arrays["tgt_batched"],
+                                        arrays["tgt_mask"])
+    return _ops.refreshed_slacks(
+        arrays["approx_idx"], arrays["approx_skin"], bc, bhw, rb, has,
+        arrays["node_lo"], arrays["node_hi"], theta=theta, space=space)
+
+
+def max_drift(x: torch.Tensor, x_ref: torch.Tensor,
+              space=None) -> torch.Tensor:
+    """Max particle displacement since `x_ref`, a 0-d device tensor.
+
+    With a periodic `space` the displacement is folded to the minimum
+    image, so a particle wrapped across the cell boundary at the last
+    rebuild does not register a spurious box-length drift."""
+    d = x - x_ref
+    if space is not None:
+        d = space.min_image(d)
+    return torch.sqrt((d * d).sum(-1).max())
+
+
+class PlanAdapter:
+    """Strategy-specific hooks the dynamics engine composes into a step:
+    `refit`, `slack_fn` and `force_fn` run on the device and never wait
+    for the host; `rebuild` is the host path (tree construction is a host
+    phase, as in the paper) and returns True when the plan's shapes
+    changed (a capacity growth)."""
+
+    plan = None
+
+    def positions(self) -> torch.Tensor:
+        """Current particle positions in input order, on the device."""
+        raise NotImplementedError
+
+    @property
+    def arrays(self) -> dict:
+        raise NotImplementedError
+
+    @property
+    def mac_slack(self) -> float:
+        return self.plan.mac_slack
+
+    @property
+    def theta_slack(self) -> float:
+        """Build-time raw theta-margin slack (drift rate 2√3(1+θ))."""
+        return self.plan.theta_slack
+
+    @property
+    def fold_slack(self) -> float:
+        """Build-time raw fold-margin slack (drift rate 4)."""
+        return self.plan.fold_slack
+
+    @property
+    def skin(self) -> float:
+        """Verlet-skin radius of the plan's interaction lists."""
+        return self.plan.skin
+
+    def signature(self) -> Tuple:
+        raise NotImplementedError
+
+    def refit(self, arrays: dict, x) -> dict:
+        raise NotImplementedError
+
+    def slack_fn(self) -> Callable:
+        """(arrays) -> (theta_slack, fold_slack) device scalars
+        recomputed from the REFITTED geometry."""
+        raise NotImplementedError
+
+    def force_fn(self) -> Callable:
+        """(arrays, x, q, w) -> (phi, F), all input order, on device."""
+        raise NotImplementedError
+
+    def rebuild(self, x) -> bool:
+        """Host tree rebuild at new positions, re-padded into the plan's
+        capacity budget; True only when a budget grew."""
+        raise NotImplementedError
+
+    def sync_arrays(self, arrays: dict) -> None:
+        """Push engine-refitted arrays back onto the plan so direct plan
+        use (plan.execute / stats) sees the current geometry."""
+        raise NotImplementedError
+
+
+class SingleDeviceAdapter(PlanAdapter):
+    def __init__(self, plan: SingleDevicePlan):
+        self.plan = plan
+
+    def positions(self) -> torch.Tensor:
+        a = self.plan.inner.arrays
+        out = torch.empty_like(a["src_sorted"])
+        out[a["src_perm"]] = a["src_sorted"]
+        return out
+
+    @property
+    def arrays(self) -> dict:
+        return self.plan.inner.arrays
+
+    def signature(self) -> Tuple:
+        return _eval.plan_signature(self.plan.inner)
+
+    def refit(self, arrays: dict, x) -> dict:
+        return refit_single_arrays(arrays, x)
+
+    def slack_fn(self) -> Callable:
+        cfg = self.plan.config
+
+        def slack(arrays):
+            return refresh_slacks_single(arrays, theta=cfg.theta,
+                                         space=cfg.space)
+
+        return slack
+
+    def force_fn(self) -> Callable:
+        opts = self.plan.config.exec_opts(self.plan.kernel)
+        params = self.plan.kernel_params
+
+        def force(arrays, x, q, w):
+            del x  # already refitted into arrays
+            return _eval.potential_and_forces(arrays, q, w, params, **opts)
+
+        return force
+
+    def rebuild(self, x) -> bool:
+        old_sig = self.signature()
+        self.plan = self.plan.replan(x)   # keeps capacities, grows
+        return self.signature() != old_sig
+
+    def sync_arrays(self, arrays: dict) -> None:
+        self.plan.inner.arrays = arrays
+
+
+class ShardedAdapter(PlanAdapter):
+    """The reference's adapter over sharded plans; not ported yet."""
+
+    def __init__(self, plan):
+        raise NotImplementedError(_SHARDED_LATER)
+
+
+def make_adapter(plan) -> PlanAdapter:
+    """Dispatch a plan to its dynamics adapter."""
+    if isinstance(plan, SingleDevicePlan):
+        return SingleDeviceAdapter(plan)
+    if getattr(plan, "nranks", 1) != 1:
+        return ShardedAdapter(plan)
+    raise TypeError(f"no dynamics adapter for {type(plan).__name__}")

@@ -11,7 +11,8 @@ source rebuilds and an unchanged one is reused. `build()` starts one
 No ``--use_fast_math``: the f64 bar is 1e-12 and the exact-hit compare in
 the modified charges needs IEEE arithmetic. ``-Xptxas -v`` makes nvcc
 report registers, shared memory and spills per kernel; the report of a
-build is kept in `BUILD_LOG`.
+build is kept in `BUILD_LOG`, and each build is an event of
+`repro_torch.obs.events` (what the MD engine counts as a compile).
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from repro_torch.obs import events as _events
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("batch_cluster", "modified_charges")
+SOURCES = ("batch_cluster", "batch_cluster_field", "modified_charges")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,6 +96,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             errors.append(f"nvcc failed for {n}.cu:\n{log}")
             continue
         os.replace(tmp, paths[n])  # atomic: concurrent builders agree
+        _events.record_build(n, BUILD_SECONDS[n] * 1e3)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths

@@ -1,4 +1,4 @@
-"""Batch-cluster interactions (Eq. 9 and Eq. 11): CUDA kernel + plain version.
+"""Batch-cluster interactions (Eq. 9, Eq. 11): CUDA kernels + plain versions.
 
 Replaces `src/repro/kernels/batch_cluster.py:batch_cluster_eval_pallas`
 (bodies `_body`, `_body_kahan`, `_pair_r2`). The barycentric
@@ -16,15 +16,25 @@ interaction, so ONE kernel evaluates both: against leaf source particles
   chunked over batches and list slots like the reference's XLA scan, so
   it runs at 10^6 particles on the card. The CPU path and the tests use
   it; `chip_smoke.py` holds the kernel against it.
+- `batch_cluster_field_cuda` launches `csrc/batch_cluster_field.cu`, the
+  gradient twin: phi and grad_x phi = sum 2 G'(r^2) d q in one sweep, out
+  (B, NB, 4) = (phi, gx, gy, gz). It is the card's counterpart of the
+  reference's forces path (three forward JVPs through its XLA executor),
+  not of a TPU kernel. `batch_cluster_field_plain` is its plain version:
+  the analytic derivative for Coulomb and Yukawa, `torch.func.jvp` of
+  `Kernel.__call__` for a user kernel.
 
 Sentinel contract: a ``-1`` slot contributes exactly zero wherever it
 sits in a row (the Verlet-skin gate writes interior sentinels).
 
 Count contract: targets are packed from slot 0 of each batch row and
 source points from slot 0 of each cluster, so `tgt_count` (B,) and
-`src_count` (C,) are prefix lengths. Both functions sum only over the
-first ``src_count[c]`` points of cluster c, and give phi = 0 on target
+`src_count` (C,) are prefix lengths. All four functions sum only over
+the first ``src_count[c]`` points of cluster c, and give 0 on target
 slots at or beyond ``tgt_count[b]``. None means every slot is real.
+
+Exact hits (r^2 == 0, a particle meeting itself) add exactly 0 to phi
+and to every gradient component.
 """
 from __future__ import annotations
 
@@ -36,8 +46,11 @@ from repro_torch.core.potentials import Kernel, builtin_id
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.kernels import _build
 
-#: Kernel launches since import (or the last reset by a caller).
+#: Launches of the potential kernel since import (or the last reset by a
+#: caller).
 LAUNCHES = 0
+#: Launches of the field kernel (`batch_cluster_field_cuda`), likewise.
+FIELD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,16 +59,20 @@ _SIG = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _D, _D, _D, _P)
 _SIGNATURES = {"bc_eval_f32": _SIG, "bc_eval_f64": _SIG,
                "bc_geometry": (_I,)}
+# the field entries take no matmul flag
+_FIELD_SIG = _SIG[:15] + _SIG[16:]
+FIELD_SIGNATURES = {"bcf_eval_f32": _FIELD_SIG, "bcf_eval_f64": _FIELD_SIG,
+                    "bcf_geometry": (_I,)}
 
 #: Element budget of one (batch chunk, NB, m) pairwise block in the plain
-#: version.
+#: versions.
 _PAIR_BUDGET = 1 << 25
 
-#: kTile of csrc/batch_cluster.cu (`bc_geometry(0)`): one block per 128
-#: targets of a row, and the grid's second dimension is at most 65535
-#: blocks.
+#: kTile of both CUDA sources (`bc_geometry(0)`, `bcf_geometry(0)`): one
+#: block per 128 targets of a row, and the grid's second dimension is at
+#: most 65535 blocks.
 _TARGETS_PER_BLOCK = 128
-#: kUnroll of csrc/batch_cluster.cu (`bc_geometry(1)`): a cluster's sweep
+#: kUnroll of both CUDA sources (`*_geometry(1)`): a cluster's sweep
 #: rounds its point count up to a multiple of it.
 _SOURCE_UNROLL = 4
 
@@ -97,16 +114,60 @@ def swept_pairs(idx: torch.Tensor, nb: int, m: int,
             "tiles_launched": b * -(-nb // tile)}
 
 
-def _check_count(name: str, t: torch.Tensor, n: int, dev) -> None:
+def _check_count(what: str, name: str, t: torch.Tensor, n: int,
+                 dev) -> None:
     if t.device != dev or not t.is_cuda:
-        raise ValueError(f"batch_cluster_eval_cuda: {name} is on "
-                         f"{t.device}, expected the CUDA device {dev}")
+        raise ValueError(f"{what}: {name} is on {t.device}, expected the "
+                         f"CUDA device {dev}")
     if t.dtype != torch.int32 or not t.is_contiguous():
-        raise TypeError(f"batch_cluster_eval_cuda: {name} must be a "
-                        f"contiguous int32 tensor")
+        raise TypeError(f"{what}: {name} must be a contiguous int32 tensor")
     if tuple(t.shape) != (n,):
-        raise ValueError(f"batch_cluster_eval_cuda: {name} has shape "
-                         f"{tuple(t.shape)}, expected ({n},)")
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                         f"expected ({n},)")
+
+
+def _check_inputs(what, idx, par, tgt, src_pts, src_q, tgt_count,
+                  src_count):
+    """Device, dtype, shape and contiguity checks of a launch; returns
+    (B, S, NB, m)."""
+    dev = tgt.device
+    dtype = tgt.dtype
+    for name, t in (("idx", idx), ("par", par), ("tgt", tgt),
+                    ("src_pts", src_pts), ("src_q", src_q)):
+        if t.device != dev or not t.is_cuda:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected "
+                             f"the CUDA device {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: dtype {dtype} (float32 or float64)")
+    if any(t.dtype != dtype for t in (par, src_pts, src_q)):
+        raise TypeError(f"{what}: par, tgt, src_pts and src_q must share "
+                        f"one dtype")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{what}: idx must be int32")
+    b, s = idx.shape
+    _, nb, three = tgt.shape
+    c, m, three_s = src_pts.shape
+    if (tgt.shape[0] != b or three != 3 or three_s != 3
+            or tuple(src_q.shape) != (c, m)):
+        raise ValueError(
+            f"{what}: shapes idx {tuple(idx.shape)}, tgt "
+            f"{tuple(tgt.shape)}, src_pts {tuple(src_pts.shape)}, src_q "
+            f"{tuple(src_q.shape)} do not match (B,S),(B,NB,3),(C,m,3),(C,m)")
+    if tgt_count is not None:
+        _check_count(what, "tgt_count", tgt_count, b, dev)
+    if src_count is not None:
+        _check_count(what, "src_count", src_count, c, dev)
+    if -(-nb // _TARGETS_PER_BLOCK) > 65535:
+        raise ValueError(f"{what}: NB={nb} exceeds the grid limit of "
+                         f"{65535 * _TARGETS_PER_BLOCK} targets per batch "
+                         f"row")
+    return b, s, nb, m
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
@@ -127,41 +188,8 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
     takes |x|^2+|y|^2-2x.y in free space; periodic spaces always take
     the difference form."""
     global LAUNCHES
-    dev = tgt.device
-    dtype = tgt.dtype
-    for name, t in (("idx", idx), ("par", par), ("tgt", tgt),
-                    ("src_pts", src_pts), ("src_q", src_q)):
-        if t.device != dev or not t.is_cuda:
-            raise ValueError(f"batch_cluster_eval_cuda: {name} is on "
-                             f"{t.device}, expected the CUDA device {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"batch_cluster_eval_cuda: {name} must be "
-                             f"contiguous")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"batch_cluster_eval_cuda: dtype {dtype} "
-                        f"(float32 or float64)")
-    if any(t.dtype != dtype for t in (par, src_pts, src_q)):
-        raise TypeError("batch_cluster_eval_cuda: par, tgt, src_pts and "
-                        "src_q must share one dtype")
-    if idx.dtype != torch.int32:
-        raise TypeError("batch_cluster_eval_cuda: idx must be int32")
-    b, s = idx.shape
-    _, nb, three = tgt.shape
-    c, m, three_s = src_pts.shape
-    if (tgt.shape[0] != b or three != 3 or three_s != 3
-            or tuple(src_q.shape) != (c, m)):
-        raise ValueError(
-            f"batch_cluster_eval_cuda: shapes idx {tuple(idx.shape)}, tgt "
-            f"{tuple(tgt.shape)}, src_pts {tuple(src_pts.shape)}, src_q "
-            f"{tuple(src_q.shape)} do not match (B,S),(B,NB,3),(C,m,3),(C,m)")
-    if tgt_count is not None:
-        _check_count("tgt_count", tgt_count, b, dev)
-    if src_count is not None:
-        _check_count("src_count", src_count, c, dev)
-    if -(-nb // _TARGETS_PER_BLOCK) > 65535:
-        raise ValueError(f"batch_cluster_eval_cuda: NB={nb} exceeds the "
-                         f"grid limit of {65535 * _TARGETS_PER_BLOCK} "
-                         f"targets per batch row")
+    b, s, nb, m = _check_inputs("batch_cluster_eval_cuda", idx, par, tgt,
+                                src_pts, src_q, tgt_count, src_count)
     if r2_mode not in ("diff", "matmul"):
         raise ValueError(f"unknown r2_mode {r2_mode!r}")
     kid = kernel_id(kernel)
@@ -170,19 +198,52 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
     matmul = r2_mode == "matmul" and not periodic
 
     lib = _build.load("batch_cluster", _SIGNATURES)
-    fn = lib.bc_eval_f32 if dtype == torch.float32 else lib.bc_eval_f64
-    out = torch.empty((b, nb), dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = lib.bc_eval_f32 if tgt.dtype == torch.float32 else lib.bc_eval_f64
+    out = torch.empty((b, nb), dtype=tgt.dtype, device=tgt.device)
+    with torch.cuda.device(tgt.device):
+        stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = fn(idx.data_ptr(), par.data_ptr(), tgt.data_ptr(),
-                src_pts.data_ptr(), src_q.data_ptr(),
-                None if tgt_count is None else tgt_count.data_ptr(),
-                None if src_count is None else src_count.data_ptr(),
-                out.data_ptr(), b, s, nb, m, kid, int(periodic), int(kahan),
-                int(matmul), *map(float, lengths), stream)
+                src_pts.data_ptr(), src_q.data_ptr(), _ptr(tgt_count),
+                _ptr(src_count), out.data_ptr(), b, s, nb, m, kid,
+                int(periodic), int(kahan), int(matmul), *map(float, lengths),
+                stream)
     _build.check(rc, "batch_cluster")
     if b > 0 and nb > 0:        # the C entry launches nothing otherwise
         LAUNCHES += 1
+    return out
+
+
+def batch_cluster_field_cuda(idx: torch.Tensor, par: torch.Tensor,
+                             tgt: torch.Tensor, src_pts: torch.Tensor,
+                             src_q: torch.Tensor, *, kernel: Kernel,
+                             space=_FREE, kahan: bool = False,
+                             tgt_count: torch.Tensor | None = None,
+                             src_count: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """(B, NB, 4) = (phi, grad_x phi) by one launch of the field kernel.
+
+    The arguments are those of `batch_cluster_eval_cuda`, without
+    `r2_mode`: the gradient needs the displacement, so the field kernel
+    always takes the difference form."""
+    global FIELD_LAUNCHES
+    b, s, nb, m = _check_inputs("batch_cluster_field_cuda", idx, par, tgt,
+                                src_pts, src_q, tgt_count, src_count)
+    kid = kernel_id(kernel)
+    periodic = bool(space.periodic)
+    lengths = space.lengths if periodic else (1.0, 1.0, 1.0)
+
+    lib = _build.load("batch_cluster_field", FIELD_SIGNATURES)
+    fn = lib.bcf_eval_f32 if tgt.dtype == torch.float32 else lib.bcf_eval_f64
+    out = torch.empty((b, nb, 4), dtype=tgt.dtype, device=tgt.device)
+    with torch.cuda.device(tgt.device):
+        stream = torch.cuda.current_stream(tgt.device).cuda_stream
+        rc = fn(idx.data_ptr(), par.data_ptr(), tgt.data_ptr(),
+                src_pts.data_ptr(), src_q.data_ptr(), _ptr(tgt_count),
+                _ptr(src_count), out.data_ptr(), b, s, nb, m, kid,
+                int(periodic), int(kahan), *map(float, lengths), stream)
+    _build.check(rc, "batch_cluster_field")
+    if b > 0 and nb > 0:        # the C entry launches nothing otherwise
+        FIELD_LAUNCHES += 1
     return out
 
 
@@ -232,4 +293,92 @@ def batch_cluster_eval_plain(idx: torch.Tensor, tgt: torch.Tensor,
         real = (torch.arange(nb, device=out.device)[None, :]
                 < tgt_count.to(out.device)[:, None])
         out = torch.where(real, out, torch.zeros_like(out))
+    return out
+
+
+def field_coefficients(kernel: Kernel, r2: torch.Tensor, params=None):
+    """(G(r2), 2 G'(r2)) elementwise, both exactly 0 where r2 == 0.
+
+    Analytic for the built-in kernels (Coulomb: 2G' = -r^-3; Yukawa:
+    2G' = -(1 + kappa r) e^(-kappa r) r^-3); `torch.func.jvp` of
+    `Kernel.__call__` for a user kernel, whose double `where` makes the
+    derivative at r2 == 0 a zero, not a NaN."""
+    if params is None:
+        params = kernel.params
+    g = kernel(r2, params)
+    kid = builtin_id(kernel)
+    if kid is None:
+        _, dg = torch.func.jvp(lambda t: kernel(t, params), (r2,),
+                               (torch.ones_like(r2),))
+        return g, 2.0 * dg
+    pos = r2 > 0.0
+    safe = torch.where(pos, r2, torch.ones_like(r2))
+    if kid == 0:                                  # coulomb: -G^3
+        c = -(g * g * g)
+    else:                                         # yukawa
+        (kappa,) = params
+        c = -(1.0 + kappa * torch.sqrt(safe)) * g / safe
+    return g, torch.where(pos, c, torch.zeros_like(c))
+
+
+def batch_cluster_field_plain(idx: torch.Tensor, tgt: torch.Tensor,
+                              src_pts: torch.Tensor, src_q: torch.Tensor,
+                              params=None, *, kernel: Kernel, space=_FREE,
+                              kahan: bool = False, r2_mode: str = "diff",
+                              tgt_count: torch.Tensor | None = None,
+                              src_count: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """(B, NB, 4) = (phi, grad_x phi), the field in plain PyTorch.
+
+    The loop of `batch_cluster_eval_plain`, with the gradient
+    sum 2 G'(r2) d q beside phi (d the `space` displacement target minus
+    source). With ``r2_mode="matmul"`` in free space, r2 (hence G and
+    G') takes the matmul form and d stays the difference, as the JVP of
+    the reference's matmul r2 does. Kahan compensates all four sums
+    across slots."""
+    bsz, nb = tgt.shape[0], tgt.shape[1]
+    m = src_pts.shape[1]
+    dtype = tgt.dtype
+    matmul = r2_mode == "matmul" and not space.periodic
+    if src_count is not None:
+        keep = (torch.arange(m, device=src_q.device)[None, :]
+                < src_count.to(src_q.device)[:, None])
+        src_q = torch.where(keep, src_q, torch.zeros_like(src_q))
+    chunk = max(1, min(bsz, _PAIR_BUDGET // max(4 * nb * m, 1)))
+    out = torch.empty((bsz, nb, 4), dtype=dtype, device=tgt.device)
+    for b0 in range(0, bsz, chunk):
+        tgt_b = tgt[b0:b0 + chunk]
+        idx_b = idx[b0:b0 + chunk]
+        acc = torch.zeros((*tgt_b.shape[:2], 4), dtype=dtype,
+                          device=tgt.device)
+        comp = torch.zeros_like(acc)
+        for s in range(idx.shape[1]):
+            ids = idx_b[:, s]
+            safe = ids.clamp(min=0).long()
+            y = src_pts[safe]                                # (bc, m, 3)
+            d = space.displacement(tgt_b[:, :, None, :], y[:, None, :, :])
+            if matmul:
+                xy = torch.einsum("bnd,bmd->bnm", tgt_b, y)
+                r2 = torch.clamp((tgt_b * tgt_b).sum(-1)[..., :, None]
+                                 + (y * y).sum(-1)[..., None, :] - 2.0 * xy,
+                                 min=0.0)
+            else:
+                r2 = (d * d).sum(-1)
+            g, c = field_coefficients(kernel, r2, params)
+            wq = src_q[safe] * (ids >= 0).to(dtype)[:, None]  # (bc, m)
+            f = torch.cat([
+                torch.einsum("bnm,bm->bn", g, wq)[..., None],
+                torch.einsum("bnm,bnmk->bnk", c * wq[:, None, :], d)], dim=-1)
+            if kahan:
+                yk = f - comp
+                t = acc + yk
+                comp = (t - acc) - yk
+                acc = t
+            else:
+                acc = acc + f
+        out[b0:b0 + chunk] = acc
+    if tgt_count is not None:
+        real = (torch.arange(nb, device=out.device)[None, :]
+                < tgt_count.to(out.device)[:, None])
+        out = torch.where(real[..., None], out, torch.zeros_like(out))
     return out

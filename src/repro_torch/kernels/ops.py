@@ -10,8 +10,9 @@ A CUDA tensor under "auto" or "cuda" launches the kernel or raises:
 there is no silent fallback to the plain version. All entry points take
 the natural (..., P, 3) coordinate layout, which is also the kernels'.
 
-`batch_boxes` and `mac_gate` (the Verlet-skin runtime MAC gate) are plain
-torch ops, as the reference runs them in XLA outside Pallas.
+`batch_boxes`, `mac_gate` (the Verlet-skin runtime MAC gate) and
+`refreshed_slacks` (the MD engine's drift budgets) are plain torch ops,
+as the reference runs them in XLA outside Pallas.
 """
 from __future__ import annotations
 
@@ -82,8 +83,40 @@ def mac_gate(node_idx: torch.Tensor, bc, bhw, rb, has,
     R = torch.sqrt((dm * dm).sum(-1))
     ok = theta * R - (rb[:, None] + rc) > 0.0
     fold = space.fold_margin(d, bhw[:, None, :] + chw)
-    fold_ok = torch.as_tensor(fold > 0.0, device=ok.device)
+    # free space gives a host scalar (+inf): a Python bool, no upload
+    fold_ok = fold > 0.0 if isinstance(fold, torch.Tensor) \
+        else bool(fold > 0.0)
     return ok & fold_ok & has[:, None] & (node_idx >= 0)
+
+
+def refreshed_slacks(approx_idx: torch.Tensor, approx_skin: torch.Tensor,
+                     bc, bhw, rb, has, node_lo: torch.Tensor,
+                     node_hi: torch.Tensor, *, theta: float, space=_FREE):
+    """(theta_slack, fold_slack) 0-d tensors over the SAFE approx pairs of
+    a refitted plan: the on-device slack refresh (DESIGN.md §4).
+
+    Margins are exact on the current geometry (refitted boxes are true
+    bounding boxes), so the MD engine may budget future drift against
+    them. Skin pairs (approx_skin != 0) are runtime gated and excluded;
+    empty categories reduce to +inf. Nothing here waits for the host."""
+    safe = approx_idx.clamp(min=0).long()
+    clo = node_lo[safe]
+    chi = node_hi[safe]
+    cc = 0.5 * (clo + chi)
+    chw = 0.5 * (chi - clo)
+    rc = torch.linalg.vector_norm(chw, dim=-1)
+    d = bc[..., None, :] - cc
+    dm = space.min_image(d)
+    R = torch.sqrt((dm * dm).sum(-1))
+    t_margin = theta * R - (rb[..., None] + rc)
+    valid = (approx_idx >= 0) & (approx_skin == 0) & has[..., None]
+    inf = torch.full((), float("inf"), dtype=t_margin.dtype,
+                     device=t_margin.device)
+    theta_slack = torch.where(valid, t_margin, inf).amin()
+    fold = space.fold_margin(d, bhw[..., None, :] + chw)
+    if not isinstance(fold, torch.Tensor):   # free space: +inf, no upload
+        fold = torch.full_like(t_margin, float(fold))
+    return theta_slack, torch.where(valid, fold, inf).amin()
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +155,43 @@ def batch_cluster_eval(
             space=space, kahan=kahan, r2_mode=r2_mode, tgt_count=counts[0],
             src_count=counts[1])
     return _bc.batch_cluster_eval_plain(
+        idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
+        kahan=kahan, r2_mode=r2_mode, tgt_count=tgt_count,
+        src_count=src_count)
+
+
+def batch_cluster_field(
+    idx: torch.Tensor,      # (B, S) int, -1 = empty slot
+    tgt: torch.Tensor,      # (B, NB, 3)
+    src_pts: torch.Tensor,  # (C, m, 3)
+    src_q: torch.Tensor,    # (C, m)
+    params=None,            # kernel parameter values (None: defaults)
+    *,
+    kernel: Kernel,
+    space=_FREE,
+    backend: str = "auto",
+    kahan: bool = False,
+    r2_mode: str = "diff",
+    tgt_count: torch.Tensor | None = None,  # (B,) real targets per row
+    src_count: torch.Tensor | None = None,  # (C,) real points per cluster
+) -> torch.Tensor:
+    """(B, NB, 4): phi and its gradient with respect to each target,
+    sum over list slots, under the count contract of `batch_cluster_eval`.
+
+    The CUDA field kernel always takes the difference form of r^2 (the
+    gradient needs the displacement); the plain version follows
+    `r2_mode` like the potential, so the two differ by rounding only."""
+    if resolve_backend(backend, tgt) == "cuda":
+        par = pack_params(kernel.params if params is None else params,
+                          dtype=tgt.dtype, device=tgt.device)
+        counts = [None if c is None else c.to(torch.int32).contiguous()
+                  for c in (tgt_count, src_count)]
+        return _bc.batch_cluster_field_cuda(
+            idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
+            src_pts.contiguous(), src_q.contiguous(), kernel=kernel,
+            space=space, kahan=kahan, tgt_count=counts[0],
+            src_count=counts[1])
+    return _bc.batch_cluster_field_plain(
         idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
         kahan=kahan, r2_mode=r2_mode, tgt_count=tgt_count,
         src_count=src_count)

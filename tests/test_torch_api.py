@@ -13,6 +13,7 @@ from repro.core.api import TreecodeConfig as JConfig
 from repro.core.api import TreecodeSolver as JSolver
 from repro.core.space import PeriodicBox as JBox
 from repro_torch.configs import bltc
+from repro_torch.core import eval as _eval
 from repro_torch.core.api import TreecodeConfig, TreecodeSolver
 from repro_torch.core.direct import (direct_oracle_f64, direct_sum,
                                      direct_sum_kernel)
@@ -151,13 +152,19 @@ def test_config_validation_and_unported_options():
     solver = TreecodeSolver(TreecodeConfig(leaf_size=64), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.plan(x, nranks=2)
+    # ported by the forces and MD slice: capacities= and forces
+    plan = solver.plan(x, capacities="auto")
+    assert plan.capacities is not None
+    phi, F = plan.potential_and_forces(q)
+    assert phi.shape == (300,) and F.shape == (300, 3)
+    assert plan.replan(x).capacities == plan.capacities
+    # still unported: point budgets (serving) and sharded capacities
+    need = dict(_eval._plan_dims(plan.inner), num_targets=300,
+                num_sources=300)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.plan(x, capacities="auto")
-    plan = solver.plan(x)
-    with pytest.raises(NotImplementedError, match="forces"):
-        plan.potential_and_forces(q)
+        _eval.Capacities.for_need(need)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan.replan(x, capacities="auto")
+        plan.replan(x, capacities=object())
     cfg = TreecodeConfig(kernel="yukawa", kernel_params={"kappa": 0.3})
     assert cfg.make_kernel().params == (0.3,)
     assert cfg == TreecodeConfig(kernel="yukawa",

@@ -186,3 +186,88 @@ def test_modified_charges_ranged_kernel_matches_plain(cuda_device, dtype,
     else:
         torch.testing.assert_close(got, want, rtol=1e-10,
                                    atol=1e-12 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_field_kernel_matches_plain(cuda_device, dtype, periodic, kahan):
+    """The field kernel against its plain version with counts, sentinels
+    and exact hits: phi as the potential kernel's tolerance, each gradient
+    component with its atol times max|grad| (signed terms); exact hits
+    give 0 in all four outputs; its phi is the potential kernel's."""
+    rng = np.random.default_rng(2)
+    B, S, NB, C, m = 5, 7, 300, 9, 301
+    qlo = -1.0 if dtype == torch.float32 else 0.0
+    tgt = rng.uniform(-1, 1, (B, NB, 3))
+    src = rng.uniform(-1, 1, (C, m, 3))
+    tgt[1, :3] = src[0, :3]                    # exact hits
+    idx = rng.integers(-1, C, (B, S))
+    idx[:, 3] = -1
+    idx[1, 0] = 0
+    dev = cuda_device
+    t = [torch.as_tensor(a, dtype=dtype, device=dev)
+         for a in (tgt, src, rng.uniform(qlo, 1, (C, m)))]
+    it = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+    tc = torch.as_tensor([0, NB, 129, 7, 250], dtype=torch.int32, device=dev)
+    sc = torch.as_tensor(rng.integers(1, m + 1, C), dtype=torch.int32,
+                         device=dev)
+    sc[0] = m
+    space = PeriodicBox((1.5, 2.0, 1.7)) if periodic else FREE
+    rtol = 2e-4 if dtype == torch.float32 else 1e-12
+    for kern in (coulomb(), yukawa(0.5)):
+        kw = dict(kernel=kern, space=space, kahan=kahan, tgt_count=tc,
+                  src_count=sc)
+        before = bcm.FIELD_LAUNCHES
+        got = ops.batch_cluster_field(it, *t, **kw)
+        assert bcm.FIELD_LAUNCHES == before + 1
+        want = ops.batch_cluster_field(it, *t, backend="torch", **kw)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(
+            got[..., 0], want[..., 0], rtol=rtol,
+            atol=2e-4 if dtype == torch.float32 else 0.0)
+        gmax = want[..., 1:].abs().max().item()
+        torch.testing.assert_close(got[..., 1:], want[..., 1:], rtol=rtol,
+                                   atol=rtol * gmax)
+        pad = torch.arange(NB, device=dev)[None] >= tc[:, None]
+        assert (got[pad] == 0).all()
+        phi = ops.batch_cluster_eval(it, *t, **kw)
+        torch.testing.assert_close(got[..., 0], phi, rtol=1e-6, atol=1e-6)
+    x = t[0][:1, :1].clone()
+    one = torch.ones((1, 1), dtype=dtype, device=dev)
+    lone = ops.batch_cluster_field(torch.zeros((1, 1), dtype=torch.int32,
+                                               device=dev), x, x.clone(),
+                                   one, kernel=coulomb(), space=space)
+    assert (lone == 0).all()
+
+
+@pytest.mark.cuda
+def test_simulation_on_the_card(cuda_device):
+    """A short MD run through the CUDA kernels against the same run on the
+    card's plain versions (f32: positions within 1e-5 of the box). The
+    Verlet skin floors the refit budget at skin/2, so steps refit."""
+    from repro_torch.core.api import TreecodeConfig, TreecodeSolver
+    from repro_torch.dynamics import Simulation
+
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1, 1, (20000, 3)).astype(np.float32)
+    q = (0.05 * rng.uniform(-1, 1, 20000)).astype(np.float32)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        cfg = TreecodeConfig(theta=0.7, degree=5, leaf_size=256,
+                             skin=0.01, backend=backend)
+        plan = TreecodeSolver(cfg).plan(x, capacities="auto")
+        before = bcm.FIELD_LAUNCHES
+        sim = Simulation(plan, q, dt=2e-4, refit_interval=4)
+        sim.run(6, record_every=3)
+        s = sim.stats()
+        assert s["retraces"] == 0 and s["capacity_growths"] == 0
+        assert s["rebuilds"] >= 1 and s["refits"] >= 3
+        assert (bcm.FIELD_LAUNCHES - before
+                == (14 if backend == "cuda" else 0))
+        assert torch.isfinite(sim.state.x).all()
+        runs[backend] = sim
+    dx = (runs["cuda"].state.x - runs["torch"].state.x).abs().max().item()
+    assert dx < 1e-5, dx
+    assert runs["cuda"].log.drift() < 1e-3

@@ -10,7 +10,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 MODULES = ["repro_torch.core.api", "repro_torch.core.direct",
            "repro_torch.configs.bltc", "repro_torch.obs",
-           "repro_torch.kernels.ops", "repro_torch.kernels.ref"]
+           "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+           "repro_torch.dynamics", "repro_torch.checkpoint.store"]
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -41,15 +42,16 @@ def test_no_source_names_jax_or_repro():
 def test_cuda_sources_are_present():
     csrc = os.path.join(PKG, "kernels", "csrc")
     names = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
-    assert names == ["batch_cluster.cu", "modified_charges.cu"]
+    assert names == ["batch_cluster.cu", "batch_cluster_field.cu",
+                     "modified_charges.cu"]
     for name in names:
         text = open(os.path.join(csrc, name)).read()
         assert 'extern "C"' in text and "cudaGetLastError" in text
         text = re.sub(r"//.*", "", text)                # the code only
         # IEEE division and exp, and no approximate intrinsic but the one
-        # f32 reciprocal square root of the batch-cluster pair (MUFU.RSQ,
-        # within 2 ulp; f64 keeps the IEEE 1/sqrt)
+        # f32 reciprocal square root of the batch-cluster and field pairs
+        # (MUFU.RSQ, within 2 ulp; f64 keeps the IEEE 1/sqrt)
         assert not re.search(r"\b(rsqrtf?|__fdividef|__expf)\s*\(", text)
-        assert text.count("rsqrt.approx") == (name == "batch_cluster.cu")
+        assert text.count("rsqrt.approx") == (name != "modified_charges.cu")
     from repro_torch.kernels import _build
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
