@@ -47,23 +47,31 @@ Phases (each asserts; any failure exits non-zero):
  2f. batch_cluster_field kernel vs its plain version on phase 2's
     ragged cases (Coulomb and Yukawa, free and periodic, f32 and f64,
     Kahan, counts of 0), with exact hits (r^2 = 0) that must give 0 in
-    all four outputs, and its phi against the potential kernel's;
+    all four outputs, and its phi against the potential kernel's; each
+    gradient entry is held to GRAD_K times its own sum of the terms'
+    magnitudes (the plain version's `magnitude=True` sweep);
  4f. Fig. 4 forces on the main phase's plan: `potential_and_forces`
     time, its phi against `execute`, forces against an f64 direct sum on
     1000 sampled targets (relative 2-norm <= FORCE_BAR), the two field
     lanes' times and bounds, and the kernel against its plain version
-    (timed once) on every batch row of both lanes;
- 8. MD at N = 10^6 and the Fig. 4 settings: `Simulation` over a
-    jittered 100^3 lattice with +-1 charges, velocity Verlet, 20 steps,
-    refit interval 10; steps 2-20 run with the launch counters at 0
-    (field and modified-charge kernels each 2 launches a step), exactly
+    (timed once) on every batch row of both lanes, the gradient per
+    entry as in 2f;
+ 8. MD at N = 10^6, the Fig. 4 settings with a Verlet skin of 0.01:
+    `Simulation` over a jittered 100^3 lattice with +-1 charges,
+    velocity Verlet, 20 steps, refit interval 10; steps 2-20 run with
+    the launch counters at 0 (field and modified-charge kernels each 2
+    launches a step), exactly
     one host sync per refit step (torch.cuda.set_sync_debug_mode
     "warn"), no capacity growth and no kernel build after step 1; ms per
     refit and rebuild step, span times of two traced refit steps,
-    refit/rebuild counts by cause, energy and momentum drift;
+    refit/rebuild counts by cause, energy and momentum drift; the energy
+    balance |dKE + dPE| / dKE in f64 (<= ENERGY_BAR), and the field
+    kernel against its plain version on the first 64 batch rows of both
+    lanes of the MD's capacity-padded plan;
  9. a periodic Yukawa MD (58^3 salt box, skin 0.02): skin gate and
-    minimum-image forces through refits and a rebuild, final forces
-    against an f64 minimum-image direct sum;
+    minimum-image forces through refits and a rebuild, the energy
+    balance and the field kernel on the padded plan's rows as in 8,
+    final forces against an f64 minimum-image direct sum;
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -98,21 +106,34 @@ PERIODIC_N = 200_000
 FORCE_BAR = 1e-4
 # ... and of the periodic MD's f32 forces: on a +-1 salt lattice the net
 # force is ~100x smaller than the sum of its terms' magnitudes, and an
-# f32 sum keeps ~1e-7 of the latter (plain f32 sums with every pair
-# direct were 1.8e-4 / 3.0e-4 off for Yukawa / Coulomb on a 30^3 piece).
+# f32 sum keeps ~1e-7 of the latter (plain f32 direct sums over every
+# pair of a 30^3 piece were 4.8e-4 / 5.5e-4 off for Yukawa / Coulomb:
+# tools/md_f32_cpu.py).
 # The approximation itself is held to FORCE_BAR in f64.
 F32_CANCEL_BAR = 1e-3
 # The MD runs: a jittered 100^3 lattice in [-1,1]^3 at the Fig. 4
-# setting, and a periodic Yukawa salt box of 58^3 (about 2*10^5). With
-# +-1 charges and no repulsive core, the closest opposite pairs (about
-# 0.45 of the 0.02 spacing apart, F ~ 1e4) collapse within ~3e-4 time
-# units, and the Fig. 4 plan (skin 0) at 10^6 allows ~8e-7 of drift per
-# step before a refit is no longer provably MAC-valid. So dt = 5e-7: 22
-# steps move the fastest particle ~22 F dt^2 = 6e-8 a step. The periodic
-# box has a skin (budget >= skin/2) but the same collapse: dt = 1e-5.
-MD_M, MD_STEPS, MD_DT, MD_REFIT = 100, 20, 5e-7, 10
-PMD_M, PMD_DT, PMD_L, PMD_KAPPA = 58, 1e-5, 2.0, 1.0
+# setting, and a periodic Yukawa salt box of 58^3 (about 2*10^5), both
+# with +-1 charges and no repulsive core. Three limits set dt and the
+# skin:
+# - f32 positions: a step must move a typical particle (F ~ 500 on the
+#   10^6 lattice) by many ulps of its coordinate (6e-8 near |x| = 1), or
+#   the move rounds away while the velocity keeps it: at dt 5e-7 the KE
+#   gained 116 and the PE fell 16;
+# - the closest opposite pairs (F ~ 1e4) fall together in ~4e-4 time
+#   units, so 20 steps must end well before that;
+# - at skin 0 the Fig. 4 plan at 10^6 allows ~8e-7 of drift a step
+#   before a refit is no longer provably MAC-valid; a Verlet skin floors
+#   that budget at skin / 2.
+# So the 10^6 run takes dt 1e-5 and a skin of 0.01 (Fig. 4's theta,
+# degree, N_L, N_B, kernel and dtype otherwise), the periodic box dt 2e-5
+# (weaker forces on a coarser lattice, coordinates up to 2).
+MD_M, MD_STEPS, MD_DT, MD_REFIT, MD_SKIN = 100, 20, 1e-5, 10, 0.01
+PMD_M, PMD_DT, PMD_L, PMD_KAPPA = 58, 2e-5, 2.0, 1.0
 MD_JITTER = 0.08                       # of the lattice spacing
+# Bar of |dKE + dPE| / dKE over an MD run (`energy_balance`): forces of
+# the wrong sign or twice their size give 2 or 0.5, zero forces dKE = 0.
+# Measured on an H100: 6.5e-6 (10^6 lattice), 3.4e-5 (periodic box).
+ENERGY_BAR = 1e-3
 
 
 def smi_line() -> str:
@@ -251,6 +272,7 @@ def phase_field(dev):
     box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
     n = 0
     worst = {torch.float32: 0.0, torch.float64: 0.0}
+    worst_ratio = dict(worst)
     phi_worst = 0.0
     for dtype in (torch.float32, torch.float64):
         rtol, atol = FIELD_TOL[dtype.itemsize]
@@ -280,11 +302,14 @@ def phase_field(dev):
                 got = ops.batch_cluster_field(it, *t, backend="cuda", **kw)
                 assert bcm.FIELD_LAUNCHES == before + 1, "one launch a call"
                 want = ops.batch_cluster_field(it, *t, backend="torch", **kw)
+                mag = bcm.batch_cluster_field_plain(it, *t, magnitude=True,
+                                                    **kw)
                 what = (f"batch_cluster_field {dtype} {(B, S, NB, C, m)} "
                         f"{space} {kern.name}{kern.params} kahan={kahan} "
                         f"counts={counts}")
-                err = field_close(got, want, rtol, atol, what)
+                err, ratio = field_close(got, want, mag, rtol, atol, what)
                 worst[dtype] = max(worst[dtype], err)
+                worst_ratio[dtype] = max(worst_ratio[dtype], ratio)
                 phi = ops.batch_cluster_eval(it, *t, backend="cuda", **kw)
                 phi_worst = max(phi_worst, close(
                     got[..., 0], phi, *FIELD_PHI_TOL[dtype.itemsize],
@@ -314,32 +339,54 @@ def phase_field(dev):
     torch.cuda.synchronize()
     print(f"[2f] batch_cluster_field vs plain: {n} cases ok; max abs err "
           f"f32 {worst[torch.float32]:.3e}, f64 {worst[torch.float64]:.3e} "
-          f"(rtol/atol {FIELD_TOL[4]} f32, {FIELD_TOL[8]} f64; gradient atol "
-          f"times max|grad|; f64 phi atol 0); "
+          f"(phi rtol/atol {FIELD_TOL[4]} f32, rtol {FIELD_TOL[8][0]} f64; "
+          f"gradient atol GRAD_K * sum|terms| per entry, GRAD_K "
+          f"{GRAD_K[4]} f32, {GRAD_K[8]} f64); gradient max abs err / "
+          f"sum|terms| f32 {worst_ratio[torch.float32]:.3e}, f64 "
+          f"{worst_ratio[torch.float64]:.3e}; "
           f"{hits} lone exact hits give 0 in all four outputs; field phi vs "
           f"the potential kernel's max abs err {phi_worst:.3e}", flush=True)
 
 
-#: (rtol, atol) of the field kernel against its plain version: phi takes
-#: phase 2's; a gradient component sums signed terms (d changes sign), so
-#: its atol is relative to max|grad| of the case.
-FIELD_TOL = {4: (2e-4, 2e-4), 8: (1e-12, 1e-12)}   # by itemsize
+#: (rtol, atol) of the field kernel's phi against its plain version:
+#: phase 2's (f64 cases take positive charges, so phi's atol is 0).
+FIELD_TOL = {4: (2e-4, 2e-4), 8: (1e-12, 0.0)}   # by itemsize
+#: A gradient component sums signed terms (d changes sign), so one that
+#: cancels keeps the rounding of its larger terms: each entry is held to
+#: GRAD_K times its own sum of the terms' magnitudes, sum_j |2 G' d_k q_j|
+#: (the plain version's `magnitude=True` sweep), by itemsize.
+GRAD_K = {4: 1e-5, 8: 1e-13}
 #: (rtol, atol) of the field kernel's phi against the potential kernel's:
 #: the same expression in the same order, so they agree to rounding.
 FIELD_PHI_TOL = {4: (1e-6, 1e-6), 8: (1e-14, 0.0)}
 
 
-def field_close(got, want, rtol, atol, what):
-    """`close` for (..., 4) field outputs: phi with atol as given (0 in
-    f64, whose cases take positive charges), each gradient component
-    with atol times max|grad|."""
+def field_close(got, want, mag, rtol, atol, what, phi_scale=None):
+    """`close` for (..., 4) field outputs: phi with (rtol, atol) (atol
+    scaled by `phi_scale`, as in `close`), each gradient entry with
+    `grad_close`. Returns (max abs err, the gradient's max err / mag)."""
+    err = close(got[..., 0], want[..., 0], rtol, atol, f"{what}: phi",
+                scale=phi_scale)
+    gerr, ratio = grad_close(got[..., 1:], want[..., 1:], mag[..., 1:],
+                             what)
+    return max(err, gerr), ratio
+
+
+def grad_close(got, want, mag, what):
+    """Asserts |got - want| <= GRAD_K * mag per entry, `mag` the sum of
+    the terms' magnitudes; returns (max abs err, max err / mag)."""
     import torch
-    assert torch.isfinite(got).all(), f"{what}: non-finite output"
-    f64 = got.dtype == torch.float64
-    err = close(got[..., 0], want[..., 0], rtol, 0.0 if f64 else atol,
-                f"{what}: phi")
-    return max(err, close(got[..., 1:], want[..., 1:], rtol, atol,
-                          f"{what}: gradient", scale="max"))
+    assert torch.isfinite(got).all(), f"{what}: non-finite gradient"
+    k = GRAD_K[got.element_size()]
+    err = (got - want).abs()
+    bad = err > k * mag
+    ratio = (err / mag)[mag > 0]
+    ratio = ratio.max().item() if ratio.numel() else 0.0
+    assert not bad.any(), (
+        f"{what}: {int(bad.sum())} gradient entries outside {k} * "
+        f"sum|terms| (max abs err {err.max().item():.3e}, max err / "
+        f"sum|terms| {ratio:.3e})")
+    return err.max().item(), ratio
 
 
 def count_case(rng, B, NB, C, m, dev):
@@ -826,7 +873,6 @@ def phase_forces(dev, plan, x, q, smi):
     report entry (its launches are the MD run's)."""
     import numpy as np
     import torch
-    from repro_torch.core import eval as ev
     from repro_torch.core.direct import direct_field
     from repro_torch.kernels import batch_cluster as bcm
     from repro_torch.kernels import ops
@@ -860,16 +906,9 @@ def phase_forces(dev, plan, x, q, smi):
           f"(bar {FORCE_BAR})", flush=True)
 
     degree = plan.config.degree
-    inp = ev.kernel_inputs(a, q, degree=degree)
-    qhat = ev.compute_qhat_direct(a, inp.q_sorted, degree=degree,
-                                  backend="cuda")
+    lanes = plan_lanes(plan, q)
     tgt = a["tgt_batched"]
-    lanes = {"approx": (a["approx_idx"], inp.grids, qhat,
-                        {"tgt_count": inp.tgt_count}),
-             "direct": (a["direct_idx"], inp.leaf_pts, inp.leaf_q,
-                        {"tgt_count": inp.tgt_count,
-                         "src_count": inp.leaf_count})}
-    ms, plain_ms, bound, err = {}, {}, {}, 0.0
+    ms, plain_ms, bound, err, ratio = {}, {}, {}, 0.0, 0.0
     leaf_counts = (a["leaf_gather"] >= 0).sum(1)
     n1c = torch.full((a["node_lo"].shape[0],), (degree + 1) ** 3,
                      device=dev)
@@ -884,14 +923,11 @@ def phase_forces(dev, plan, x, q, smi):
         want = run("torch")
         torch.cuda.synchronize()
         plain_ms[lane] = (time.perf_counter() - t0) * 1e3
-        assert (got[~real] == 0).all(), f"{lane}: padded target slots"
-        # phi: atol relative to median|phi| (near pairs make a few |phi|
-        # large); gradient: to max|grad| (signed terms)
-        e = close(got[real][:, 0], want[real][:, 0], 2e-4, 2e-4,
-                  f"field {lane} lane phi", scale="median")
-        e = max(e, close(got[real][:, 1:], want[real][:, 1:], 2e-4, 2e-4,
-                         f"field {lane} lane gradient", scale="max"))
-        err = max(err, e)
+        mag = bcm.batch_cluster_field_plain(idx, tgt, pts, qq, kernel=kern,
+                                            magnitude=True, **cnt)
+        e, r, atol = field_rows_close(got, want, mag, real,
+                                      f"field {lane} lane")
+        err, ratio = max(err, e), max(ratio, r)
         bound[lane] = bc_bound(plan, idx,
                                leaf_counts if lane == "direct" else n1c, 4,
                                pts.shape[0] * pts.shape[1],
@@ -901,8 +937,9 @@ def phase_forces(dev, plan, x, q, smi):
               f"{bound[lane][2]:.4e} pairs needed, bound "
               f"{bound[lane][0]:.3f} ms by {bound[lane][1]} ({smi}); "
               f"against the plain version on all {int(real.any(1).sum())} "
-              f"batch rows: max abs err {e:.3e} (rtol 2e-4, atol 2e-4 "
-              f"median|phi| / max|grad|)", flush=True)
+              f"batch rows: max abs err {e:.3e}, gradient max err / "
+              f"sum|terms| {r:.3e} ({FIELD_ROWS_RULE}; gradient atol "
+              f"{atol})", flush=True)
     side = ("operations" if all(v[1] == "operations" for v in bound.values())
             else "bytes")
     return dict(name="batch_cluster_field", route="cuda",
@@ -913,6 +950,88 @@ def phase_forces(dev, plan, x, q, smi):
                 plain_ms=sum(plain_ms.values()),
                 bound_ms=sum(v[0] for v in bound.values()), bound_by=side,
                 library_ms=None)
+
+
+#: How `field_rows_close` holds the field kernel on a plan's batch rows.
+FIELD_ROWS_RULE = (f"phi rtol/atol 2e-4 median|phi|, gradient atol "
+                   f"{GRAD_K[4]} sum|terms| per entry")
+
+
+def field_rows_close(got, want, mag, real, what):
+    """The field kernel against its plain version on a plan's batch rows
+    (`real` the real target slots): padded slots exactly 0, phi with
+    atol relative to median|phi| (near pairs make a few |phi| large),
+    each gradient entry with `grad_close`. Returns (max abs err, the
+    gradient's max err / sum|terms|, the gradient atols' median and max
+    as text)."""
+    assert (got[~real] == 0).all(), f"{what}: padded target slots"
+    got, want, mag = got[real], want[real], mag[real]
+    err, ratio = field_close(got, want, mag, 2e-4, 2e-4, what,
+                             phi_scale="median")
+    atol = GRAD_K[got.element_size()] * mag[:, 1:]
+    return err, ratio, (f"median {atol.median().item():.3e}, max "
+                        f"{atol.max().item():.3e}")
+
+
+def plan_lanes(plan, q):
+    """The field kernel's two lanes on `plan` for charges `q`, as its
+    force evaluation gives them (`eval.lane_inputs`: the modified
+    charges from the CUDA kernel, the skin routing of the current
+    geometry)."""
+    from repro_torch.core import eval as ev
+    c = plan.config
+    return ev.lane_inputs(plan.arrays, q, degree=c.degree, space=c.space,
+                          backend="cuda", theta=c.theta, skin=c.skin)
+
+
+def md_field_rows(sim, what, rows=64):
+    """The field kernel against its plain version on the first `rows`
+    batch rows of both lanes of the MD's current (capacity-padded,
+    refitted) plan, on the inputs its force evaluation gives the kernel.
+    Returns the max abs error; the launches here are not counted."""
+    import torch
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import ops
+    plan = sim.plan
+    tgt = plan.arrays["tgt_batched"][:rows]
+    real = plan.arrays["tgt_mask"][:rows]
+    opts = dict(kernel=plan.kernel, space=plan.config.space,
+                kahan=plan.config.kahan)
+    err, ratio, out = 0.0, 0.0, []
+    for lane, (idx, pts, qq, cnt) in plan_lanes(plan, sim.charges).items():
+        cnt = dict(cnt, tgt_count=cnt["tgt_count"][:rows])
+        args = (idx[:rows], tgt, pts, qq)
+        got = ops.batch_cluster_field(*args, backend="cuda", **opts, **cnt)
+        want = ops.batch_cluster_field(*args, backend="torch", **opts,
+                                       **cnt)
+        mag = bcm.batch_cluster_field_plain(*args, magnitude=True, **opts,
+                                            **cnt)
+        e, r, atol = field_rows_close(got, want, mag, real,
+                                      f"{what}: field {lane} lane rows")
+        err, ratio = max(err, e), max(ratio, r)
+        out.append(f"{lane} {tuple(idx.shape)} slots x {tuple(pts.shape)} "
+                   f"sources, max abs err {e:.3e}, gradient atol {atol}")
+    torch.cuda.synchronize()
+    print(f"    {what}: field kernel vs plain on the first {rows} batch rows "
+          f"of the padded plan ({FIELD_ROWS_RULE}): " + "; ".join(out)
+          + f"; gradient max err / sum|terms| {ratio:.3e}", flush=True)
+    return err
+
+
+def energy_balance(sim, phi0, v0):
+    """(dKE, dPE) from the state where phi0 and v0 were read to the
+    current one, in f64: dPE = 1/2 sum_i q_i (phi_i - phi0_i), from the
+    per-particle differences, so the f32 rounding of the energy's sum
+    (about 1e-6 of it at 10^6 particles) drops out. Velocity Verlet
+    conserves dKE + dPE to rounding; forces of the wrong sign or size
+    break it by the order of dKE."""
+    m = sim.masses.double()
+    m = m[:, None] if m.dim() else m
+    v, v0 = sim.state.v.double(), v0.double()
+    dke = 0.5 * (m * (v * v - v0 * v0)).sum()
+    dpe = 0.5 * (sim.charges.double()
+                 * (sim.state.phi.double() - phi0.double())).sum()
+    return dke.item(), dpe.item()
 
 
 def salt_lattice(m, lo, spacing, seed):
@@ -947,12 +1066,13 @@ def phase_md(dev):
     n = x.shape[0]
     assert q.sum() == 0
     t0 = time.perf_counter()
-    plan = TreecodeSolver(fig4(theta=0.7, degree=8)).plan(
-        x, capacities="auto")
+    cfg = dataclasses.replace(fig4(theta=0.7, degree=8), skin=MD_SKIN)
+    plan = TreecodeSolver(cfg).plan(x, capacities="auto")
     sim = Simulation(plan, q, dt=MD_DT, refit_interval=MD_REFIT)
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
     sim.log.record(0, sim.diagnostics())
+    phi0, v0 = sim.state.phi.clone(), sim.state.v.clone()
     sim.step()
     torch.cuda.synchronize()
     builds0 = events.build_count()
@@ -991,6 +1111,10 @@ def phase_md(dev):
         sim.state.f).all()
     drift, mom = sim.log.drift(), sim.log.momentum_drift()
     assert drift < 1e-3, drift
+    rows_err = md_field_rows(sim, "[8]")
+    dke, dpe = energy_balance(sim, phi0, v0)
+    balance = abs(dke + dpe) / dke
+    assert dke > 0 and balance <= ENERGY_BAR, (dke, dpe)
     # span breakdown of two more refit steps, traced (tracing syncs
     # inside each span)
     trace.clear()
@@ -1004,15 +1128,19 @@ def phase_md(dev):
     med = {k: (statistics.median(v) if v else float("nan"))
            for k, v in step_ms.items()}
     print(f"[8] MD at Fig. 4, N={n} (jittered {MD_M}^3 lattice, +-1 "
-          f"charges), velocity Verlet, dt {MD_DT}, refit interval "
-          f"{MD_REFIT}: setup {setup_ms:.0f} ms; steps 2-{MD_STEPS}: "
+          f"charges), skin {MD_SKIN}, velocity Verlet, dt {MD_DT}, refit "
+          f"interval {MD_REFIT}: setup {setup_ms:.0f} ms; steps 2-{MD_STEPS}: "
           f"{len(step_ms['refit'])} refit steps, median {med['refit']:.2f} "
           f"ms, {len(step_ms['rebuild'])} rebuild steps, median "
           f"{med['rebuild']:.1f} ms (host clock to a synchronize); "
           f"refits {st['refits']}, rebuilds {st['rebuilds']} (drift "
           f"{st['rebuilds_drift']}, interval {st['rebuilds_interval']}, "
           f"forced {st['rebuilds_forced']}); relative energy drift "
-          f"{drift:.3e}, momentum drift {mom:.3e}; capacity growths "
+          f"{drift:.3e} (f32 sums), momentum drift {mom:.3e}; over steps "
+          f"0-{MD_STEPS} in f64 dKE {dke:.6e}, dPE {dpe:.6e}, |dKE + dPE| "
+          f"/ dKE {balance:.3e} (bar {ENERGY_BAR}); field kernel vs plain "
+          f"on the MD plan's rows max abs err {rows_err:.3e}; "
+          f"capacity growths "
           f"{st['capacity_growths']}, retraces {st['retraces']}, kernel "
           f"builds after step 1 {builds}; host syncs per refit step "
           f"{sorted(set(syncs))}; launches over steps 2-{MD_STEPS} "
@@ -1042,6 +1170,7 @@ def phase_md_periodic(dev):
                          kernel_params={"kappa": PMD_KAPPA})
     sim = Simulation(TreecodeSolver(cfg).plan(box.wrap(x)), q, dt=PMD_DT,
                      refit_interval=MD_REFIT, profile=True)
+    phi0, v0 = sim.state.phi.clone(), sim.state.v.clone()
     t0 = time.perf_counter()
     sim.run(MD_STEPS, record_every=MD_STEPS // 2)
     torch.cuda.synchronize()
@@ -1050,6 +1179,10 @@ def phase_md_periodic(dev):
     assert st["refits"] >= 1 and st["retraces"] == 0, st
     drift = sim.log.drift()
     assert drift < 1e-3, drift
+    md_field_rows(sim, "[9]")
+    dke, dpe = energy_balance(sim, phi0, v0)
+    balance = abs(dke + dpe) / dke
+    assert dke > 0 and balance <= ENERGY_BAR, (dke, dpe)
     _, force = sim.plan.potential_and_forces(q)
     # the approximation at the final positions, in f64: a fresh plan
     x_fin = box.wrap(sim.state.x.double())
@@ -1071,7 +1204,9 @@ def phase_md_periodic(dev):
           f"0.02, N={n}): {MD_STEPS} steps in {run_ms:.0f} ms; refits "
           f"{st['refits']}, rebuilds {st['rebuilds']} (drift "
           f"{st['rebuilds_drift']}, interval {st['rebuilds_interval']}); "
-          f"relative energy drift {drift:.3e}; skin pairs "
+          f"relative energy drift {drift:.3e} (f32 sums); in f64 dKE "
+          f"{dke:.6e}, dPE {dpe:.6e}, |dKE + dPE| / dKE {balance:.3e} (bar "
+          f"{ENERGY_BAR}); skin pairs "
           f"{occ.get('skin_pairs', float('nan')):.0f}, accept rate "
           f"{occ.get('skin_accept_rate', float('nan')):.3f}; at the final "
           f"positions, forces vs an f64 minimum-image direct sum on 500 "

@@ -20,7 +20,6 @@ import torch
 from repro_torch.core.potentials import Kernel
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.kernels import ops
-from repro_torch.kernels.batch_cluster import field_coefficients
 
 
 def direct_sum(
@@ -56,13 +55,35 @@ def direct_field(
 ):
     """(phi (NT,), grad (NT, 3)) by blocked direct summation, grad_i =
     sum_j 2 G'(r2) d_ij q_j with d the `space` displacement target minus
-    source; exact hits add 0 to both. Forces are -q_i grad_i."""
+    source; exact hits add 0 to both. Forces are -q_i grad_i.
+
+    The forces reference on the card: the built-in coulomb/yukawa
+    kernels, with G and 2 G' written out here (independent of the field
+    kernel's plain version)."""
+    name = kernel.name
+    if name == "yukawa":
+        p = kernel.normalize_params(params) if params is not None \
+            else kernel.params
+        (kappa,) = (float(v) for v in p)
+    elif name != "coulomb":
+        raise NotImplementedError(
+            f"direct_field supports coulomb/yukawa, got {name!r}")
     phi = targets.new_zeros(targets.shape[0])
     grad = targets.new_zeros(targets.shape)
     for s in range(0, sources.shape[0], source_chunk):
         d = space.displacement(targets[:, None, :],
                                sources[None, s:s + source_chunk, :])
-        g, c = field_coefficients(kernel, (d * d).sum(-1), params)
+        r2 = (d * d).sum(-1)
+        hit = r2 > 0.0
+        r = torch.sqrt(torch.where(hit, r2, torch.ones_like(r2)))
+        if name == "coulomb":
+            g = 1.0 / r
+            c = -g / (r * r)                         # 2 G' = -1/r^3
+        else:
+            g = torch.exp(-kappa * r) / r
+            c = -(1.0 + kappa * r) * g / (r * r)     # 2 G' of e^-kr / r
+        zero = torch.zeros_like(r)
+        g, c = torch.where(hit, g, zero), torch.where(hit, c, zero)
         qs = charges[s:s + source_chunk]
         phi += g @ qs
         grad += torch.einsum("nm,nmk->nk", c * qs, d)

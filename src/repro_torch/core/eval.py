@@ -288,10 +288,9 @@ def _gathered(src_sorted, q_sorted, gather):
 
 @dataclasses.dataclass
 class KernelInputs:
-    """What `_execute_impl` feeds the kernels for one charge vector, apart
+    """What the executor feeds the kernels for one charge vector, apart
     from q_hat (which the modified-charge kernel computes from `q_sorted`
-    and the plan's chunk table). `chip_smoke.py` holds the kernels
-    against their plain versions on these very tensors."""
+    and the plan's chunk table) and the interaction lists."""
 
     q_sorted: torch.Tensor    # (N,) charges in tree order
     grids: torch.Tensor       # (num_nodes, (n+1)^3, 3) Chebyshev grids
@@ -356,56 +355,64 @@ def _skin_routed_lists(arrays: dict, theta: float, space):
     return approx_idx, direct_idx
 
 
-def _execute_impl(
-    arrays: dict,
-    charges: torch.Tensor,
-    params=None,
-    *,
-    degree: int,
-    kernel: Kernel,
-    space=_FREE,
-    backend: str = "auto",
-    kahan: bool = False,
-    approx_r2: str = "diff",
-    theta: float = 0.7,
-    skin: float = 0.0,
-) -> torch.Tensor:
-    """Potentials at the plan's targets, in the caller's input order.
+def lane_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
+                space=_FREE, backend: str = "auto", theta: float = 0.7,
+                skin: float = 0.0) -> dict:
+    """The two lanes' kernel inputs for `charges`, as the executor feeds
+    them: ``{"approx": (idx, pts, q, counts), "direct": (...)}``.
 
-    `charges` lives on the plan's device. `params` carries kernel
-    parameter values (tensors on the device, or None for the kernel's
-    defaults). With ``skin > 0`` the Verlet-skin dual lists are routed by
-    the runtime MAC gate before the kernels run. Both lanes pass the
-    batch rows' target counts; the direct lane (skin-routed slots
-    included, which are leaf ids too) also the leaves' particle counts,
-    while every Chebyshev grid is all real points."""
+    One modified-charge call. With ``skin > 0`` the Verlet-skin dual
+    lists are routed by the runtime MAC gate. Both lanes pass the batch
+    rows' target counts; the direct lane (skin-routed slots included,
+    which are leaf ids too) also the leaves' particle counts, while every
+    Chebyshev grid is all real points. `chip_smoke.py` holds the kernels
+    against their plain versions on these very tensors."""
     inp = kernel_inputs(arrays, charges, degree=degree)
     with _trace.span("eval.modified_charges"):
         qhat = compute_qhat_direct(arrays, inp.q_sorted, degree=degree,
                                    backend=backend)
         _trace.sync(charges.device)
-
-    tgt = arrays["tgt_batched"]
     if skin > 0.0:
         approx_idx, direct_idx = _skin_routed_lists(arrays, theta, space)
     else:
         approx_idx, direct_idx = arrays["approx_idx"], arrays["direct_idx"]
-    with _trace.span("eval.approx_lane"):
-        phi_a = ops.batch_cluster_eval(
-            approx_idx, tgt, inp.grids, qhat, params,
-            kernel=kernel, space=space, backend=backend, kahan=kahan,
-            r2_mode=approx_r2, tgt_count=inp.tgt_count)
-        _trace.sync(charges.device)
+    return {"approx": (approx_idx, inp.grids, qhat,
+                       {"tgt_count": inp.tgt_count}),
+            "direct": (direct_idx, inp.leaf_pts, inp.leaf_q,
+                       {"tgt_count": inp.tgt_count,
+                        "src_count": inp.leaf_count})}
 
-    with _trace.span("eval.direct_lane"):
-        phi_d = ops.batch_cluster_eval(
-            direct_idx, tgt, inp.leaf_pts, inp.leaf_q, params,
-            kernel=kernel, space=space, backend=backend, kahan=kahan,
-            tgt_count=inp.tgt_count, src_count=inp.leaf_count)
-        _trace.sync(charges.device)
 
-    phi = (phi_a + phi_d).reshape(-1)
-    return phi[arrays["gather_index"]]
+def _sweep(op, span: str, arrays: dict, charges: torch.Tensor, params, *,
+           degree: int, kernel: Kernel, space=_FREE, backend: str = "auto",
+           kahan: bool = False, approx_r2: str = "diff", theta: float = 0.7,
+           skin: float = 0.0) -> torch.Tensor:
+    """`op` (a batch-cluster entry point of `kernels.ops`) over both
+    lanes, summed and gathered back to the caller's input order."""
+    lanes = lane_inputs(arrays, charges, degree=degree, space=space,
+                        backend=backend, theta=theta, skin=skin)
+    out = None
+    for lane, (idx, pts, q, counts) in lanes.items():
+        if lane == "approx":
+            counts = dict(counts, r2_mode=approx_r2)
+        with _trace.span(f"eval.{lane}_{span}"):
+            y = op(idx, arrays["tgt_batched"], pts, q, params, kernel=kernel,
+                   space=space, backend=backend, kahan=kahan, **counts)
+            _trace.sync(charges.device)
+        out = y if out is None else out + y
+    return out.flatten(0, 1)[arrays["gather_index"]]
+
+
+def _execute_impl(arrays: dict, charges: torch.Tensor, params=None,
+                  **opts) -> torch.Tensor:
+    """Potentials at the plan's targets, in the caller's input order.
+
+    `charges` lives on the plan's device. `params` carries kernel
+    parameter values (tensors on the device, or None for the kernel's
+    defaults). `opts` are `_sweep`'s: degree, kernel, space, backend,
+    kahan, approx_r2, theta and skin."""
+    return _sweep(ops.batch_cluster_eval, "lane", arrays, charges, params,
+                  **opts)
 
 
 #: The executor. PyTorch runs eagerly, so there is no jitted twin: the
@@ -427,39 +434,15 @@ execute = _execute_impl
 
 
 def potential_and_gradient(arrays: dict, charges: torch.Tensor,
-                           params=None, *, degree: int, kernel: Kernel,
-                           space=_FREE, backend: str = "auto",
-                           kahan: bool = False, approx_r2: str = "diff",
-                           theta: float = 0.7, skin: float = 0.0):
+                           params=None, **opts):
     """(phi (N,), g (N, 3)) with g_i = d phi_i / d x_i, input order.
 
-    One modified-charge call and one field launch per lane. On the CUDA
-    kernel the approximation lane takes the difference form of r^2
-    whatever `approx_r2` says (the plain version follows it; only
-    rounding differs)."""
-    inp = kernel_inputs(arrays, charges, degree=degree)
-    with _trace.span("eval.modified_charges"):
-        qhat = compute_qhat_direct(arrays, inp.q_sorted, degree=degree,
-                                   backend=backend)
-        _trace.sync(charges.device)
-
-    tgt = arrays["tgt_batched"]
-    if skin > 0.0:
-        approx_idx, direct_idx = _skin_routed_lists(arrays, theta, space)
-    else:
-        approx_idx, direct_idx = arrays["approx_idx"], arrays["direct_idx"]
-    kw = dict(kernel=kernel, space=space, backend=backend, kahan=kahan)
-    with _trace.span("eval.approx_field"):
-        f_a = ops.batch_cluster_field(
-            approx_idx, tgt, inp.grids, qhat, params, r2_mode=approx_r2,
-            tgt_count=inp.tgt_count, **kw)
-        _trace.sync(charges.device)
-    with _trace.span("eval.direct_field"):
-        f_d = ops.batch_cluster_field(
-            direct_idx, tgt, inp.leaf_pts, inp.leaf_q, params,
-            tgt_count=inp.tgt_count, src_count=inp.leaf_count, **kw)
-        _trace.sync(charges.device)
-    f = (f_a + f_d).reshape(-1, 4)[arrays["gather_index"]]
+    One modified-charge call and one field launch per lane; `opts` are
+    those of `_execute_impl`. On the CUDA kernel the approximation lane
+    takes the difference form of r^2 whatever `approx_r2` says (the plain
+    version follows it; only rounding differs)."""
+    f = _sweep(ops.batch_cluster_field, "field", arrays, charges, params,
+               **opts)
     return f[:, 0], f[:, 1:]
 
 

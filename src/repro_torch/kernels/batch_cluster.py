@@ -326,8 +326,8 @@ def batch_cluster_field_plain(idx: torch.Tensor, tgt: torch.Tensor,
                               params=None, *, kernel: Kernel, space=_FREE,
                               kahan: bool = False, r2_mode: str = "diff",
                               tgt_count: torch.Tensor | None = None,
-                              src_count: torch.Tensor | None = None
-                              ) -> torch.Tensor:
+                              src_count: torch.Tensor | None = None,
+                              magnitude: bool = False) -> torch.Tensor:
     """(B, NB, 4) = (phi, grad_x phi), the field in plain PyTorch.
 
     The loop of `batch_cluster_eval_plain`, with the gradient
@@ -335,7 +335,11 @@ def batch_cluster_field_plain(idx: torch.Tensor, tgt: torch.Tensor,
     source). With ``r2_mode="matmul"`` in free space, r2 (hence G and
     G') takes the matmul form and d stays the difference, as the JVP of
     the reference's matmul r2 does. Kahan compensates all four sums
-    across slots."""
+    across slots.
+
+    With ``magnitude=True`` the same sweep sums the terms' magnitudes,
+    |G q| and |2 G' d_k q|: per output, the scale of the rounding in its
+    sum, against which a kernel's error is held."""
     bsz, nb = tgt.shape[0], tgt.shape[1]
     m = src_pts.shape[1]
     dtype = tgt.dtype
@@ -366,6 +370,8 @@ def batch_cluster_field_plain(idx: torch.Tensor, tgt: torch.Tensor,
                 r2 = (d * d).sum(-1)
             g, c = field_coefficients(kernel, r2, params)
             wq = src_q[safe] * (ids >= 0).to(dtype)[:, None]  # (bc, m)
+            if magnitude:
+                g, c, d, wq = g.abs(), c.abs(), d.abs(), wq.abs()
             f = torch.cat([
                 torch.einsum("bnm,bm->bn", g, wq)[..., None],
                 torch.einsum("bnm,bnmk->bnk", c * wq[:, None, :], d)], dim=-1)

@@ -41,6 +41,8 @@
 //   - there is no matmul-r2 form: the gradient needs d, so
 //     approx_r2 = "matmul" runs the difference form here (the JVP of the
 //     matmul r2 is the same analytic derivative; only rounding differs);
+//   - the periodic fold decides each image as the reference does,
+//     rint(d / L) half to even, to the last bit (see fold());
 //   - f64 keeps IEEE sqrt and division.
 
 #include <cfloat>
@@ -123,9 +125,33 @@ __device__ __forceinline__ void kahan_add(T& sum, T& comp, T v) {
   sum = ts;
 }
 
+// Relative width of the band around a half-integer quotient in which
+// fold() divides: d * (1/L) is within 1.5 eps |d / L| of d / L.
+template <typename T>
+__device__ __forceinline__ T tie_band();
+template <>
+__device__ __forceinline__ float tie_band<float>() {
+  return 4.0f * FLT_EPSILON;
+}
+template <>
+__device__ __forceinline__ double tie_band<double>() {
+  return 4.0 * DBL_EPSILON;
+}
+
+// d - L rint(d / L), half to even: the reference's fold. d * (1/L)
+// saves the division, but near a minimum-image tie it can round to the
+// other image than d / L does, which flips that gradient component's
+// sign (phi only sees r2). So within the band of a tie the quotient is
+// taken by division; away from one the two round alike.
 template <typename T>
 __device__ __forceinline__ T fold(T d, T len, T inv_len) {
-  return d - len * rint(d * inv_len);
+  const T q = d * inv_len;
+  T k = rint(q);
+  const T band = tie_band<T>();
+  if (fabs(fabs(q - k) - T(0.5)) <= fma(fabs(q), band, band)) {
+    k = rint(d / len);
+  }
+  return d - len * k;
 }
 
 // One staged source: 4 consecutive T (x, y, z, q) in shared memory.

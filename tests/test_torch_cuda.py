@@ -195,8 +195,10 @@ def test_modified_charges_ranged_kernel_matches_plain(cuda_device, dtype,
 def test_field_kernel_matches_plain(cuda_device, dtype, periodic, kahan):
     """The field kernel against its plain version with counts, sentinels
     and exact hits: phi as the potential kernel's tolerance, each gradient
-    component with its atol times max|grad| (signed terms); exact hits
-    give 0 in all four outputs; its phi is the potential kernel's."""
+    component with its atol times max|grad| (signed terms) and within
+    1e-5 (f32) or 1e-13 (f64) times its own sum of the terms'
+    magnitudes; exact hits give 0 in all four outputs; its phi is the
+    potential kernel's."""
     rng = np.random.default_rng(2)
     B, S, NB, C, m = 5, 7, 300, 9, 301
     qlo = -1.0 if dtype == torch.float32 else 0.0
@@ -230,6 +232,11 @@ def test_field_kernel_matches_plain(cuda_device, dtype, periodic, kahan):
         gmax = want[..., 1:].abs().max().item()
         torch.testing.assert_close(got[..., 1:], want[..., 1:], rtol=rtol,
                                    atol=rtol * gmax)
+        # and each gradient entry within k times its own sum of the
+        # terms' magnitudes (an entry that cancels keeps their rounding)
+        mag = bcm.batch_cluster_field_plain(it, *t, magnitude=True, **kw)
+        k = 1e-5 if dtype == torch.float32 else 1e-13
+        assert ((got - want)[..., 1:].abs() <= k * mag[..., 1:]).all()
         pad = torch.arange(NB, device=dev)[None] >= tc[:, None]
         assert (got[pad] == 0).all()
         phi = ops.batch_cluster_eval(it, *t, **kw)
@@ -240,6 +247,46 @@ def test_field_kernel_matches_plain(cuda_device, dtype, periodic, kahan):
                                                device=dev), x, x.clone(),
                                    one, kernel=coulomb(), space=space)
     assert (lone == 0).all()
+
+
+def _fold_ties(length, dtype=np.float32):
+    """Displacements d near a minimum-image tie (d / L near a half-integer)
+    where rint(d * (1/L)) and rint(d / L) pick different images."""
+    L = dtype(length)
+    inv = dtype(1) / L
+    out = []
+    for h in (0.5, -0.5, 1.5):
+        lo = hi = dtype(h * float(L))
+        ds = [lo]
+        for _ in range(16):
+            lo = np.nextafter(lo, dtype(-9))
+            hi = np.nextafter(hi, dtype(9))
+            ds += [lo, hi]
+        ds = np.array(ds, dtype)
+        out += list(ds[np.rint(ds * inv) != np.rint(ds / L)])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1.7, 1.7778428792953491])
+def test_field_kernel_folds_ties_as_reference(cuda_device, length):
+    """At a minimum-image tie the kernel picks the reference's image,
+    round(d / L) half to even, so each gradient component has the plain
+    version's sign (f32: d * (1/L) rounds across the tie for these d)."""
+    ties = _fold_ties(length)
+    assert ties, "no tie displacement for this length"
+    tgt = np.zeros((1, len(ties), 3), np.float32)
+    tgt[0, :, 0] = ties
+    tgt[0, :, 1:] = (0.1, 0.2)
+    dev = cuda_device
+    t = [torch.as_tensor(a, device=dev) for a in (
+        tgt, np.zeros((1, 1, 3), np.float32), np.ones((1, 1), np.float32))]
+    it = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    kw = dict(kernel=coulomb(), space=PeriodicBox((length, 7.0, 7.0)))
+    got = ops.batch_cluster_field(it, *t, **kw)
+    want = ops.batch_cluster_field(it, *t, backend="torch", **kw)
+    assert torch.equal(torch.sign(got), torch.sign(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.cuda

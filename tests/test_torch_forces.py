@@ -12,6 +12,8 @@ Tolerances: f64 rtol 1e-10 with an absolute floor of 1e-12 times the
 largest |value| (a force component or phi sums signed terms and can
 cancel towards 0, where only the absolute rounding of the large terms
 is left); f32 relative 2-norm <= 1e-5."""
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,7 @@ from repro.core.api import TreecodeConfig as JConfig
 from repro.core.api import TreecodeSolver as JSolver
 from repro.core.space import PeriodicBox as JBox
 from repro_torch.core.api import TreecodeConfig, TreecodeSolver
-from repro_torch.core.direct import direct_oracle_f64
+from repro_torch.core.direct import direct_field, direct_oracle_f64
 from repro_torch.core.potentials import Kernel, coulomb, yukawa
 from repro_torch.core.space import FREE, PeriodicBox
 from repro_torch.kernels import batch_cluster as bcm
@@ -228,6 +230,57 @@ def test_field_plain_matches_torch_func(space, r2_mode, kahan):
         assert torch.isfinite(f).all()
         torch.testing.assert_close(f, want, rtol=1e-10,
                                    atol=1e-12 * want.abs().max().item())
+
+
+def test_field_plain_magnitude_sums_term_magnitudes():
+    """`magnitude=True` sums |G q| and |2 G' d_k q| over the same pairs
+    (a pair-by-pair loop here, f64, rtol 1e-12); padded target slots,
+    sentinels, counts and exact hits add 0, and it bounds |field|."""
+    rng = np.random.default_rng(4)
+    B, S, NB, C, m = 2, 3, 4, 3, 5
+    tgt = rng.uniform(-1, 1, (B, NB, 3))
+    src = rng.uniform(-1, 1, (C, m, 3))
+    q = rng.uniform(-1, 1, (C, m))
+    idx = np.array([[0, -1, 2], [1, 2, 0]], np.int32)
+    tgt[1, 0] = src[0, 0]                        # exact hit
+    tc, sc = np.array([4, 3]), np.array([5, 2, 4])
+    kw = dict(kernel=yukawa(0.7), tgt_count=torch.as_tensor(tc),
+              src_count=torch.as_tensor(sc))
+    args = [torch.as_tensor(a) for a in (idx, tgt, src, q)]
+    mag = bcm.batch_cluster_field_plain(*args, magnitude=True, **kw).numpy()
+    want = np.zeros((B, NB, 4))
+    for b, i, c in itertools.product(range(B), range(NB), range(C)):
+        if i >= tc[b] or c not in idx[b]:
+            continue
+        for j in range(sc[c]):
+            d = tgt[b, i] - src[c, j]
+            r = np.sqrt(d @ d)
+            if r == 0.0:
+                continue
+            g = np.exp(-0.7 * r) / r
+            want[b, i] += abs(q[c, j]) * np.concatenate(
+                [[g], (1 + 0.7 * r) * g / r ** 2 * np.abs(d)])
+    np.testing.assert_allclose(mag, want, rtol=1e-12, atol=0)
+    field = bcm.batch_cluster_field_plain(*args, **kw).numpy()
+    assert (np.abs(field) <= mag * (1 + 1e-12)).all()
+
+
+@pytest.mark.parametrize("kernel", [coulomb(), yukawa(0.7)],
+                         ids=["coulomb", "yukawa"])
+@pytest.mark.parametrize("space", [FREE, PeriodicBox((L, L, L))],
+                         ids=["free", "periodic"])
+def test_direct_field_matches_oracle(kernel, space):
+    """The on-card forces reference (`direct_field`, torch, chunked)
+    against the NumPy oracle, f64: rtol 1e-12 with an atol of 1e-12
+    times max|value|, over targets == sources (exact hits add 0)."""
+    x, q = _particles(12, 300)
+    t = torch.as_tensor(x)
+    phi, g = direct_field(t, t, torch.as_tensor(q), kernel=kernel,
+                          space=space, source_chunk=70)
+    rphi, rF = direct_oracle_f64(x, q, kernel=kernel, space=space)
+    for got, want in ((phi.numpy(), rphi), (-q[:, None] * g.numpy(), rF)):
+        np.testing.assert_allclose(got, want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(want).max())
 
 
 def test_forces_disjoint_targets_need_weights():
