@@ -50,24 +50,38 @@ Phases (each asserts; any failure exits non-zero):
     all four outputs, and its phi against the potential kernel's; each
     gradient entry is held to GRAD_K times its own sum of the terms'
     magnitudes (the plain version's `magnitude=True` sweep);
+ 2g. the grid field kernel (the approximation lane's: clusters as
+    Chebyshev nodes and q_hat) vs its plain version at degrees 1, 4, 8,
+    14: free space, a periodic box and a box whose edge puts targets at
+    minimum-image ties, Coulomb and Yukawa, f32 and f64, Kahan and
+    counts on and off, -1 sentinels, an all-empty row, targets exactly
+    on grid points, a zero-width cluster and a scratch node; gradient
+    entries as in 2f, phi against the potential kernel's on the grid
+    points per entry (PHI_K times its sum |G q|), and the plain version
+    against the field kernel's plain version on those points;
  4f. Fig. 4 forces on the main phase's plan: `potential_and_forces`
-    time, its phi against `execute`, forces against an f64 direct sum on
-    1000 sampled targets (relative 2-norm <= FORCE_BAR), the two field
-    lanes' times and bounds, and the kernel against its plain version
-    (timed once) on every batch row of both lanes, the gradient per
-    entry as in 2f;
+    time (one field and one grid field launch a call), its phi against
+    `execute` (PHI_K per entry), forces against an f64 direct sum on
+    1000 sampled targets (relative 2-norm <= FORCE_BAR); per lane the
+    kernel's time against its bound (the largest of FLOP, SFU and bytes
+    times), the pairs its geometry sweeps and the issue slots per swept
+    pair, and the kernel against its plain version (timed once) on
+    every batch row, the gradient per entry as in 2f; on the
+    approximation lane also the generic field kernel on the same
+    clusters as explicit grid points, timed in turns with the grid
+    kernel: the redesign's same-run yardstick;
  8. MD at N = 10^6, the Fig. 4 settings with a Verlet skin of 0.01:
     `Simulation` over a jittered 100^3 lattice with +-1 charges,
     velocity Verlet, 20 steps, refit interval 10; steps 2-20 run with
-    the launch counters at 0 (field and modified-charge kernels each 2
-    launches a step), exactly
+    the launch counters at 0 (the field and the grid field kernel one
+    launch a step each, the modified charges 2), exactly
     one host sync per refit step (torch.cuda.set_sync_debug_mode
     "warn"), no capacity growth and no kernel build after step 1; ms per
     refit and rebuild step, span times of two traced refit steps,
     refit/rebuild counts by cause, energy and momentum drift; the energy
     balance |dKE + dPE| / dKE in f64 (<= ENERGY_BAR), and the field
-    kernel against its plain version on the first 64 batch rows of both
-    lanes of the MD's capacity-padded plan;
+    kernels against their plain versions on the first 64 batch rows of
+    both lanes of the MD's capacity-padded plan;
  9. a periodic Yukawa MD (58^3 salt box, skin 0.02): skin gate and
     minimum-image forces through refits and a rebuild, the energy
     balance and the field kernel on the padded plan's rows as in 8,
@@ -93,12 +107,30 @@ SRC = os.path.join(ROOT, "src")
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 PEAK_FP32 = 67e12      # FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # HBM3 bytes/s
+# MUFU (special function unit) results per clock per SM for the f32
+# reciprocal square root and base-2 exponential at compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput table);
+# the SFU side of a bound is MUFU operations over this rate at the SM
+# clock sampled while the kernel runs (the H100's 1980 MHz without a
+# sample), times the card's SMs.
+SFU_PER_SM_CLOCK = 16
+MAX_SM_MHZ = 1980
 # Operations per (target, source) pair of the batch-cluster sum:
 # 3 sub + 3 mul + 2 add (r^2), sqrt, divide, multiply by q, add.
 FLOPS_PER_PAIR = 12
 # Operations per pair of the field kernel (3 sub, 5 for r^2, the rsqrt,
 # 2 for phi, 3 mul and 3 fma for the gradient).
 FIELD_FLOPS_PER_PAIR = 20
+# ... and of the grid field kernel's factored sweep (`grid_flops`): per
+# pair 1 add for r^2 from its row's d_x^2 + d_y^2 and the z table, 3 mul
+# (G q, rinv^2, s), the phi add, the row-sum add and the g_z fma; per row
+# the add d_x^2 + d_y^2, the g_y fma and the plane-sum add; per plane the
+# g_x fma; per axis point of each (target, cluster) a subtraction and a
+# square.
+GRID_FLOPS_PER_PAIR = 8
+# MUFU operations per pair of the main path's f32 Coulomb kernels (the
+# rsqrt; Yukawa adds an exponential).
+MUFU_PER_PAIR = 1
 # Particles of the main path (Fig. 4) and of the periodic phase.
 MAIN_N = 1_000_000
 PERIODIC_N = 200_000
@@ -348,6 +380,131 @@ def phase_field(dev):
           f"the potential kernel's max abs err {phi_worst:.3e}", flush=True)
 
 
+def fold_ties(length):
+    """f32 displacements d near a minimum-image tie of a box edge `length`
+    (d / L near a half-integer) where rint(d * (1/L)) and rint(d / L)
+    pick different images: there the gradient component's sign depends
+    on the fold."""
+    import numpy as np
+    L = np.float32(length)
+    out = []
+    for h in (0.5, -0.5, 1.5):
+        lo = hi = np.float32(h * float(L))
+        ds = [lo]
+        for _ in range(16):
+            lo = np.nextafter(lo, np.float32(-9))
+            hi = np.nextafter(hi, np.float32(9))
+            ds += [lo, hi]
+        ds = np.array(ds, np.float32)
+        out += list(ds[np.rint(ds * (np.float32(1) / L)) != np.rint(ds / L)])
+    return np.array(out, np.float32)
+
+
+def phase_field_grid(dev):
+    """The grid field kernel against its plain version on ragged cases:
+    degrees 1, 4, 8, 14; free space, a periodic box, and a box whose x
+    edge puts targets at minimum-image ties of a cluster of zero width
+    in x; Coulomb and Yukawa at two kappas; f32 and f64; Kahan and target
+    counts on and off; -1 sentinels, an all-empty row, targets exactly on
+    grid points, and a scratch node (a unit box with q_hat 0). Also its
+    phi against the potential kernel's on the same clusters as grid
+    points (PHI_K per entry), and the plain version against the field
+    kernel's plain version on those points."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cheby
+    from repro_torch.core.potentials import coulomb, yukawa
+    from repro_torch.core.space import FREE, PeriodicBox
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import ops
+
+    lib = _build.load("batch_cluster_field_grid", bcm.GRID_FIELD_SIGNATURES)
+    for size in (4, 8):
+        assert [lib.bcfg_tile(size, n1) for n1 in range(1, 17)] == [0] + [
+            bcm.grid_tile(size, n1) for n1 in range(2, 16)] + [0], "tiles"
+    rng = np.random.default_rng(17)
+    box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
+    tie_len = 1.7778428792953491
+    tie = PeriodicBox((tie_len, 7.0, 7.0))
+    ties = fold_ties(tie_len)
+    n = 0
+    worst = {torch.float32: [0.0, 0.0, 0.0], torch.float64: [0.0, 0.0, 0.0]}
+    for dtype, degree, space, kern, kahan, counts in itertools.product(
+            (torch.float32, torch.float64), (1, 4, 8, 14), (FREE, box, tie),
+            (coulomb(), yukawa(0.5), yukawa(1.7)), (False, True),
+            (False, True)):
+        rtol, atol = FIELD_TOL[dtype.itemsize]
+        qlo = -1.0 if dtype == torch.float32 else 0.0
+        B, S, NB, C = 4, 6, 150, 7
+        n1 = degree + 1
+        lo = rng.uniform(-1, 0.5, (C, 3))
+        hi = lo + rng.uniform(0.1, 0.5, (C, 3))
+        lo[-1], hi[-1] = 0.0, 1.0          # the scratch node
+        if space is tie:
+            lo[0, 0] = hi[0, 0] = 0.0      # every node of cluster 0 at x = 0
+        else:
+            hi[1, 2] = lo[1, 2]            # zero width in z
+        lo_t, hi_t = (torch.as_tensor(v, dtype=dtype, device=dev)
+                      for v in (lo, hi))
+        nodes = ops._cluster_nodes(lo_t, hi_t, degree).contiguous()
+        pts = cheby.cluster_grid(lo_t, hi_t, degree)
+        qh = torch.as_tensor(rng.uniform(qlo, 1, (C, n1 ** 3)), dtype=dtype,
+                             device=dev)
+        qh[-1] = 0.0
+        tgt = torch.as_tensor(rng.uniform(-1, 1, (B, NB, 3)), dtype=dtype,
+                              device=dev)
+        tgt[-1, :3] = pts[0, [0, n1 ** 3 // 2, n1 ** 3 - 1]]   # exact hits
+        idx = rng.integers(-1, C, (B, S))
+        idx[:, S // 2] = -1                # interior sentinel
+        idx[0] = -1                        # all-empty row
+        idx[-1, :2] = (0, C - 1)           # the hits' cluster, the scratch
+        if space is tie:                   # x displacements at the ties
+            k = min(len(ties), NB)
+            tgt[-2, :k, 0] = torch.as_tensor(ties[:k], dtype=dtype)
+            idx[-2, 0] = 0
+        it = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+        kw = dict(kernel=kern, space=space, kahan=kahan)
+        if counts:
+            tc = rng.integers(0, NB + 1, B)
+            tc[1], tc[-1] = NB, NB         # the hits and the ties are real
+            kw["tgt_count"] = torch.as_tensor(tc, dtype=torch.int32,
+                                              device=dev)
+        args = (it, tgt, nodes, qh)
+        before = bcm.GRID_FIELD_LAUNCHES
+        got = ops.batch_cluster_field_grid(*args, backend="cuda", **kw)
+        assert bcm.GRID_FIELD_LAUNCHES == before + 1, "one launch a call"
+        want = ops.batch_cluster_field_grid(*args, backend="torch", **kw)
+        mag = bcm.batch_cluster_field_grid_plain(*args, magnitude=True, **kw)
+        what = (f"batch_cluster_field_grid {dtype} degree={degree} {space} "
+                f"{kern.name}{kern.params} kahan={kahan} counts={counts}")
+        err, ratio = field_close(got, want, mag, rtol, atol, what)
+        # the plain version against the field kernel's on the grid points
+        ref = bcm.batch_cluster_field_plain(it, tgt, pts, qh, **kw)
+        field_close(want, ref, mag, rtol, atol, f"{what}: plain vs points")
+        phi = ops.batch_cluster_eval(it, tgt, pts, qh, backend="cuda", **kw)
+        _, phi_ratio = phi_close(got[..., 0], phi, mag[..., 0],
+                                 f"{what}: phi vs potential kernel")
+        for j, v in enumerate((err, ratio, phi_ratio)):
+            worst[dtype][j] = max(worst[dtype][j], v)
+        assert (got[0] == 0).all(), what
+        if counts:
+            pad = (torch.arange(NB, device=dev)[None]
+                   >= kw["tgt_count"][:, None])
+            assert (got[pad] == 0).all(), what
+        n += 1
+    torch.cuda.synchronize()
+    f32, f64 = worst[torch.float32], worst[torch.float64]
+    print(f"[2g] batch_cluster_field_grid vs plain: {n} cases ok (degrees 1,"
+          f" 4, 8, 14; {len(ties)} tie displacements); max abs err f32 "
+          f"{f32[0]:.3e}, f64 {f64[0]:.3e} (phi rtol/atol {FIELD_TOL[4]} "
+          f"f32, rtol {FIELD_TOL[8][0]} f64; gradient GRAD_K * sum|terms| "
+          f"per entry); gradient max err / sum|terms| f32 {f32[1]:.3e}, f64 "
+          f"{f64[1]:.3e}; phi vs the potential kernel on the grid points, "
+          f"max err / sum|G q| f32 {f32[2]:.3e}, f64 {f64[2]:.3e} (PHI_K "
+          f"{PHI_K[4]} f32, {PHI_K[8]} f64)", flush=True)
+
+
 #: (rtol, atol) of the field kernel's phi against its plain version:
 #: phase 2's (f64 cases take positive charges, so phi's atol is 0).
 FIELD_TOL = {4: (2e-4, 2e-4), 8: (1e-12, 0.0)}   # by itemsize
@@ -359,6 +516,30 @@ GRAD_K = {4: 1e-5, 8: 1e-13}
 #: (rtol, atol) of the field kernel's phi against the potential kernel's:
 #: the same expression in the same order, so they agree to rounding.
 FIELD_PHI_TOL = {4: (1e-6, 1e-6), 8: (1e-14, 0.0)}
+#: The grid field kernel sums phi in another order than the potential
+#: kernel (a warp's planes of a cluster, rows of n+1 points), so its phi,
+#: and the force sweep's against `execute`'s, is held per entry to PHI_K
+#: times its own sum of the terms' magnitudes, sum |G q| (the plain
+#: versions' `magnitude=True` sweeps), as the gradient is to GRAD_K.
+#: Measured on an H100: 1.9e-7 (f32) and 1.3e-15 (f64) on phase 2g's
+#: cases, 9.4e-9 against `execute` at Fig. 4.
+PHI_K = {4: 1e-6, 8: 1e-14}
+
+
+def phi_close(got, want, mag, what):
+    """Asserts |got - want| <= PHI_K * mag per entry, `mag` the sum of
+    |G q| over phi's terms; returns (max abs err, max err / mag)."""
+    import torch
+    assert torch.isfinite(got).all(), f"{what}: non-finite phi"
+    k = PHI_K[got.element_size()]
+    err = (got - want).abs()
+    bad = err > k * mag
+    ratio = (err / mag)[mag > 0]
+    ratio = ratio.max().item() if ratio.numel() else 0.0
+    assert not bad.any(), (
+        f"{what}: {int(bad.sum())} phi entries outside {k} * sum|G q| (max "
+        f"abs err {err.max().item():.3e}, max err / sum|G q| {ratio:.3e})")
+    return err.max().item(), ratio
 
 
 def field_close(got, want, mag, rtol, atol, what, phi_scale=None):
@@ -436,10 +617,14 @@ def smi_samples(proc):
 
 
 def sass_inner_loop(lib_path, symbol):
-    """Instructions per pair of the innermost loop of one kernel variant,
-    read from its SASS (cuobjdump): the backward branch whose body holds
-    the MUFU.RSQ instructions, one per pair. Returns (instructions,
-    pairs) or None where cuobjdump is missing."""
+    """Instructions per pair of the pair loop of one kernel variant, read
+    from its SASS (cuobjdump). Each backward branch is a loop; a loop's
+    own instructions are those of its body outside the loops nested in
+    it, and MUFU.RSQ marks a pair. Of the loops with the most pairs of
+    their own (the unrolled sweep: a chunk of sources, or a grid kernel's
+    unchecked plane), the one with the fewest instructions of its own
+    (the unpredicated one). Returns (instructions, pairs) or None where
+    cuobjdump is missing."""
     import re
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -456,15 +641,21 @@ def sass_inner_loop(lib_path, symbol):
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if inside and m:
             body.append((int(m.group(1), 16), m.group(2)))
-    best = None
+    loops = []
     for addr, ins in body:
         m = re.search(r"BRA (?:`\(\S+\) )?0x([0-9a-f]+)", ins)
-        if not m or int(m.group(1), 16) >= addr:
-            continue
-        loop = [i for a, i in body if int(m.group(1), 16) <= a <= addr]
-        mufu = sum("MUFU.RSQ" in i for i in loop)
-        if mufu and (best is None or len(loop) < best[0]):
-            best = (len(loop), mufu)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        nested = [(a, b) for a, b in loops
+                  if lo <= a and b <= hi and (a, b) != (lo, hi)]
+        own = [i for a, i in body if lo <= a <= hi
+               and not any(x <= a <= y for x, y in nested)]
+        mufu = sum("MUFU.RSQ" in i for i in own)
+        if mufu and (best is None or (mufu, -len(own)) > (best[1],
+                                                          -best[0])):
+            best = (len(own), mufu)
     return best
 
 
@@ -591,11 +782,46 @@ def ptxas_usage(log):
     return out
 
 
-def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_elems,
-             flops_per_pair=FLOPS_PER_PAIR, outputs=1):
-    """(bound_ms, side, pairs) of one batch-cluster (or field) launch: the
-    pairs the data needs (real targets x real sources of every valid
-    slot); `outputs` values written per target slot."""
+def grid_flops(pairs, n1):
+    """Operations of the grid field kernel's factored sweep over `pairs`
+    (target, grid point) pairs of degree n1 - 1 (GRID_FLOPS_PER_PAIR)."""
+    sweeps = pairs / n1 ** 3                 # (target, cluster) sweeps
+    return pairs * GRID_FLOPS_PER_PAIR + sweeps * (
+        4 * n1 ** 2 + 2 * n1 + 2 * 3 * n1)
+
+
+def print_grid_usage(usage):
+    """The grid field kernel's ptxas report: its f32 n+1 = 9
+    instantiations (the main path's Coulomb and Yukawa), then a summary of
+    all of them."""
+    import re
+    for name, (regs, st, ld) in sorted(usage.items()):
+        if "grid_field_kernelIfLi9E" in name:
+            kid = int(re.search(r"Li9ELi(\d)E", name).group(1))
+            print(f"    batch_cluster_field_grid f32 n+1=9 "
+                  f"{('coulomb', 'yukawa')[kid]}: {regs} registers, spill "
+                  f"stores {st} bytes, spill loads {ld} bytes", flush=True)
+    if usage:
+        spills = sorted(k for k, v in usage.items() if v[1] or v[2])
+        print(f"    batch_cluster_field_grid: {len(usage)} kernels, "
+              f"{min(v[0] for v in usage.values())}-"
+              f"{max(v[0] for v in usage.values())} registers, "
+              f"{len(spills)} spill: "
+              + ", ".join(re.sub(r".*grid_field_kernelI(\w+?)EEv.*", r"\1", k)
+                          for k in spills), flush=True)
+
+
+def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_bytes, sm_mhz,
+             flops_per_pair=FLOPS_PER_PAIR, outputs=1, flops=None):
+    """The bound of one batch-cluster (or field) launch, {"ms", "side",
+    "pairs", "sides"}: the pairs the data needs (real targets x real
+    sources of every valid slot), and the largest ("side") of three
+    times ("sides", in ms): the operations over
+    PEAK_FP32 (`flops_per_pair` a pair, or `flops(pairs)`), the MUFU
+    operations over the SFU rate at `sm_mhz` (None: MAX_SM_MHZ), and the
+    bytes over PEAK_BYTES (the lists, the targets, `src_bytes` of
+    sources and `outputs` values written per target slot). side is
+    "FLOP", "SFU" or "bytes"."""
     import torch
     a = plan.arrays
     nt = a["tgt_mask"].sum(1).to(torch.float64)           # (B,)
@@ -603,12 +829,30 @@ def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_elems,
     mc = m_of_cluster[idx.clamp(min=0).long()].to(torch.float64)
     pairs = float((nt[:, None] * mc * valid).sum())
     b, nb = a["tgt_batched"].shape[:2]
-    nbytes = (idx.numel() * 4 + b * nb * 3 * dtype_bytes
-              + src_elems * 4 * dtype_bytes + b * nb * outputs * dtype_bytes)
-    t_ops = pairs * flops_per_pair / PEAK_FP32
-    t_bytes = nbytes / PEAK_BYTES
-    side = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes) * 1e3, side, pairs
+    nbytes = (idx.numel() * 4 + b * nb * 3 * dtype_bytes + src_bytes
+              + b * nb * outputs * dtype_bytes)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_flops = flops(pairs) if flops else pairs * flops_per_pair
+    times = {"FLOP": n_flops / PEAK_FP32,
+             "SFU": pairs * MUFU_PER_PAIR / (
+                 SFU_PER_SM_CLOCK * sms * (sm_mhz or MAX_SM_MHZ) * 1e6),
+             "bytes": nbytes / PEAK_BYTES}
+    side = max(times, key=times.get)
+    return {"ms": times[side] * 1e3, "side": side, "pairs": pairs,
+            "sides": {k: v * 1e3 for k, v in times.items()}}
+
+
+def bound_text(bd, smi):
+    """A bound as printed: its time, side and the three sides' times."""
+    return (f"bound {bd['ms']:.3f} ms by {bd['side']} (FLOP "
+            f"{bd['sides']['FLOP']:.3f}, SFU {bd['sides']['SFU']:.3f}, "
+            f"bytes {bd['sides']['bytes']:.3f} ms; {smi})")
+
+
+def bound_by(sides):
+    """The report's "bound_by" of a kernel whose lanes are bound by
+    `sides` (`bc_bound`'s): "bytes" only if every lane is."""
+    return "bytes" if all(v == "bytes" for v in sides) else "operations"
 
 
 def mc_bound(plan, degree, dtype_bytes):
@@ -793,13 +1037,13 @@ def phase_main(dev, smi):
             **counts[lane]), 1)
         lane_bound[lane] = bc_bound(
             plan, idx, leaf_counts if lane == "direct" else n1c, 4,
-            pts.shape[0] * pts.shape[1])
-    bc_bound_ms = sum(v[0] for v in lane_bound.values())
-    bc_side = ("operations" if all(v[1] == "operations"
-                                   for v in lane_bound.values()) else "bytes")
+            pts.shape[0] * pts.shape[1] * 4 * 4,
+            lane_clock[lane] and lane_clock[lane][0])
+    bc_bound_ms = sum(v["ms"] for v in lane_bound.values())
+    bc_side = bound_by(v["side"] for v in lane_bound.values())
     mc_bound_ms, mc_side = mc_bound(plan, degree, 4)
     for lane, (idx, pts, _) in lanes.items():
-        bms, side, pairs = lane_bound[lane]
+        pairs = lane_bound[lane]["pairs"]
         nb, m = tgt.shape[1], pts.shape[1]
         geo = bcm.swept_pairs(idx, nb, m, **counts[lane])
         full = bcm.swept_pairs(idx, nb, m)
@@ -813,7 +1057,7 @@ def phase_main(dev, smi):
                      f"slots per swept pair")
         print(f"[4] batch_cluster {lane} lane: {lane_ms[lane]:.3f} ms "
               f"(plain {lane_plain_ms[lane]:.1f} ms), {pairs:.4e} pairs "
-              f"needed, bound {bms:.3f} ms by {side} ({smi}); launch "
+              f"needed, {bound_text(lane_bound[lane], smi)}; launch "
               f"geometry sweeps {geo['pairs']:.4e} pairs "
               f"({geo['pairs'] / pairs:.3f}x needed; without counts "
               f"{full['pairs']:.4e}), {geo['tiles']} of "
@@ -865,28 +1109,41 @@ def phase_main(dev, smi):
     return plan, x, q, report
 
 
+def field_lane(lane):
+    """(entry point, plain version) of a lane of the force sweep
+    (`eval._LANE_OPS["field"]`): the grid field kernel on the
+    approximation lane (clusters as Chebyshev nodes and q_hat), the
+    generic field kernel on the direct lane (leaf particles)."""
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import ops
+    if lane == "approx":
+        return ops.batch_cluster_field_grid, bcm.batch_cluster_field_grid_plain
+    return ops.batch_cluster_field, bcm.batch_cluster_field_plain
+
+
 def phase_forces(dev, plan, x, q, smi):
     """Fig. 4 forces at 10^6 on the main phase's plan: the two field
-    lanes' times, phi against `execute`, forces against an f64 direct
-    sum on sampled targets, and the field kernel against its plain
-    version on every batch row of both lanes. Returns the field kernel's
-    report entry (its launches are the MD run's)."""
+    lanes' times against their bounds (the approximation lane's beside
+    the generic field kernel's on the same clusters as explicit grid
+    points), phi against `execute`, forces against an f64 direct sum on
+    sampled targets, and each field kernel against its plain version on
+    every batch row of its lane. Returns the two field kernels' report
+    entries (their launches are the MD run's)."""
     import numpy as np
     import torch
+    from repro_torch.core import cheby
     from repro_torch.core.direct import direct_field
     from repro_torch.kernels import batch_cluster as bcm
     from repro_torch.kernels import ops
 
     a = plan.arrays
     kern = plan.kernel
-    bcm.FIELD_LAUNCHES = 0
+    bcm.FIELD_LAUNCHES = bcm.GRID_FIELD_LAUNCHES = 0
     phi, force = plan.potential_and_forces(q)
     torch.cuda.synchronize()
-    assert bcm.FIELD_LAUNCHES == 2, bcm.FIELD_LAUNCHES
+    launches = (bcm.FIELD_LAUNCHES, bcm.GRID_FIELD_LAUNCHES)
+    assert launches == (1, 1), launches
     pf_ms = event_ms(lambda: plan.potential_and_forces(q), 3)
-    exec_phi = plan.execute(q)
-    phi_err = close(phi, exec_phi, *FIELD_PHI_TOL[4],
-                    "potential_and_forces phi vs execute", scale="median")
     n = x.shape[0]
     rng = np.random.default_rng(2021)
     sample = torch.as_tensor(rng.choice(n, 1000, replace=False), device=dev)
@@ -898,58 +1155,113 @@ def phase_forces(dev, plan, x, q, smi):
     assert force.shape == (n, 3) and torch.isfinite(force).all()
     ferr = rel2(force[sample].double(), ref)
     assert ferr <= FORCE_BAR, ferr
-    print(f"[4f] potential_and_forces at Fig. 4, N={n}: {pf_ms:.3f} ms warm "
-          f"median of 3 (CUDA events), 2 field launches a call; phi vs "
-          f"execute max abs err {phi_err:.3e} (rtol {FIELD_PHI_TOL[4][0]}, "
-          f"atol {FIELD_PHI_TOL[4][1]} median|phi|); forces vs f64 direct "
-          f"sum on 1000 sampled targets: relative 2-norm error {ferr:.3e} "
-          f"(bar {FORCE_BAR})", flush=True)
 
     degree = plan.config.degree
+    n1 = degree + 1
     lanes = plan_lanes(plan, q)
     tgt = a["tgt_batched"]
-    ms, plain_ms, bound, err, ratio = {}, {}, {}, 0.0, 0.0
+    nb = tgt.shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     leaf_counts = (a["leaf_gather"] >= 0).sum(1)
-    n1c = torch.full((a["node_lo"].shape[0],), (degree + 1) ** 3,
-                     device=dev)
+    n1c = torch.full((a["node_lo"].shape[0],), n1 ** 3, device=dev)
     real = a["tgt_mask"]
-    for lane, (idx, pts, qq, cnt) in lanes.items():
+    report, phi_mag = [], 0.0
+    for lane, (idx, src, qq, cnt) in lanes.items():
+        op, plain = field_lane(lane)
+
         def run(backend):
-            return ops.batch_cluster_field(idx, tgt, pts, qq, kernel=kern,
-                                           backend=backend, **cnt)
+            return op(idx, tgt, src, qq, kernel=kern, backend=backend, **cnt)
         got = run("cuda")
-        ms[lane] = event_ms(lambda: run("cuda"), 5)
+        sampler = smi_sampler()
+        try:        # 10 calls: long enough for a few clock samples
+            ms = event_ms(lambda: run("cuda"), 10)
+        finally:
+            clock = smi_samples(sampler)
         t0 = time.perf_counter()
         want = run("torch")
         torch.cuda.synchronize()
-        plain_ms[lane] = (time.perf_counter() - t0) * 1e3
-        mag = bcm.batch_cluster_field_plain(idx, tgt, pts, qq, kernel=kern,
-                                            magnitude=True, **cnt)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        mag = plain(idx, tgt, src, qq, kernel=kern, magnitude=True, **cnt)
+        phi_mag = phi_mag + mag[..., 0]
         e, r, atol = field_rows_close(got, want, mag, real,
                                       f"field {lane} lane")
-        err, ratio = max(err, e), max(ratio, r)
-        bound[lane] = bc_bound(plan, idx,
-                               leaf_counts if lane == "direct" else n1c, 4,
-                               pts.shape[0] * pts.shape[1],
-                               FIELD_FLOPS_PER_PAIR, 4)
-        print(f"[4f] field {lane} lane: {ms[lane]:.3f} ms (plain "
-              f"{plain_ms[lane]:.1f} ms, host clock, one call), "
-              f"{bound[lane][2]:.4e} pairs needed, bound "
-              f"{bound[lane][0]:.3f} ms by {bound[lane][1]} ({smi}); "
-              f"against the plain version on all {int(real.any(1).sum())} "
-              f"batch rows: max abs err {e:.3e}, gradient max err / "
-              f"sum|terms| {r:.3e} ({FIELD_ROWS_RULE}; gradient atol "
-              f"{atol})", flush=True)
-    side = ("operations" if all(v[1] == "operations" for v in bound.values())
-            else "bytes")
-    return dict(name="batch_cluster_field", route="cuda",
-                source="src/repro_torch/kernels/csrc/batch_cluster_field.cu",
-                replaces="src/repro/core/eval.py:442 (XLA JVP forces path; "
-                         "no TPU kernel)",
-                launches=0, max_abs_err=err, ms=sum(ms.values()),
-                plain_ms=sum(plain_ms.values()),
-                bound_ms=sum(v[0] for v in bound.values()), bound_by=side,
-                library_ms=None)
+        mhz = clock and clock[0]
+        if lane == "approx":
+            bd = bc_bound(plan, idx, n1c, 4, (src.numel() + qq.numel()) * 4,
+                          mhz, outputs=4, flops=lambda p: grid_flops(p, n1))
+            geo = bcm.swept_pairs(idx, nb, n1 ** 3, cnt["tgt_count"],
+                                  tile=bcm.grid_tile(4, n1), unroll=1)
+        else:
+            bd = bc_bound(plan, idx, leaf_counts, 4, src.shape[0]
+                          * src.shape[1] * 4 * 4, mhz,
+                          FIELD_FLOPS_PER_PAIR, 4)
+            geo = bcm.swept_pairs(idx, nb, src.shape[1], **cnt)
+        slots = "no nvidia-smi samples"
+        if clock is not None:
+            # lane-issue slots the SMs had per swept pair at that clock
+            issue = ms * 1e-3 * clock[0] * 1e6 * sms * 128
+            slots = (f"SM clock {clock[0]:.0f} MHz, power {clock[1]:.1f} W "
+                     f"(median of {clock[2]} samples): "
+                     f"{issue / geo['pairs']:.2f} issue slots per swept pair")
+        print(f"[4f] field {lane} lane ({op.__name__}): {ms:.3f} ms (plain "
+              f"{plain_ms:.1f} ms, host clock, one call), {bd['pairs']:.4e}"
+              f" pairs needed, {bound_text(bd, smi)}; launch geometry sweeps"
+              f" {geo['pairs']:.4e} pairs ({geo['pairs'] / bd['pairs']:.3f}x"
+              f" needed); {slots}; against the plain version on all "
+              f"{int(real.any(1).sum())} batch rows: max abs err {e:.3e}, "
+              f"gradient max err / sum|terms| {r:.3e} ({FIELD_ROWS_RULE}; "
+              f"gradient atol {atol})", flush=True)
+        if lane == "approx":
+            # the same-run yardstick: the generic field kernel on the same
+            # clusters as explicit grid points, timed in turns with the
+            # grid kernel (grid, generic, generic, grid)
+            grids = cheby.cluster_grid(a["node_lo"], a["node_hi"], degree)
+
+            def generic():
+                return ops.batch_cluster_field(idx, tgt, grids, qq,
+                                               kernel=kern, backend="cuda",
+                                               **cnt)
+            ge, _, _ = field_rows_close(generic(), want, mag, real,
+                                        "generic field kernel on the grids")
+            turns = [event_ms(f, 5) for f in (lambda: run("cuda"), generic,
+                                              generic, lambda: run("cuda"))]
+            grid_ms = (turns[0] + turns[3]) / 2
+            gen_ms = (turns[1] + turns[2]) / 2
+            print(f"[4f] approximation lane, in turns (grid, generic, "
+                  f"generic, grid; median of 5 each): grid field kernel "
+                  f"{grid_ms:.3f} ms, generic field kernel on the same "
+                  f"clusters as {tuple(grids.shape)} points {gen_ms:.3f} ms:"
+                  f" {gen_ms / grid_ms:.2f}x; the generic kernel against "
+                  f"the grid plain version max abs err {ge:.3e}", flush=True)
+        report.append(dict(
+            name=("batch_cluster_field_grid" if lane == "approx"
+                  else "batch_cluster_field"), route="cuda",
+            source=("src/repro_torch/kernels/csrc/batch_cluster_field"
+                    + ("_grid.cu" if lane == "approx" else ".cu")),
+            replaces="src/repro/core/eval.py:442 (XLA JVP forces path; "
+                     "no TPU kernel)",
+            launches=0, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+            bound_ms=bd["ms"], bound_by=bound_by([bd["side"]]),
+            library_ms=None))
+    exec_phi = plan.execute(q)
+    phi_mag = phi_mag.flatten(0, 1)[a["gather_index"]]
+    phi_err, phi_ratio = phi_close(phi, exec_phi, phi_mag,
+                                   "potential_and_forces phi vs execute")
+    # the bitwise-era rule, which the grid kernel's sum order retired
+    old_tol = FIELD_PHI_TOL[4]
+    outside = int(((phi - exec_phi).abs() > old_tol[1]
+                   * exec_phi.abs().median() + old_tol[0]
+                   * exec_phi.abs()).sum())
+    print(f"[4f] potential_and_forces at Fig. 4, N={n}: {pf_ms:.3f} ms warm "
+          f"median of 3 (CUDA events), {launches[0]} field and "
+          f"{launches[1]} grid field launch a call; phi vs execute max abs "
+          f"err {phi_err:.3e}, max err / sum|G q| {phi_ratio:.3e} (bar "
+          f"PHI_K {PHI_K[4]} sum|G q| per entry; {outside} entries outside "
+          f"FIELD_PHI_TOL's rtol/atol {old_tol} median|phi|, the potential "
+          f"kernel's order); forces vs f64 direct sum "
+          f"on 1000 sampled targets: relative 2-norm error {ferr:.3e} (bar "
+          f"{FORCE_BAR})", flush=True)
+    return report
 
 
 #: How `field_rows_close` holds the field kernel on a plan's batch rows.
@@ -974,24 +1286,25 @@ def field_rows_close(got, want, mag, real, what):
 
 
 def plan_lanes(plan, q):
-    """The field kernel's two lanes on `plan` for charges `q`, as its
+    """The field kernels' two lanes on `plan` for charges `q`, as its
     force evaluation gives them (`eval.lane_inputs`: the modified
     charges from the CUDA kernel, the skin routing of the current
-    geometry)."""
+    geometry, the approximation lane's clusters as Chebyshev nodes)."""
     from repro_torch.core import eval as ev
     c = plan.config
     return ev.lane_inputs(plan.arrays, q, degree=c.degree, space=c.space,
-                          backend="cuda", theta=c.theta, skin=c.skin)
+                          backend="cuda", theta=c.theta, skin=c.skin,
+                          grid_nodes=True)
 
 
 def md_field_rows(sim, what, rows=64):
-    """The field kernel against its plain version on the first `rows`
+    """The field kernels against their plain versions on the first `rows`
     batch rows of both lanes of the MD's current (capacity-padded,
-    refitted) plan, on the inputs its force evaluation gives the kernel.
-    Returns the max abs error; the launches here are not counted."""
+    refitted) plan, on the inputs its force evaluation gives them (the
+    grid field kernel on the approximation lane, the field kernel on the
+    direct lane). Returns the max abs error; the launches here are not
+    counted."""
     import torch
-    from repro_torch.kernels import batch_cluster as bcm
-    from repro_torch.kernels import ops
     plan = sim.plan
     tgt = plan.arrays["tgt_batched"][:rows]
     real = plan.arrays["tgt_mask"][:rows]
@@ -1001,18 +1314,17 @@ def md_field_rows(sim, what, rows=64):
     for lane, (idx, pts, qq, cnt) in plan_lanes(plan, sim.charges).items():
         cnt = dict(cnt, tgt_count=cnt["tgt_count"][:rows])
         args = (idx[:rows], tgt, pts, qq)
-        got = ops.batch_cluster_field(*args, backend="cuda", **opts, **cnt)
-        want = ops.batch_cluster_field(*args, backend="torch", **opts,
-                                       **cnt)
-        mag = bcm.batch_cluster_field_plain(*args, magnitude=True, **opts,
-                                            **cnt)
+        op, plain = field_lane(lane)
+        got = op(*args, backend="cuda", **opts, **cnt)
+        want = op(*args, backend="torch", **opts, **cnt)
+        mag = plain(*args, magnitude=True, **opts, **cnt)
         e, r, atol = field_rows_close(got, want, mag, real,
                                       f"{what}: field {lane} lane rows")
         err, ratio = max(err, e), max(ratio, r)
         out.append(f"{lane} {tuple(idx.shape)} slots x {tuple(pts.shape)} "
                    f"sources, max abs err {e:.3e}, gradient atol {atol}")
     torch.cuda.synchronize()
-    print(f"    {what}: field kernel vs plain on the first {rows} batch rows "
+    print(f"    {what}: field kernels vs plain on the first {rows} batch rows "
           f"of the padded plan ({FIELD_ROWS_RULE}): " + "; ".join(out)
           + f"; gradient max err / sum|terms| {ratio:.3e}", flush=True)
     return err
@@ -1051,8 +1363,8 @@ def phase_md(dev):
     lattice in [-1,1]^3, velocity Verlet, MD_STEPS steps, refit interval
     MD_REFIT. Steps 2.. run with every launch counter at 0 before them;
     each refit step must make exactly one host sync; no capacity growth
-    and no kernel build after step 1. Returns the field kernel's
-    launches in that run."""
+    and no kernel build after step 1. Returns the launches of each kernel
+    in that run."""
     import warnings
     import torch
     from repro_torch.configs.bltc import fig4
@@ -1076,7 +1388,8 @@ def phase_md(dev):
     sim.step()
     torch.cuda.synchronize()
     builds0 = events.build_count()
-    bcm.LAUNCHES = bcm.FIELD_LAUNCHES = mcm.LAUNCHES = 0
+    bcm.LAUNCHES = bcm.FIELD_LAUNCHES = bcm.GRID_FIELD_LAUNCHES = 0
+    mcm.LAUNCHES = 0
     step_ms = {"refit": [], "rebuild": []}
     syncs = []
     for _ in range(MD_STEPS - 1):
@@ -1096,10 +1409,12 @@ def phase_md(dev):
             syncs.append(sum("called a synchronizing CUDA operation"
                              in str(w.message) for w in caught))
     launches = {"batch_cluster_field": bcm.FIELD_LAUNCHES,
+                "batch_cluster_field_grid": bcm.GRID_FIELD_LAUNCHES,
                 "modified_charges": mcm.LAUNCHES,
                 "batch_cluster": bcm.LAUNCHES}
     steps = MD_STEPS - 1
-    assert launches["batch_cluster_field"] == 2 * steps, launches
+    assert launches["batch_cluster_field"] == steps, launches
+    assert launches["batch_cluster_field_grid"] == steps, launches
     assert launches["modified_charges"] == 2 * steps, launches
     sim.log.record(sim.steps, sim.diagnostics())
     st = sim.stats()
@@ -1147,7 +1462,7 @@ def phase_md(dev):
           f"{launches}", flush=True)
     print("[8] traced refit step, ms per step by span: " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(spans.items())), flush=True)
-    return launches["batch_cluster_field"]
+    return launches
 
 
 def phase_md_periodic(dev):
@@ -1325,6 +1640,8 @@ def main() -> int:
     for name, (regs, st, ld) in sorted(usage.items()):
         print(f"    batch_cluster_field {name}: {regs} registers, spill "
               f"stores {st} bytes, spill loads {ld} bytes", flush=True)
+    print_grid_usage(ptxas_usage(
+        _build.BUILD_LOG.get("batch_cluster_field_grid", "")))
     usage = ptxas_usage(_build.BUILD_LOG.get("modified_charges", ""))
     if usage:
         spills = {k: v for k, v in usage.items() if v[1] or v[2]}
@@ -1345,16 +1662,28 @@ def main() -> int:
         f"{loop[0]} instructions for {loop[1]} pairs, "
         f"{loop[0] / loop[1]:.2f} per pair" if loop else "not measured "
         "(no cuobjdump)"), flush=True)
+    # the grid kernel at the main path's n+1 = 9: its plane loop, whose
+    # unchecked sweep unrolls the plane's rows for each of a lane's targets
+    loop = sass_inner_loop(_build.library_path("batch_cluster_field_grid"),
+                           "grid_field_kernelIfLi9ELi0EE")
+    print("[1] batch_cluster_field_grid f32 Coulomb n+1=9 plane loop (SASS): "
+          + (f"{loop[0]} instructions for {loop[1]} pairs, "
+             f"{loop[0] / loop[1]:.2f} per pair" if loop else "not measured "
+             "(no cuobjdump)"), flush=True)
 
     phase_batch_cluster(dev)
     phase_field(dev)
+    phase_field_grid(dev)
     phase_modified_charges(dev)
     plan, x, q, report = phase_main(dev, smi)
-    report.append(phase_forces(dev, plan, x, q, smi))
+    report += phase_forces(dev, plan, x, q, smi)
     phase_yukawa(dev, plan, x, q)
     del plan
     phase_periodic(dev)
-    report[-1]["launches"] = phase_md(dev)
+    md_launches = phase_md(dev)
+    for entry in report:     # the field kernels' launches are the MD run's
+        if entry["name"].startswith("batch_cluster_field"):
+            entry["launches"] = md_launches[entry["name"]]
     phase_md_periodic(dev)
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -293,7 +293,7 @@ class KernelInputs:
     and the plan's chunk table) and the interaction lists."""
 
     q_sorted: torch.Tensor    # (N,) charges in tree order
-    grids: torch.Tensor       # (num_nodes, (n+1)^3, 3) Chebyshev grids
+    grids: Optional[torch.Tensor]  # (num_nodes, (n+1)^3, 3) grids, or None
     leaf_pts: torch.Tensor    # (num_leaves, nl_pad, 3)
     leaf_q: torch.Tensor      # (num_leaves, nl_pad)
     # prefix lengths of the kernels' count contract (int32): real targets
@@ -302,9 +302,10 @@ class KernelInputs:
     leaf_count: torch.Tensor  # (num_leaves,)
 
 
-def kernel_inputs(arrays: dict, charges: torch.Tensor, *,
-                  degree: int) -> KernelInputs:
-    """Gather the kernels' inputs from the plan arrays and `charges`.
+def kernel_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
+                  grids: bool = True) -> KernelInputs:
+    """Gather the kernels' inputs from the plan arrays and `charges`
+    (``grids=False``: no Chebyshev grid points, for the grid field kernel).
 
     The packing fills batch rows and leaves from slot 0, so the counts are
     the prefix lengths the batch-cluster kernel sweeps."""
@@ -313,8 +314,8 @@ def kernel_inputs(arrays: dict, charges: torch.Tensor, *,
                                  arrays["leaf_gather"])
     return KernelInputs(
         q_sorted=q_sorted,
-        grids=cheby.cluster_grid(arrays["node_lo"], arrays["node_hi"],
-                                 degree),
+        grids=(cheby.cluster_grid(arrays["node_lo"], arrays["node_hi"],
+                                  degree) if grids else None),
         leaf_pts=leaf_pts, leaf_q=leaf_q,
         tgt_count=arrays["tgt_mask"].sum(1, dtype=torch.int32),
         leaf_count=(arrays["leaf_gather"] >= 0).sum(1, dtype=torch.int32))
@@ -357,7 +358,7 @@ def _skin_routed_lists(arrays: dict, theta: float, space):
 
 def lane_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
                 space=_FREE, backend: str = "auto", theta: float = 0.7,
-                skin: float = 0.0) -> dict:
+                skin: float = 0.0, grid_nodes: bool = False) -> dict:
     """The two lanes' kernel inputs for `charges`, as the executor feeds
     them: ``{"approx": (idx, pts, q, counts), "direct": (...)}``.
 
@@ -365,9 +366,13 @@ def lane_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
     lists are routed by the runtime MAC gate. Both lanes pass the batch
     rows' target counts; the direct lane (skin-routed slots included,
     which are leaf ids too) also the leaves' particle counts, while every
-    Chebyshev grid is all real points. `chip_smoke.py` holds the kernels
-    against their plain versions on these very tensors."""
-    inp = kernel_inputs(arrays, charges, degree=degree)
+    Chebyshev grid is all real points. With ``grid_nodes=True`` the
+    approximation lane carries each cluster's 1-D Chebyshev nodes
+    (C, 3, n+1) in place of its grid points, as
+    `ops.batch_cluster_field_grid` takes them (q_hat is k3 fastest
+    either way). `chip_smoke.py` holds the kernels against their plain
+    versions on these very tensors."""
+    inp = kernel_inputs(arrays, charges, degree=degree, grids=not grid_nodes)
     with _trace.span("eval.modified_charges"):
         qhat = compute_qhat_direct(arrays, inp.q_sorted, degree=degree,
                                    backend=backend)
@@ -376,28 +381,44 @@ def lane_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
         approx_idx, direct_idx = _skin_routed_lists(arrays, theta, space)
     else:
         approx_idx, direct_idx = arrays["approx_idx"], arrays["direct_idx"]
-    return {"approx": (approx_idx, inp.grids, qhat,
-                       {"tgt_count": inp.tgt_count}),
+    pts = (ops._cluster_nodes(arrays["node_lo"], arrays["node_hi"], degree)
+           if grid_nodes else inp.grids)
+    return {"approx": (approx_idx, pts, qhat, {"tgt_count": inp.tgt_count}),
             "direct": (direct_idx, inp.leaf_pts, inp.leaf_q,
                        {"tgt_count": inp.tgt_count,
                         "src_count": inp.leaf_count})}
 
 
-def _sweep(op, span: str, arrays: dict, charges: torch.Tensor, params, *,
+#: The entry points of `kernels.ops` each sweep calls, by lane: the
+#: potential takes both lanes as explicit points; the field takes the
+#: approximation lane as Chebyshev grids in factored form (the grid field
+#: kernel) and the direct lane as points (the generic field kernel).
+_LANE_OPS = {
+    "lane": {"approx": ops.batch_cluster_eval,
+             "direct": ops.batch_cluster_eval},
+    "field": {"approx": ops.batch_cluster_field_grid,
+              "direct": ops.batch_cluster_field},
+}
+
+
+def _sweep(span: str, arrays: dict, charges: torch.Tensor, params, *,
            degree: int, kernel: Kernel, space=_FREE, backend: str = "auto",
            kahan: bool = False, approx_r2: str = "diff", theta: float = 0.7,
            skin: float = 0.0) -> torch.Tensor:
-    """`op` (a batch-cluster entry point of `kernels.ops`) over both
-    lanes, summed and gathered back to the caller's input order."""
+    """The `_LANE_OPS[span]` entry points over both lanes, summed and
+    gathered back to the caller's input order."""
+    field = span == "field"
     lanes = lane_inputs(arrays, charges, degree=degree, space=space,
-                        backend=backend, theta=theta, skin=skin)
+                        backend=backend, theta=theta, skin=skin,
+                        grid_nodes=field)
     out = None
     for lane, (idx, pts, q, counts) in lanes.items():
-        if lane == "approx":
+        if lane == "approx" and not field:
             counts = dict(counts, r2_mode=approx_r2)
         with _trace.span(f"eval.{lane}_{span}"):
-            y = op(idx, arrays["tgt_batched"], pts, q, params, kernel=kernel,
-                   space=space, backend=backend, kahan=kahan, **counts)
+            y = _LANE_OPS[span][lane](
+                idx, arrays["tgt_batched"], pts, q, params, kernel=kernel,
+                space=space, backend=backend, kahan=kahan, **counts)
             _trace.sync(charges.device)
         out = y if out is None else out + y
     return out.flatten(0, 1)[arrays["gather_index"]]
@@ -411,8 +432,7 @@ def _execute_impl(arrays: dict, charges: torch.Tensor, params=None,
     parameter values (tensors on the device, or None for the kernel's
     defaults). `opts` are `_sweep`'s: degree, kernel, space, backend,
     kahan, approx_r2, theta and skin."""
-    return _sweep(ops.batch_cluster_eval, "lane", arrays, charges, params,
-                  **opts)
+    return _sweep("lane", arrays, charges, params, **opts)
 
 
 #: The executor. PyTorch runs eagerly, so there is no jitted twin: the
@@ -425,10 +445,11 @@ execute = _execute_impl
 # ---------------------------------------------------------------------------
 #
 # phi_i depends on the target slab only through target i's own slot, so
-# the gradient is one vector per target: the field kernel sums
+# the gradient is one vector per target: the field kernels sum
 # 2 G'(r^2) d q beside G q over the very pairs of `execute` (both lanes,
-# the same counts and skin routing). Sources are held fixed: the tree is
-# rebuilt or refitted, not differentiated, when they move. Under a
+# the same counts and skin routing), the approximation lane's over each
+# cluster's Chebyshev grid in factored form. Sources are held fixed: the
+# tree is rebuilt or refitted, not differentiated, when they move. Under a
 # `PeriodicBox` d is the minimum-image displacement, so forces point
 # along it (the reference's JVP of the fold is the identity too).
 
@@ -438,11 +459,11 @@ def potential_and_gradient(arrays: dict, charges: torch.Tensor,
     """(phi (N,), g (N, 3)) with g_i = d phi_i / d x_i, input order.
 
     One modified-charge call and one field launch per lane; `opts` are
-    those of `_execute_impl`. On the CUDA kernel the approximation lane
-    takes the difference form of r^2 whatever `approx_r2` says (the plain
-    version follows it; only rounding differs)."""
-    f = _sweep(ops.batch_cluster_field, "field", arrays, charges, params,
-               **opts)
+    those of `_execute_impl`. The approximation lane takes the difference
+    form of r^2 whatever `approx_r2` says, on both backends (the gradient
+    needs the displacement; against the matmul form only rounding
+    differs)."""
+    f = _sweep("field", arrays, charges, params, **opts)
     return f[:, 0], f[:, 1:]
 
 

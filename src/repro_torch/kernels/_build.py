@@ -4,8 +4,9 @@ Each source compiles with `nvcc` into its own shared library with a plain
 C interface, loaded with `ctypes` (no PyTorch headers, so a build takes
 seconds, not minutes). Builds happen at first use, into
 ``<repo>/build/kernels/`` (git-ignored; ``REPRO_TORCH_BUILD_DIR``
-overrides it), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. `build()` starts one
+overrides it), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. `build()` starts one
 `nvcc` per source, all at once, and waits for them together.
 
 No ``--use_fast_math``: the f64 bar is 1e-12 and the exact-hit compare in
@@ -28,7 +29,8 @@ from typing import Dict, Iterable, Optional
 from repro_torch.obs import events as _events
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("batch_cluster", "batch_cluster_field", "modified_charges")
+SOURCES = ("batch_cluster", "batch_cluster_field", "batch_cluster_field_grid",
+           "modified_charges")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,6 +64,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}_{h}.so"
 

@@ -23,6 +23,14 @@ interaction, so ONE kernel evaluates both: against leaf source particles
   not of a TPU kernel. `batch_cluster_field_plain` is its plain version:
   the analytic derivative for Coulomb and Yukawa, `torch.func.jvp` of
   `Kernel.__call__` for a user kernel.
+- `batch_cluster_field_grid_cuda` launches `csrc/batch_cluster_field_grid.cu`,
+  the field over each cluster's tensor-product Chebyshev grid (the
+  approximation lane of the forces): it takes the clusters' 1-D nodes
+  (C, 3, n+1) and q_hat (C, (n+1)^3), k3 fastest, instead of (C, m, 3)
+  points, and sweeps the grid in factored form (r^2 one fma a pair, the
+  x and y gradient sums per plane and per row). Its plain twin
+  `batch_cluster_field_grid_plain` does the same factored arithmetic in
+  tensors; on the grid's points it is `batch_cluster_field_plain`.
 
 Sentinel contract: a ``-1`` slot contributes exactly zero wherever it
 sits in a row (the Verlet-skin gate writes interior sentinels).
@@ -31,7 +39,8 @@ Count contract: targets are packed from slot 0 of each batch row and
 source points from slot 0 of each cluster, so `tgt_count` (B,) and
 `src_count` (C,) are prefix lengths. All four functions sum only over
 the first ``src_count[c]`` points of cluster c, and give 0 on target
-slots at or beyond ``tgt_count[b]``. None means every slot is real.
+slots at or beyond ``tgt_count[b]``. None means every slot is real. The
+grid field functions take target counts only: every grid point is real.
 
 Exact hits (r^2 == 0, a particle meeting itself) add exactly 0 to phi
 and to every gradient component.
@@ -51,6 +60,8 @@ from repro_torch.kernels import _build
 LAUNCHES = 0
 #: Launches of the field kernel (`batch_cluster_field_cuda`), likewise.
 FIELD_LAUNCHES = 0
+#: Launches of the grid field kernel (`batch_cluster_field_grid_cuda`).
+GRID_FIELD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +74,14 @@ _SIGNATURES = {"bc_eval_f32": _SIG, "bc_eval_f64": _SIG,
 _FIELD_SIG = _SIG[:15] + _SIG[16:]
 FIELD_SIGNATURES = {"bcf_eval_f32": _FIELD_SIG, "bcf_eval_f64": _FIELD_SIG,
                     "bcf_geometry": (_I,)}
+# idx, par, tgt, nodes, q_hat, tgt_count, out; B, S, NB, n1, kernel id,
+# periodic, kahan; the box lengths; the stream
+_GRID_SIG = (_P,) * 7 + (_I,) * 7 + (_D,) * 3 + (_P,)
+GRID_FIELD_SIGNATURES = {"bcfg_eval_f32": _GRID_SIG,
+                         "bcfg_eval_f64": _GRID_SIG, "bcfg_tile": (_I, _I)}
+
+#: Degrees the grid field kernel is instantiated for (n+1 = 2..15).
+GRID_DEGREES = range(1, 15)
 
 #: Element budget of one (batch chunk, NB, m) pairwise block in the plain
 #: versions.
@@ -75,6 +94,12 @@ _TARGETS_PER_BLOCK = 128
 #: kUnroll of both CUDA sources (`*_geometry(1)`): a cluster's sweep
 #: rounds its point count up to a multiple of it.
 _SOURCE_UNROLL = 4
+
+
+def grid_tile(itemsize: int, n1: int) -> int:
+    """Targets a block of the grid field kernel (`bcfg_tile`): 32 lanes
+    times two targets a lane in f32 up to n+1 = 9, else one."""
+    return 32 * (2 if itemsize == 4 and n1 <= 9 else 1)
 
 
 def kernel_id(kernel: Kernel) -> int:
@@ -90,16 +115,19 @@ def kernel_id(kernel: Kernel) -> int:
 
 def swept_pairs(idx: torch.Tensor, nb: int, m: int,
                 tgt_count: torch.Tensor | None = None,
-                src_count: torch.Tensor | None = None) -> dict:
-    """What one launch of the CUDA kernel sweeps for these inputs.
+                src_count: torch.Tensor | None = None, *,
+                tile: int = _TARGETS_PER_BLOCK,
+                unroll: int = _SOURCE_UNROLL) -> dict:
+    """What one launch of a CUDA kernel sweeps for these inputs.
 
     Returns {"pairs": (target, source) pairs its tiles run, counting each
-    128-target tile with a real target in full and each cluster's points
-    rounded up to the unroll; "tiles": tiles with a real target;
+    `tile`-target tile with a real target in full and each cluster's
+    points rounded up to `unroll`; "tiles": tiles with a real target;
     "tiles_launched": blocks in the grid}. Without counts every slot is
-    real: what a launch without counts sweeps."""
+    real: what a launch without counts sweeps. The defaults are the
+    generic kernels' geometry; the grid field kernel sweeps (n+1)^3 points
+    a cluster in tiles of `grid_tile(itemsize, n+1)` with no rounding."""
     b = idx.shape[0]
-    tile, unroll = _TARGETS_PER_BLOCK, _SOURCE_UNROLL
     nt = (torch.full((b,), nb, dtype=torch.int64, device=idx.device)
           if tgt_count is None else tgt_count.long().clamp(0, nb))
     tiles = -(-nt // tile)                                  # (B,)
@@ -126,26 +154,38 @@ def _check_count(what: str, name: str, t: torch.Tensor, n: int,
                          f"expected ({n},)")
 
 
-def _check_inputs(what, idx, par, tgt, src_pts, src_q, tgt_count,
-                  src_count):
-    """Device, dtype, shape and contiguity checks of a launch; returns
-    (B, S, NB, m)."""
+def _check_tensors(what, idx, tgt, named):
+    """Device, contiguity and dtype checks shared by every launch: idx
+    int32, tgt and the `named` ({name: tensor}) floating tensors on tgt's
+    CUDA device, contiguous, float32 or float64 alike."""
     dev = tgt.device
-    dtype = tgt.dtype
-    for name, t in (("idx", idx), ("par", par), ("tgt", tgt),
-                    ("src_pts", src_pts), ("src_q", src_q)):
+    for name, t in (("idx", idx), ("tgt", tgt), *named.items()):
         if t.device != dev or not t.is_cuda:
             raise ValueError(f"{what}: {name} is on {t.device}, expected "
                              f"the CUDA device {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{what}: dtype {dtype} (float32 or float64)")
-    if any(t.dtype != dtype for t in (par, src_pts, src_q)):
-        raise TypeError(f"{what}: par, tgt, src_pts and src_q must share "
-                        f"one dtype")
+    if tgt.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: dtype {tgt.dtype} (float32 or float64)")
+    if any(t.dtype != tgt.dtype for t in named.values()):
+        raise TypeError(f"{what}: tgt, {', '.join(named)} must share one "
+                        f"dtype")
     if idx.dtype != torch.int32:
         raise TypeError(f"{what}: idx must be int32")
+
+
+def _check_grid_limit(what, nb, tile):
+    if -(-nb // tile) > 65535:
+        raise ValueError(f"{what}: NB={nb} exceeds the grid limit of "
+                         f"{65535 * tile} targets per batch row")
+
+
+def _check_inputs(what, idx, par, tgt, src_pts, src_q, tgt_count,
+                  src_count):
+    """Device, dtype, shape and contiguity checks of a launch; returns
+    (B, S, NB, m)."""
+    _check_tensors(what, idx, tgt, {"par": par, "src_pts": src_pts,
+                                    "src_q": src_q})
     b, s = idx.shape
     _, nb, three = tgt.shape
     c, m, three_s = src_pts.shape
@@ -156,13 +196,10 @@ def _check_inputs(what, idx, par, tgt, src_pts, src_q, tgt_count,
             f"{tuple(tgt.shape)}, src_pts {tuple(src_pts.shape)}, src_q "
             f"{tuple(src_q.shape)} do not match (B,S),(B,NB,3),(C,m,3),(C,m)")
     if tgt_count is not None:
-        _check_count(what, "tgt_count", tgt_count, b, dev)
+        _check_count(what, "tgt_count", tgt_count, b, tgt.device)
     if src_count is not None:
-        _check_count(what, "src_count", src_count, c, dev)
-    if -(-nb // _TARGETS_PER_BLOCK) > 65535:
-        raise ValueError(f"{what}: NB={nb} exceeds the grid limit of "
-                         f"{65535 * _TARGETS_PER_BLOCK} targets per batch "
-                         f"row")
+        _check_count(what, "src_count", src_count, c, tgt.device)
+    _check_grid_limit(what, nb, _TARGETS_PER_BLOCK)
     return b, s, nb, m
 
 
@@ -244,6 +281,66 @@ def batch_cluster_field_cuda(idx: torch.Tensor, par: torch.Tensor,
     _build.check(rc, "batch_cluster_field")
     if b > 0 and nb > 0:        # the C entry launches nothing otherwise
         FIELD_LAUNCHES += 1
+    return out
+
+
+def _check_grid_inputs(what, idx, par, tgt, nodes, q_hat, tgt_count):
+    """Device, dtype, shape, contiguity and degree checks of a grid field
+    launch; returns (B, S, NB, n1)."""
+    _check_tensors(what, idx, tgt, {"par": par, "nodes": nodes,
+                                    "q_hat": q_hat})
+    b, s = idx.shape
+    _, nb, three = tgt.shape
+    c, three_n, n1 = nodes.shape
+    if (tgt.shape[0] != b or three != 3 or three_n != 3
+            or tuple(q_hat.shape) != (c, n1 ** 3)):
+        raise ValueError(
+            f"{what}: shapes idx {tuple(idx.shape)}, tgt {tuple(tgt.shape)},"
+            f" nodes {tuple(nodes.shape)}, q_hat {tuple(q_hat.shape)} do not"
+            f" match (B,S),(B,NB,3),(C,3,n+1),(C,(n+1)^3)")
+    if n1 - 1 not in GRID_DEGREES:
+        raise ValueError(f"{what}: degree {n1 - 1}; the grid field kernel "
+                         f"is built for degrees {GRID_DEGREES.start}-"
+                         f"{GRID_DEGREES.stop - 1}")
+    if tgt_count is not None:
+        _check_count(what, "tgt_count", tgt_count, b, tgt.device)
+    _check_grid_limit(what, nb, grid_tile(tgt.element_size(), n1))
+    return b, s, nb, n1
+
+
+def batch_cluster_field_grid_cuda(idx: torch.Tensor, par: torch.Tensor,
+                                  tgt: torch.Tensor, nodes: torch.Tensor,
+                                  q_hat: torch.Tensor, *, kernel: Kernel,
+                                  space=_FREE, kahan: bool = False,
+                                  tgt_count: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """(B, NB, 4) = (phi, grad_x phi) over Chebyshev grids, one launch.
+
+    idx (B, S) int32 (-1 = empty slot), par the packed kernel parameters,
+    tgt (B, NB, 3), nodes (C, 3, n+1) the clusters' 1-D Chebyshev nodes
+    (`ops._cluster_nodes`), q_hat (C, (n+1)^3) k3 fastest, all contiguous
+    CUDA tensors on one device, float32 or float64 alike; tgt_count (B,)
+    optional int32 prefix lengths. Degrees 1-14; others raise."""
+    global GRID_FIELD_LAUNCHES
+    b, s, nb, n1 = _check_grid_inputs("batch_cluster_field_grid_cuda", idx,
+                                      par, tgt, nodes, q_hat, tgt_count)
+    kid = kernel_id(kernel)
+    periodic = bool(space.periodic)
+    lengths = space.lengths if periodic else (1.0, 1.0, 1.0)
+
+    lib = _build.load("batch_cluster_field_grid", GRID_FIELD_SIGNATURES)
+    fn = (lib.bcfg_eval_f32 if tgt.dtype == torch.float32
+          else lib.bcfg_eval_f64)
+    out = torch.empty((b, nb, 4), dtype=tgt.dtype, device=tgt.device)
+    with torch.cuda.device(tgt.device):
+        stream = torch.cuda.current_stream(tgt.device).cuda_stream
+        rc = fn(idx.data_ptr(), par.data_ptr(), tgt.data_ptr(),
+                nodes.data_ptr(), q_hat.data_ptr(), _ptr(tgt_count),
+                out.data_ptr(), b, s, nb, n1, kid, int(periodic), int(kahan),
+                *map(float, lengths), stream)
+    _build.check(rc, "batch_cluster_field_grid")
+    if b > 0 and nb > 0:        # the C entry launches nothing otherwise
+        GRID_FIELD_LAUNCHES += 1
     return out
 
 
@@ -375,6 +472,73 @@ def batch_cluster_field_plain(idx: torch.Tensor, tgt: torch.Tensor,
             f = torch.cat([
                 torch.einsum("bnm,bm->bn", g, wq)[..., None],
                 torch.einsum("bnm,bnmk->bnk", c * wq[:, None, :], d)], dim=-1)
+            if kahan:
+                yk = f - comp
+                t = acc + yk
+                comp = (t - acc) - yk
+                acc = t
+            else:
+                acc = acc + f
+        out[b0:b0 + chunk] = acc
+    if tgt_count is not None:
+        real = (torch.arange(nb, device=out.device)[None, :]
+                < tgt_count.to(out.device)[:, None])
+        out = torch.where(real[..., None], out, torch.zeros_like(out))
+    return out
+
+
+def batch_cluster_field_grid_plain(idx: torch.Tensor, tgt: torch.Tensor,
+                                   nodes: torch.Tensor, q_hat: torch.Tensor,
+                                   params=None, *, kernel: Kernel,
+                                   space=_FREE, kahan: bool = False,
+                                   tgt_count: torch.Tensor | None = None,
+                                   magnitude: bool = False) -> torch.Tensor:
+    """(B, NB, 4) = (phi, grad_x phi) over Chebyshev grids, plain PyTorch.
+
+    The function of `batch_cluster_field_plain` on each cluster's
+    `cheby.cluster_grid` points, from the factored inputs of the grid
+    kernel (nodes (C, 3, n+1), q_hat (C, (n+1)^3) k3 fastest), in the
+    kernel's factored arithmetic: per slot, per-axis displacement tables
+    d_a[k] (minimum-image folded), r^2 = d_x^2[k1] + d_y^2[k2] +
+    d_z^2[k3] on the grid, w = 2 G'(r^2) q; then phi = sum G q,
+    g_z = sum w d_z[k3], row sums R[k1, k2] = sum_k3 w, g_y = sum d_y[k2]
+    R and g_x = sum_k1 d_x[k1] sum_k2 R. The difference form of r^2
+    always. Kahan compensates the four sums across slots; target slots at
+    or beyond `tgt_count` get 0. ``magnitude=True`` sums the terms'
+    magnitudes as `batch_cluster_field_plain` does."""
+    bsz, nb = tgt.shape[0], tgt.shape[1]
+    n1 = nodes.shape[-1]
+    dtype = tgt.dtype
+    qg = q_hat.reshape(-1, n1, n1, n1)
+    chunk = max(1, min(bsz, _PAIR_BUDGET // max(4 * nb * n1 ** 3, 1)))
+    out = torch.empty((bsz, nb, 4), dtype=dtype, device=tgt.device)
+    for b0 in range(0, bsz, chunk):
+        tgt_b = tgt[b0:b0 + chunk]
+        idx_b = idx[b0:b0 + chunk]
+        acc = torch.zeros((*tgt_b.shape[:2], 4), dtype=dtype,
+                          device=tgt.device)
+        comp = torch.zeros_like(acc)
+        for s in range(idx.shape[1]):
+            ids = idx_b[:, s]
+            safe = ids.clamp(min=0).long()
+            axes = nodes[safe].transpose(1, 2)               # (bc, n1, 3)
+            d = space.displacement(tgt_b[:, :, None, :], axes[:, None])
+            dx, dy, dz = d.unbind(-1)                        # (bc, NB, n1)
+            r2 = ((dx * dx)[..., :, None, None] + (dy * dy)[..., None, :, None]
+                  + (dz * dz)[..., None, None, :])
+            g, c = field_coefficients(kernel, r2, params)
+            q = qg[safe] * (ids >= 0).to(dtype)[:, None, None, None]
+            if magnitude:
+                g, c, q = g.abs(), c.abs(), q.abs()
+                dx, dy, dz = dx.abs(), dy.abs(), dz.abs()
+            q = q[:, None]                                   # over targets
+            w = c * q
+            rows = w.sum(-1)                                 # (bc, NB, k1, k2)
+            f = torch.stack([
+                (g * q).sum((-3, -2, -1)),
+                (dx * rows.sum(-1)).sum(-1),
+                (dy[..., None, :] * rows).sum((-2, -1)),
+                (w * dz[..., None, None, :]).sum((-3, -2, -1))], dim=-1)
             if kahan:
                 yk = f - comp
                 t = acc + yk

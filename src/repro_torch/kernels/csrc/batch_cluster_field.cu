@@ -21,11 +21,29 @@
 // (x, y, z, q) record per staged source, 4 targets per lane, 4 warps
 // splitting a row's chunks, the slot loop inside the block); see its
 // header. It is its own source file so that the potential kernel's
-// registers and instructions do not move. What bounds it on the H100:
-// fp32 issue (about 20 operations a pair: 3 sub, 5 for r2, the rsqrt, 2
-// for phi, 3 mul and 3 fma for the gradient) and one MUFU a pair; the
-// bytes are a few per target and per cluster, as for the potential.
+// registers and instructions do not move. The forces run it on the
+// direct lane (leaf particles); the approximation lane's Chebyshev grids
+// go to batch_cluster_field_grid.cu, which sweeps them in factored form.
+// Any caller with explicit points can still use it. What bounds it on
+// the H100: fp32 issue (14.5 SASS instructions a pair: 3 sub, 3 for r2,
+// the rsqrt, 3 mul, the phi fma, 3 gradient fmas and a quarter of the
+// LDS.128), which ran at ~80% of the slots in every variant measured
+// (tools/field_variants.py); the bytes are a few per target and per
+// cluster. So the design spends registers on pairs in flight, not on
+// warps, and drops what it can from the pair:
 //
+//   - the slot's sums stay in registers (4 targets x 4 outputs), but the
+//     running totals across slots live in a shared-memory table per
+//     warp, touched once a slot; at 6 blocks of 4 warps an SM (<= 80
+//     registers) that leaves room for more pairs in flight, and ran
+//     faster than 8 blocks at 64 registers. Adding each pair straight
+//     into the totals would lengthen an f32 sum from a slot's ~500 terms
+//     to a warp's whole row (~10^5): 6x the gradient error, measured;
+//   - the exact-hit predicate (next item) costs an instruction a pair, and
+//     only a chunk whose bounding box a target's clearance reaches can
+//     hold a hit (in MD, its own leaf): a chunk farther than 1e-18 from
+//     every target of a lane along some axis runs unpredicated, with the
+//     same sums (free space; a fold can bring any source near);
 //   - exact hits: in MD the targets are the sources, so every particle
 //     meets itself in the direct lane (d = 0 exactly, folded or not). The
 //     r2 >= FLT_MIN predicate (r2 > 0 in f64) guards all four sums, not
@@ -42,39 +60,37 @@
 //     approx_r2 = "matmul" runs the difference form here (the JVP of the
 //     matmul r2 is the same analytic derivative; only rounding differs);
 //   - the periodic fold decides each image as the reference does,
-//     rint(d / L) half to even, to the last bit (see fold());
+//     rint(d / L) half to even, to the last bit (fold() in
+//     field_common.cuh);
 //   - f64 keeps IEEE sqrt and division.
 
 #include <cfloat>
 
 #include <cuda_runtime.h>
 
+#include "field_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;                  // warps per block
-constexpr int kThreads = 32 * kWarps;      // 128
+using field::kCoulomb;
+using field::kOut;
+using field::kThreads;
+using field::kWarps;
+using field::kYukawa;
+using field::kahan_add;
+using field::rsqrt_ftz;
+
 constexpr int kPerThread = 4;              // targets per lane
 constexpr int kTile = 32 * kPerThread;     // 128 targets per block
 constexpr int kChunk = 128;                // sources per staged chunk
 constexpr int kUnroll = 4;                 // inner-loop unroll
-constexpr int kOut = 4;                    // phi, gx, gy, gz
-static_assert(kTile == kThreads, "the final combine maps thread t to target t");
 static_assert(kChunk % kUnroll == 0, "a chunk rounds up inside its buffer");
 
-constexpr int kCoulomb = 0;
-constexpr int kYukawa = 1;
-
 // Blocks per SM the register budget is sized for: 6 x 4 warps of f32
-// (<= 80 registers a thread: 4 targets x (3 coordinates + 4 slot sums +
-// 4 totals) live across the loop), 3 x 4 warps of f64.
+// (<= 80 registers a thread: 4 targets x (3 coordinates + 4 slot sums)
+// live across the loop, the totals in shared memory, the rest pairs in
+// flight), 3 x 4 warps of f64.
 constexpr int min_blocks(int dtype_size) { return dtype_size == 4 ? 6 : 3; }
-
-// MUFU.RSQ on its own: a denormal x reads as 0 and gives +inf.
-__device__ __forceinline__ float rsqrt_ftz(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <typename T>
 struct Field {
@@ -86,8 +102,9 @@ __device__ __forceinline__ void zero(Field<T>& f) {
   f.p = f.x = f.y = f.z = T(0);
 }
 
-// f += (G, 2 G'(r2) d) q, or nothing where r2 is 0 (f32: below FLT_MIN).
-template <typename T, int KID>
+// f += (G, 2 G'(r2) d) q. CHECK adds nothing where r2 is 0 (f32: below
+// FLT_MIN); without it the caller has shown r2 is above that.
+template <typename T, int KID, bool CHECK>
 __device__ __forceinline__ void add_pair(Field<T>& f, T dx, T dy, T dz, T r2,
                                          T q, T kappa) {
   if constexpr (sizeof(T) == 4) {
@@ -97,14 +114,14 @@ __device__ __forceinline__ void add_pair(Field<T>& f, T dx, T dy, T dz, T r2,
     const float c = KID == kCoulomb ? rinv * rinv
                                     : fmaf(kappa, r2 * rinv, 1.0f) * rinv * rinv;
     const float s = gq * c;
-    if (r2 >= FLT_MIN) {
+    if (!CHECK || r2 >= FLT_MIN) {
       f.p = fmaf(g, q, f.p);
       f.x = fmaf(-s, dx, f.x);
       f.y = fmaf(-s, dy, f.y);
       f.z = fmaf(-s, dz, f.z);
     }
   } else {
-    if (!(r2 > 0.0)) return;
+    if (CHECK && !(r2 > 0.0)) return;
     const double r = sqrt(r2);
     const double g = KID == kCoulomb ? 1.0 / r : exp(-kappa * r) / r;
     const double rinv = KID == kCoulomb ? g : 1.0 / r;
@@ -115,43 +132,6 @@ __device__ __forceinline__ void add_pair(Field<T>& f, T dx, T dy, T dz, T r2,
     f.y = f.y - s * dy;
     f.z = f.z - s * dz;
   }
-}
-
-template <typename T>
-__device__ __forceinline__ void kahan_add(T& sum, T& comp, T v) {
-  const T yk = v - comp;
-  const T ts = sum + yk;
-  comp = (ts - sum) - yk;
-  sum = ts;
-}
-
-// Relative width of the band around a half-integer quotient in which
-// fold() divides: d * (1/L) is within 1.5 eps |d / L| of d / L.
-template <typename T>
-__device__ __forceinline__ T tie_band();
-template <>
-__device__ __forceinline__ float tie_band<float>() {
-  return 4.0f * FLT_EPSILON;
-}
-template <>
-__device__ __forceinline__ double tie_band<double>() {
-  return 4.0 * DBL_EPSILON;
-}
-
-// d - L rint(d / L), half to even: the reference's fold. d * (1/L)
-// saves the division, but near a minimum-image tie it can round to the
-// other image than d / L does, which flips that gradient component's
-// sign (phi only sees r2). So within the band of a tie the quotient is
-// taken by division; away from one the two round alike.
-template <typename T>
-__device__ __forceinline__ T fold(T d, T len, T inv_len) {
-  const T q = d * inv_len;
-  T k = rint(q);
-  const T band = tie_band<T>();
-  if (fabs(fabs(q - k) - T(0.5)) <= fma(fabs(q), band, band)) {
-    k = rint(d / len);
-  }
-  return d - len * k;
 }
 
 // One staged source: 4 consecutive T (x, y, z, q) in shared memory.
@@ -182,6 +162,41 @@ __device__ __forceinline__ void store_src(double* s, int t, double x,
   reinterpret_cast<double2*>(s)[2 * t + 1] = make_double2(z, q);
 }
 
+// The pairs of one staged chunk (`padded` sources in buf) for a lane's
+// targets, into the slot's sums.
+template <typename T, int KID, bool PERIODIC, bool CHECK>
+__device__ __forceinline__ void sweep_chunk(
+    const T* buf, int padded, const T (&tx)[kPerThread],
+    const T (&ty)[kPerThread], const T (&tz)[kPerThread],
+    Field<T> (&slot)[kPerThread], T kappa, T Lx, T Ly, T Lz) {
+  const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
+  for (int t = 0; t < padded; t += kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const Src<T> sv = load_src(buf, t + u);
+#pragma unroll
+      for (int r = 0; r < kPerThread; ++r) {
+        T dx = tx[r] - sv.x, dy = ty[r] - sv.y, dz = tz[r] - sv.z;
+        if (PERIODIC) {
+          dx = field::fold(dx, Lx, iLx);
+          dy = field::fold(dy, Ly, iLy);
+          dz = field::fold(dz, Lz, iLz);
+        }
+        const T r2 = dx * dx + dy * dy + dz * dz;
+        add_pair<T, KID, CHECK>(slot[r], dx, dy, dz, r2, sv.q, kappa);
+      }
+    }
+  }
+}
+
+// A target farther than this from a chunk's bounding box along some axis
+// meets every source of it at r2 > clearance^2: 1e-36 > FLT_MIN in f32,
+// 1e-300 > 0 in f64, so the predicate cannot fire.
+__device__ __forceinline__ float clearance(float) { return 1e-18f; }
+__device__ __forceinline__ double clearance(double) { return 1e-150; }
+__device__ __forceinline__ float largest(float) { return FLT_MAX; }
+__device__ __forceinline__ double largest(double) { return DBL_MAX; }
+
 template <typename T, int KID, bool PERIODIC, bool KAHAN>
 __global__ void __launch_bounds__(kThreads, min_blocks(sizeof(T)))
 field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
@@ -194,21 +209,17 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
   const int nt = tgt_count ? min(max(tgt_count[b], 0), NB) : NB;
   T* orow = out + static_cast<size_t>(b) * NB * kOut;
   if (i0 >= nt) {  // no real target in this tile: the whole block leaves
-    const int i = i0 + threadIdx.x;
-    if (i < NB) {
-#pragma unroll
-      for (int c = 0; c < kOut; ++c) orow[i * kOut + c] = T(0);
-    }
+    field::zero_tile<T, kTile>(orow, i0, NB);
     return;
   }
 
   __shared__ __align__(16) T stage[kWarps][4 * kChunk];
-  __shared__ T part[kWarps][kOut][kTile];
+  __shared__ T tot[kWarps][kOut][kTile];  // each warp's running totals
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   T tx[kPerThread], ty[kPerThread], tz[kPerThread];
-  Field<T> acc[kPerThread], comp[kPerThread];
+  T comp[kPerThread][kOut];  // Kahan only: the totals' compensations
 #pragma unroll
   for (int r = 0; r < kPerThread; ++r) {
     const int i = i0 + lane + 32 * r;  // lanes own neighbouring targets
@@ -219,11 +230,13 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
       ty[r] = p[1];
       tz[r] = p[2];
     }
-    zero(acc[r]);
-    zero(comp[r]);
+#pragma unroll
+    for (int k = 0; k < kOut; ++k) {
+      tot[warp][k][lane + 32 * r] = T(0);
+      comp[r][k] = T(0);
+    }
   }
   const T kappa = KID == kYukawa ? par[0] : T(0);
-  const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
 
   T* buf = stage[warp];
   const int* row = idx + static_cast<size_t>(b) * S;
@@ -242,6 +255,14 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
         const int len = min(kChunk, n - j0);
         const int padded = (len + kUnroll - 1) / kUnroll * kUnroll;
         __syncwarp();  // this warp's previous chunk is consumed
+        // the chunk's bounding box, padding included (a padded source sits
+        // at the origin with q = 0 and is swept like the others)
+        T lo[3], hi[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          lo[k] = largest(T(0));
+          hi[k] = -largest(T(0));
+        }
         for (int t = lane; t < padded; t += 32) {
           T px = T(0), py = T(0), pz = T(0), pq = T(0);
           if (t < len) {
@@ -252,73 +273,55 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
             pq = cq[j0 + t];
           }
           store_src(buf, t, px, py, pz, pq);
-        }
-        __syncwarp();
-        for (int t = 0; t < padded; t += kUnroll) {
+          const T p3[3] = {px, py, pz};
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const Src<T> sv = load_src(buf, t + u);
-#pragma unroll
-            for (int r = 0; r < kPerThread; ++r) {
-              T dx = tx[r] - sv.x, dy = ty[r] - sv.y, dz = tz[r] - sv.z;
-              if (PERIODIC) {
-                dx = fold(dx, Lx, iLx);
-                dy = fold(dy, Ly, iLy);
-                dz = fold(dz, Lz, iLz);
-              }
-              const T r2 = dx * dx + dy * dy + dz * dz;
-              add_pair<T, KID>(slot[r], dx, dy, dz, r2, sv.q, kappa);
-            }
+          for (int k = 0; k < 3; ++k) {
+            lo[k] = fmin(lo[k], p3[k]);
+            hi[k] = fmax(hi[k], p3[k]);
           }
         }
+        // the predicate only where a lane's target lies within the
+        // clearance of the box (its own leaf, in MD); a fold can bring
+        // any source near, so a periodic box keeps it everywhere
+        bool clear = !PERIODIC;
+        if (!PERIODIC) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+              lo[k] = fmin(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], o));
+              hi[k] = fmax(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], o));
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < kPerThread; ++r) {
+            const T gap = fmax(fmax(fmax(lo[0] - tx[r], tx[r] - hi[0]),
+                                    fmax(lo[1] - ty[r], ty[r] - hi[1])),
+                               fmax(lo[2] - tz[r], tz[r] - hi[2]));
+            clear = clear && gap > clearance(T(0));
+          }
+        }
+        __syncwarp();
+        if (clear)
+          sweep_chunk<T, KID, PERIODIC, false>(buf, padded, tx, ty, tz, slot,
+                                               kappa, Lx, Ly, Lz);
+        else
+          sweep_chunk<T, KID, PERIODIC, true>(buf, padded, tx, ty, tz, slot,
+                                              kappa, Lx, Ly, Lz);
       }
     }
+    // the slot's sums into this warp's totals, once a slot (a lane owns
+    // its targets' entries: no barrier)
 #pragma unroll
     for (int r = 0; r < kPerThread; ++r) {
-      if (KAHAN) {
-        kahan_add(acc[r].p, comp[r].p, slot[r].p);
-        kahan_add(acc[r].x, comp[r].x, slot[r].x);
-        kahan_add(acc[r].y, comp[r].y, slot[r].y);
-        kahan_add(acc[r].z, comp[r].z, slot[r].z);
-      } else {
-        acc[r].p += slot[r].p;
-        acc[r].x += slot[r].x;
-        acc[r].y += slot[r].y;
-        acc[r].z += slot[r].z;
-      }
+      const int t = lane + 32 * r;
+      const T v[kOut] = {slot[r].p, slot[r].x, slot[r].y, slot[r].z};
+#pragma unroll
+      for (int k = 0; k < kOut; ++k)
+        field::add_total<T, KAHAN>(tot[warp][k][t], comp[r][k], v[k]);
     }
   }
-
-  // The four warps' partial sums of each target, added in warp order by
-  // the thread that owns the target's output slot.
-#pragma unroll
-  for (int r = 0; r < kPerThread; ++r) {
-    const int t = lane + 32 * r;
-    part[warp][0][t] = acc[r].p;
-    part[warp][1][t] = acc[r].x;
-    part[warp][2][t] = acc[r].y;
-    part[warp][3][t] = acc[r].z;
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  const int i = i0 + t;
-  if (i < NB) {
-#pragma unroll
-    for (int k = 0; k < kOut; ++k) {
-      T sum = T(0);
-      if (i < nt) {
-        T cmp = T(0);
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          if (KAHAN)
-            kahan_add(sum, cmp, part[w][k][t]);
-          else
-            sum += part[w][k][t];
-        }
-      }
-      orow[i * kOut + k] = sum;
-    }
-  }
+  field::write_tile<T, KAHAN, kTile>(tot, orow, i0, nt, NB);
 }
 
 struct Args {

@@ -197,6 +197,38 @@ def batch_cluster_field(
         src_count=src_count)
 
 
+def batch_cluster_field_grid(
+    idx: torch.Tensor,      # (B, S) int, -1 = empty slot
+    tgt: torch.Tensor,      # (B, NB, 3)
+    nodes: torch.Tensor,    # (C, 3, n+1) 1-D Chebyshev nodes per cluster
+    q_hat: torch.Tensor,    # (C, (n+1)^3), k3 fastest
+    params=None,            # kernel parameter values (None: defaults)
+    *,
+    kernel: Kernel,
+    space=_FREE,
+    backend: str = "auto",
+    kahan: bool = False,
+    tgt_count: torch.Tensor | None = None,  # (B,) real targets per row
+) -> torch.Tensor:
+    """(B, NB, 4): `batch_cluster_field` over each cluster's tensor-product
+    Chebyshev grid (`cheby.cluster_grid` of the box `nodes` come from,
+    `_cluster_nodes`), taken in factored form: the approximation lane of
+    the forces. The difference form of r^2 on both backends; every grid
+    point is real, so there are target counts only."""
+    if resolve_backend(backend, tgt) == "cuda":
+        par = pack_params(kernel.params if params is None else params,
+                          dtype=tgt.dtype, device=tgt.device)
+        count = (None if tgt_count is None
+                 else tgt_count.to(torch.int32).contiguous())
+        return _bc.batch_cluster_field_grid_cuda(
+            idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
+            nodes.contiguous(), q_hat.contiguous(), kernel=kernel,
+            space=space, kahan=kahan, tgt_count=count)
+    return _bc.batch_cluster_field_grid_plain(
+        idx, tgt, nodes, q_hat, params, kernel=kernel, space=space,
+        kahan=kahan, tgt_count=tgt_count)
+
+
 # ---------------------------------------------------------------------------
 # modified charges (Eq. 12 via the factored 14/15 form)
 # ---------------------------------------------------------------------------
@@ -208,7 +240,8 @@ def batch_cluster_field(
 
 
 def _cluster_nodes(lo: torch.Tensor, hi: torch.Tensor, degree: int):
-    """Per-dimension mapped Chebyshev nodes, (C, 3, n+1)."""
+    """Per-dimension mapped Chebyshev nodes, (C, 3, n+1): bitwise the
+    coordinates `cheby.cluster_grid` builds from the same boxes."""
     s = cheby.cheb_points_1d(degree, lo.dtype, lo.device)
     return cheby.map_points(s, lo[..., None], hi[..., None])
 

@@ -305,14 +305,16 @@ def test_simulation_on_the_card(cuda_device):
         cfg = TreecodeConfig(theta=0.7, degree=5, leaf_size=256,
                              skin=0.01, backend=backend)
         plan = TreecodeSolver(cfg).plan(x, capacities="auto")
-        before = bcm.FIELD_LAUNCHES
+        before = (bcm.FIELD_LAUNCHES, bcm.GRID_FIELD_LAUNCHES)
         sim = Simulation(plan, q, dt=2e-4, refit_interval=4)
         sim.run(6, record_every=3)
         s = sim.stats()
         assert s["retraces"] == 0 and s["capacity_growths"] == 0
         assert s["rebuilds"] >= 1 and s["refits"] >= 3
-        assert (bcm.FIELD_LAUNCHES - before
-                == (14 if backend == "cuda" else 0))
+        # 7 force evaluations: one field and one grid field launch each
+        launched = (bcm.FIELD_LAUNCHES - before[0],
+                    bcm.GRID_FIELD_LAUNCHES - before[1])
+        assert launched == ((7, 7) if backend == "cuda" else (0, 0))
         assert torch.isfinite(sim.state.x).all()
         runs[backend] = sim
     dx = (runs["cuda"].state.x - runs["torch"].state.x).abs().max().item()

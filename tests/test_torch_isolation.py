@@ -43,15 +43,22 @@ def test_cuda_sources_are_present():
     csrc = os.path.join(PKG, "kernels", "csrc")
     names = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
     assert names == ["batch_cluster.cu", "batch_cluster_field.cu",
-                     "modified_charges.cu"]
-    for name in names:
+                     "batch_cluster_field_grid.cu", "modified_charges.cu"]
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    assert headers == ["field_common.cuh"]
+    for name in names + headers:
         text = open(os.path.join(csrc, name)).read()
-        assert 'extern "C"' in text and "cudaGetLastError" in text
+        if name in names:
+            assert 'extern "C"' in text and "cudaGetLastError" in text
         text = re.sub(r"//.*", "", text)                # the code only
         # IEEE division and exp, and no approximate intrinsic but the one
         # f32 reciprocal square root of the batch-cluster and field pairs
-        # (MUFU.RSQ, within 2 ulp; f64 keeps the IEEE 1/sqrt)
+        # (MUFU.RSQ, within 2 ulp; f64 keeps the IEEE 1/sqrt), written
+        # once for the potential and once for both field kernels
         assert not re.search(r"\b(rsqrtf?|__fdividef|__expf)\s*\(", text)
-        assert text.count("rsqrt.approx") == (name != "modified_charges.cu")
+        assert text.count("rsqrt.approx") == (
+            name in ("batch_cluster.cu", "field_common.cuh"))
+        assert ('#include "field_common.cuh"' in text) == (
+            name.startswith("batch_cluster_field"))
     from repro_torch.kernels import _build
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
