@@ -82,10 +82,30 @@ Phases (each asserts; any failure exits non-zero):
     balance |dKE + dPE| / dKE in f64 (<= ENERGY_BAR), and the field
     kernels against their plain versions on the first 64 batch rows of
     both lanes of the MD's capacity-padded plan;
+ 8d. the same MD with `build_backend="device"`: the tree rebuilt on the
+    card from the live positions (`repro_torch.devtree`), with phase 8's
+    gates; its rebuild step beside the host's;
+ 8a. 8d with `async_replan=True`: shadow builds dispatched on a side
+    stream on refit steps (which still make exactly one host sync) and
+    swapped in a step later; the dispatch and the commit-wait ms;
  9. a periodic Yukawa MD (58^3 salt box, skin 0.02): skin gate and
     minimum-image forces through refits and a rebuild, the energy
     balance and the field kernel on the padded plan's rows as in 8,
     final forces against an f64 minimum-image direct sum;
+ 10. the device-built plan at Fig. 4 on phase 4's 10^6 points: cold
+    build and a warm budgeted replan by phase (bitwise the first, same
+    shapes, no host tree built), execute and `potential_and_forces`
+    with every launch counter from 0, against an f64 direct sum on 1000
+    sampled targets (1e-5, FORCE_BAR); batch_cluster and both field
+    kernels against their plain versions on its first 64 batch rows,
+    the modified charges on every node row; `replan_async` dispatched
+    under torch.cuda.set_sync_debug_mode("error") and bitwise the
+    synchronous replan; at 10^5, every (target, source) pair covered
+    exactly once by the device plan's lists, as by the host plan's;
+ 11. the hierarchical precompute at Fig. 4: q_hat against the direct
+    precompute in f64 at 10^5 (rtol 1e-10, atol 1e-12 max|q_hat|),
+    execute at 10^6 against an f64 direct sum (1e-5), and the
+    precompute's ms beside the direct one's;
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -1297,21 +1317,20 @@ def plan_lanes(plan, q):
                           grid_nodes=True)
 
 
-def md_field_rows(sim, what, rows=64):
+def plan_field_rows(plan, q, what, rows=64):
     """The field kernels against their plain versions on the first `rows`
-    batch rows of both lanes of the MD's current (capacity-padded,
-    refitted) plan, on the inputs its force evaluation gives them (the
-    grid field kernel on the approximation lane, the field kernel on the
-    direct lane). Returns the max abs error; the launches here are not
-    counted."""
+    batch rows of both lanes of `plan` (an MD's current capacity-padded,
+    refitted plan, or a device-built one), on the inputs its force
+    evaluation gives them for charges `q` (the grid field kernel on the
+    approximation lane, the field kernel on the direct lane). Returns the
+    max abs error; the launches here are not counted."""
     import torch
-    plan = sim.plan
     tgt = plan.arrays["tgt_batched"][:rows]
     real = plan.arrays["tgt_mask"][:rows]
     opts = dict(kernel=plan.kernel, space=plan.config.space,
                 kahan=plan.config.kahan)
     err, ratio, out = 0.0, 0.0, []
-    for lane, (idx, pts, qq, cnt) in plan_lanes(plan, sim.charges).items():
+    for lane, (idx, pts, qq, cnt) in plan_lanes(plan, q).items():
         cnt = dict(cnt, tgt_count=cnt["tgt_count"][:rows])
         args = (idx[:rows], tgt, pts, qq)
         op, plain = field_lane(lane)
@@ -1358,13 +1377,21 @@ def salt_lattice(m, lo, spacing, seed):
     return x.astype(np.float32), q.astype(np.float32)
 
 
-def phase_md(dev):
+#: The host rebuild step of the MD at 10^6 in run 6 of PR 15 (NVIDIA H100
+#: 80GB HBM3, 700.00 W; PERF.md section 5), printed beside the device's.
+PR15_HOST_REBUILD_MS = 1501.3
+
+
+def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
+             host_rebuild_ms=None):
     """`Simulation` at N = 10^6 and the Fig. 4 settings: a jittered 100^3
     lattice in [-1,1]^3, velocity Verlet, MD_STEPS steps, refit interval
-    MD_REFIT. Steps 2.. run with every launch counter at 0 before them;
-    each refit step must make exactly one host sync; no capacity growth
-    and no kernel build after step 1. Returns the launches of each kernel
-    in that run."""
+    MD_REFIT, rebuilding on the host or (``build_backend="device"``) on
+    the card, synchronously or double-buffered (`async_replan`). Steps
+    2.. run with every launch counter at 0 before them; each refit step
+    (a shadow dispatch included) must make exactly one host sync; no
+    capacity growth and no kernel build after step 1. Returns the
+    launches of each kernel in that run and the median rebuild step."""
     import warnings
     import torch
     from repro_torch.configs.bltc import fig4
@@ -1378,9 +1405,11 @@ def phase_md(dev):
     n = x.shape[0]
     assert q.sum() == 0
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(fig4(theta=0.7, degree=8), skin=MD_SKIN)
+    cfg = dataclasses.replace(fig4(theta=0.7, degree=8), skin=MD_SKIN,
+                              build_backend=build_backend)
     plan = TreecodeSolver(cfg).plan(x, capacities="auto")
-    sim = Simulation(plan, q, dt=MD_DT, refit_interval=MD_REFIT)
+    sim = Simulation(plan, q, dt=MD_DT, refit_interval=MD_REFIT,
+                     async_replan=async_replan)
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
     sim.log.record(0, sim.diagnostics())
@@ -1391,9 +1420,10 @@ def phase_md(dev):
     bcm.LAUNCHES = bcm.FIELD_LAUNCHES = bcm.GRID_FIELD_LAUNCHES = 0
     mcm.LAUNCHES = 0
     step_ms = {"refit": [], "rebuild": []}
-    syncs = []
+    syncs, dispatch_ms, wait_ms = [], [], []
     for _ in range(MD_STEPS - 1):
-        refits0 = sim.refits
+        refits0, pending0 = sim.refits, sim._pending
+        swaps0, wait0 = sim.plan_swaps, sim.rebuild_wait_ms
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -1408,6 +1438,10 @@ def phase_md(dev):
         if kind == "refit":
             syncs.append(sum("called a synchronizing CUDA operation"
                              in str(w.message) for w in caught))
+        if pending0 is None and sim._pending is not None:
+            dispatch_ms.append(sim._pending_dispatch_ms)
+        if sim.plan_swaps > swaps0:
+            wait_ms.append(sim.rebuild_wait_ms - wait0)
     launches = {"batch_cluster_field": bcm.FIELD_LAUNCHES,
                 "batch_cluster_field_grid": bcm.GRID_FIELD_LAUNCHES,
                 "modified_charges": mcm.LAUNCHES,
@@ -1422,11 +1456,16 @@ def phase_md(dev):
     assert st["capacity_growths"] == 0 and st["retraces"] == 0, st
     assert builds == 0, builds
     assert syncs and all(k == 1 for k in syncs), syncs
+    assert st["rebuilds"] >= 1, st
+    if build_backend == "device":
+        assert st["devtree_rebuilds"] == st["rebuilds"], st
+    if async_replan:
+        assert st["plan_swaps"] == st["rebuilds"] and dispatch_ms, st
     assert torch.isfinite(sim.state.x).all() and torch.isfinite(
         sim.state.f).all()
     drift, mom = sim.log.drift(), sim.log.momentum_drift()
     assert drift < 1e-3, drift
-    rows_err = md_field_rows(sim, "[8]")
+    rows_err = plan_field_rows(sim.plan, sim.charges, tag)
     dke, dpe = energy_balance(sim, phi0, v0)
     balance = abs(dke + dpe) / dke
     assert dke > 0 and balance <= ENERGY_BAR, (dke, dpe)
@@ -1442,15 +1481,20 @@ def phase_md(dev):
     spans = {k: v / 2 for k, v in trace.phase_totals("md.").items()}
     med = {k: (statistics.median(v) if v else float("nan"))
            for k, v in step_ms.items()}
-    print(f"[8] MD at Fig. 4, N={n} (jittered {MD_M}^3 lattice, +-1 "
-          f"charges), skin {MD_SKIN}, velocity Verlet, dt {MD_DT}, refit "
-          f"interval {MD_REFIT}: setup {setup_ms:.0f} ms; steps 2-{MD_STEPS}: "
+    how = {"host": "host rebuilds",
+           "device": "device rebuilds" + (", async_replan" if async_replan
+                                          else "")}[build_backend]
+    print(f"{tag} MD at Fig. 4, N={n} (jittered {MD_M}^3 lattice, +-1 "
+          f"charges), {how}, skin {MD_SKIN}, velocity Verlet, dt {MD_DT}, "
+          f"refit interval {MD_REFIT}: setup {setup_ms:.0f} ms; steps "
+          f"2-{MD_STEPS}: "
           f"{len(step_ms['refit'])} refit steps, median {med['refit']:.2f} "
           f"ms, {len(step_ms['rebuild'])} rebuild steps, median "
           f"{med['rebuild']:.1f} ms (host clock to a synchronize); "
           f"refits {st['refits']}, rebuilds {st['rebuilds']} (drift "
           f"{st['rebuilds_drift']}, interval {st['rebuilds_interval']}, "
-          f"forced {st['rebuilds_forced']}); relative energy drift "
+          f"forced {st['rebuilds_forced']}; on the device "
+          f"{st['devtree_rebuilds']}); relative energy drift "
           f"{drift:.3e} (f32 sums), momentum drift {mom:.3e}; over steps "
           f"0-{MD_STEPS} in f64 dKE {dke:.6e}, dPE {dpe:.6e}, |dKE + dPE| "
           f"/ dKE {balance:.3e} (bar {ENERGY_BAR}); field kernel vs plain "
@@ -1460,9 +1504,19 @@ def phase_md(dev):
           f"builds after step 1 {builds}; host syncs per refit step "
           f"{sorted(set(syncs))}; launches over steps 2-{MD_STEPS} "
           f"{launches}", flush=True)
-    print("[8] traced refit step, ms per step by span: " + ", ".join(
+    if build_backend == "device":
+        ref = ("" if host_rebuild_ms is None else
+               f", {host_rebuild_ms:.1f} ms in this run's host-rebuild MD")
+        print(f"{tag} rebuild step {med['rebuild']:.1f} ms on the device "
+              f"against {PR15_HOST_REBUILD_MS} ms on the host (run 6 of PR "
+              f"15{ref}); rebuild wall time in all {st['rebuild_total_ms']:.1f}"
+              f" ms, blocked {st['rebuild_wait_ms']:.1f} ms"
+              + (f"; shadow dispatch ms {[round(v, 2) for v in dispatch_ms]}"
+                 f", wait ms at commit {[round(v, 2) for v in wait_ms]}"
+                 if async_replan else ""), flush=True)
+    print(f"{tag} traced refit step, ms per step by span: " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(spans.items())), flush=True)
-    return launches
+    return launches, med["rebuild"]
 
 
 def phase_md_periodic(dev):
@@ -1494,7 +1548,7 @@ def phase_md_periodic(dev):
     assert st["refits"] >= 1 and st["retraces"] == 0, st
     drift = sim.log.drift()
     assert drift < 1e-3, drift
-    md_field_rows(sim, "[9]")
+    plan_field_rows(sim.plan, sim.charges, "[9]")
     dke, dpe = energy_balance(sim, phi0, v0)
     balance = abs(dke + dpe) / dke
     assert dke > 0 and balance <= ENERGY_BAR, (dke, dpe)
@@ -1528,6 +1582,283 @@ def phase_md_periodic(dev):
           f"targets, relative 2-norm: f64 plan {err64:.3e} (bar "
           f"{FORCE_BAR}), the MD's f32 forces {err32:.3e} (bar "
           f"{F32_CANCEL_BAR}, f32 cancellation)", flush=True)
+
+
+def plan_potential_rows(plan, q, what, rows=64):
+    """batch_cluster against its plain version on the first `rows` batch
+    rows of both lanes of `plan`, on the tensors `execute` feeds it for
+    charges `q` (`eval.lane_inputs`): padded target slots exactly 0, phi
+    at rtol 2e-4 and atol 2e-4 median|phi|. Returns the max abs error;
+    these launches are not counted."""
+    import torch
+    from repro_torch.core import eval as ev
+    from repro_torch.kernels import ops
+    c, a = plan.config, plan.arrays
+    tgt, real = a["tgt_batched"][:rows], a["tgt_mask"][:rows]
+    err = 0.0
+    lanes = ev.lane_inputs(a, q, degree=c.degree, space=c.space,
+                           backend="cuda", theta=c.theta, skin=c.skin)
+    for lane, (idx, pts, qq, cnt) in lanes.items():
+        cnt = dict(cnt, tgt_count=cnt["tgt_count"][:rows])
+        got, want = (ops.batch_cluster_eval(
+            idx[:rows], tgt, pts, qq, kernel=plan.kernel, space=c.space,
+            backend=b, **cnt) for b in ("cuda", "torch"))
+        assert (got[~real] == 0).all(), f"{what}: {lane} padded slots"
+        err = max(err, close(got[real], want[real], 2e-4, 2e-4,
+                             f"{what}: batch_cluster {lane} lane rows",
+                             scale="median"))
+    torch.cuda.synchronize()
+    return err
+
+
+def coverage(plan):
+    """How often each source (tree order) is covered in each real batch
+    row of `plan` by the row's approximated clusters and direct leaves:
+    (real rows, N) int32, from +1/-1 marks at every range's ends and a
+    cumsum (integer scatters: exact)."""
+    import torch
+    from repro_torch.core import eval as ev
+    a = plan.arrays
+    dev = a["src_sorted"].device
+    host = {"node_lo": a["node_lo"].cpu().numpy(),
+            "bucket_gather": tuple(g.cpu().numpy()
+                                   for g in a["bucket_gather"]),
+            "bucket_nodes": tuple(g.cpu().numpy()
+                                  for g in a["bucket_nodes"])}
+    start, count = (torch.as_tensor(v, device=dev)
+                    for v in ev.node_ranges(host))
+    lg = a["leaf_gather"]
+    n = a["src_sorted"].shape[0]
+    b = a["tgt_batched"].shape[0]
+    marks = torch.zeros((b, n + 1), dtype=torch.int32, device=dev)
+    for idx, st, ct in ((a["approx_idx"], start, count),
+                        (a["direct_idx"], lg[:, 0].clamp(min=0),
+                         (lg >= 0).sum(1))):
+        i = idx.clamp(min=0).long()
+        row = torch.arange(b, device=dev)[:, None].expand_as(i)
+        one = (idx >= 0).to(torch.int32)
+        s0 = st[i].long()
+        marks.index_put_((row, s0), one, accumulate=True)
+        marks.index_put_((row, s0 + ct[i].long()), -one, accumulate=True)
+    return marks.cumsum(1, dtype=torch.int32)[:, :n][a["tgt_mask"].any(1)]
+
+
+def phase_device_plan(dev, smi, x, q):
+    """The device-built plan (`build_backend="device"`) at the Fig. 4
+    setting on the main phase's 10^6 points and charges: cold build and
+    a warm budgeted replan by phase; `execute` and `potential_and_forces`
+    against an f64 direct sum on 1000 sampled targets (1e-5, FORCE_BAR)
+    with every kernel's launch counter from 0; the four kernels against
+    their plain versions on the plan's first 64 batch rows (the modified
+    charges on every node); a replan that is deterministic and keeps its
+    shapes; `replan_async` dispatched under
+    torch.cuda.set_sync_debug_mode("error"); and at 10^5 every (target,
+    source) pair covered exactly once by the device plan's lists, as by
+    the host plan's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.bltc import fig4
+    from repro_torch.core import eval as ev
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.core.direct import direct_field, direct_sum
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(fig4(theta=0.7, degree=8),
+                              build_backend="device")
+    solver = TreecodeSolver(cfg)
+    xd = torch.as_tensor(x, device=dev)
+    n = x.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = solver.plan(xd)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    cold = {k: round(v, 2) for k, v in plan.inner.build_ms.items()}
+    plan.replan(xd)                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2 = plan.replan(xd)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm = {k: round(v, 2) for k, v in p2.inner.build_ms.items()}
+    assert ev.plan_signature(p2.inner) == ev.plan_signature(plan.inner)
+    for k, v in plan.arrays.items():
+        if not isinstance(v, tuple):
+            assert torch.equal(v, p2.arrays[k]), f"replan not bitwise: {k}"
+    st = plan.stats()
+    assert plan.inner.tree._obj is None, "stats built the host tree"
+    a = plan.arrays
+    print(f"[10] device plan at Fig. 4, N={n}: cold build {cold_ms:.1f} ms "
+          f"{cold}; warm budgeted replan {warm_ms:.2f} ms by phase {warm} "
+          f"(host clock to a synchronize; bitwise equal to the first, same "
+          f"shapes); octree depth {st['tree_depth']}, {st['num_nodes']} "
+          f"node rows, leaves {st['num_leaves']}, batches "
+          f"{st['num_batches']}; approx {tuple(a['approx_idx'].shape)}, "
+          f"direct {tuple(a['direct_idx'].shape)}, chunks "
+          f"{a['mc_chunks'].shape[0]}; padding waste "
+          f"{st['padding_waste']:.3f}", flush=True)
+
+    # the path, every launch counted from 0
+    bcm.LAUNCHES = bcm.FIELD_LAUNCHES = bcm.GRID_FIELD_LAUNCHES = 0
+    mcm.LAUNCHES = 0
+    phi = plan.execute(q)
+    _, force = plan.potential_and_forces(q)
+    torch.cuda.synchronize()
+    launches = {"batch_cluster": bcm.LAUNCHES,
+                "modified_charges": mcm.LAUNCHES,
+                "batch_cluster_field": bcm.FIELD_LAUNCHES,
+                "batch_cluster_field_grid": bcm.GRID_FIELD_LAUNCHES}
+    assert launches["batch_cluster"] >= 2 and launches == dict(
+        launches, modified_charges=4, batch_cluster_field=1,
+        batch_cluster_field_grid=1), launches
+    exec_ms = event_ms(lambda: plan.execute(q), 5)
+    pf_ms = event_ms(lambda: plan.potential_and_forces(q), 3)
+    rng = np.random.default_rng(2023)
+    sample = torch.as_tensor(rng.choice(n, 1000, replace=False), device=dev)
+    x64 = xd.double()
+    q64 = q.double()
+    ref = direct_sum(x64[sample], x64, q64, kernel=solver.kernel,
+                     source_chunk=1 << 15)
+    _, grad = direct_field(x64[sample], x64, q64, kernel=solver.kernel,
+                           source_chunk=1 << 14)
+    err = rel2(phi[sample].double(), ref)
+    ferr = rel2(force[sample].double(), -q64[sample, None] * grad)
+    assert torch.isfinite(phi).all() and err <= 1e-5, err
+    assert torch.isfinite(force).all() and ferr <= FORCE_BAR, ferr
+
+    bc_err = plan_potential_rows(plan, q, "[10]")
+    field_err = plan_field_rows(plan, q, "[10]")
+    inp = ev.kernel_inputs(a, q, degree=cfg.degree, grids=False)
+    mc_args = (a["src_sorted"], inp.q_sorted, a["mc_chunks"],
+               a["mc_chunk_ptr"], a["node_lo"], a["node_hi"])
+    mc_err = close(
+        ops.modified_charges_ranged(*mc_args, degree=cfg.degree,
+                                    backend="cuda"),
+        ops.modified_charges_ranged(*mc_args, degree=cfg.degree,
+                                    backend="torch"),
+        3e-3, 3e-4, "[10] modified_charges on every node", scale="max")
+    print(f"[10] execute {exec_ms:.3f} ms, potential_and_forces {pf_ms:.3f} "
+          f"ms (warm medians, CUDA events); launches of one execute and one "
+          f"potential_and_forces {launches}; vs f64 direct sum on 1000 "
+          f"sampled targets: phi rel 2-norm {err:.3e} (bar 1e-5), forces "
+          f"{ferr:.3e} (bar {FORCE_BAR}); kernels vs plain: batch_cluster "
+          f"on the first 64 batch rows max abs err {bc_err:.3e}, field "
+          f"kernels {field_err:.3e}, modified_charges on all "
+          f"{a['node_lo'].shape[0]} node rows {mc_err:.3e} (rtol 3e-3, "
+          f"atol 3e-4 max|q_hat|)", flush=True)
+
+    # the double-buffered replan: no host sync until finalize
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        pending = plan.replan_async(xd)
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    p3, wait_ms, grew = pending.finalize()
+    assert not grew
+    for k, v in plan.arrays.items():
+        if not isinstance(v, tuple):
+            assert torch.equal(v, p3.arrays[k]), f"async replan: {k}"
+    assert torch.equal(p3.execute(q), phi)
+    print(f"[10] replan_async under set_sync_debug_mode('error'): dispatch "
+          f"{dispatch_ms:.2f} ms (host), finalize waited {wait_ms:.2f} ms; "
+          f"the swapped plan is bitwise the synchronous one", flush=True)
+
+    # pair coverage at 10^5 on both builds
+    x5 = torch.as_tensor(np.random.default_rng(2024).uniform(
+        -1, 1, (100_000, 3)).astype(np.float32), device=dev)
+    covered = {}
+    for backend in ("host", "device"):
+        p5 = TreecodeSolver(dataclasses.replace(
+            cfg, build_backend=backend)).plan(x5)
+        cov = coverage(p5)
+        assert (cov == 1).all(), (backend, int((cov != 1).sum()))
+        covered[backend] = (cov.shape[0], int(
+            (p5.arrays["direct_idx"] >= 0).sum()))
+    print(f"[10] pair coverage at N=100000: every (target, source) pair "
+          f"covered exactly once on both builds (real batch rows, direct "
+          f"leaf slots): host {covered['host']}, device "
+          f"{covered['device']}", flush=True)
+
+
+def phase_hierarchical(dev, x, q, mc_ms):
+    """The hierarchical precompute at the Fig. 4 setting: q_hat against
+    the direct precompute in f64 on 10^5 points (rtol 1e-10, atol 1e-12
+    max|q_hat|; positive charges), two calls bitwise equal; `execute` at
+    10^6 on the main phase's points against an f64 direct sum (1e-5),
+    with the modified-charge kernel's launches counted from 0; the
+    precompute's time beside the direct one's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.bltc import fig4
+    from repro_torch.core import eval as ev
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.core.direct import direct_sum
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+
+    cfg = dataclasses.replace(fig4(theta=0.7, degree=8),
+                              precompute="hierarchical")
+    degree = cfg.degree
+    r = np.random.default_rng(2025)
+    x5, q5 = r.uniform(-1, 1, (100_000, 3)), r.uniform(0.5, 1.5, 100_000)
+    p5 = TreecodeSolver(dataclasses.replace(cfg, dtype="float64")).plan(x5)
+    a5 = p5.arrays
+    qs = torch.as_tensor(q5, device=dev)[a5["src_perm"]]
+    mcm.LAUNCHES = 0
+    hier = ev.compute_qhat_hierarchical(a5, qs, degree=degree,
+                                        backend="cuda")
+    assert mcm.LAUNCHES == 2, mcm.LAUNCHES
+    assert torch.equal(hier, ev.compute_qhat_hierarchical(
+        a5, qs, degree=degree, backend="cuda")), "not deterministic"
+    direct = ev.compute_qhat_direct(a5, qs, degree=degree, backend="cuda")
+    e5 = close(hier, direct, 1e-10, 1e-12, "[11] hierarchical q_hat f64",
+               scale="max")
+
+    n = x.shape[0]
+    t0 = time.perf_counter()
+    plan = TreecodeSolver(cfg).plan(x)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    a = plan.arrays
+    bcm.LAUNCHES = 0
+    mcm.LAUNCHES = 0
+    phi = plan.execute(q)
+    torch.cuda.synchronize()
+    launches = {"batch_cluster": bcm.LAUNCHES,
+                "modified_charges": mcm.LAUNCHES}
+    assert launches["modified_charges"] == 2, launches
+    assert launches["batch_cluster"] >= 2, launches
+    exec_ms = event_ms(lambda: plan.execute(q), 5)
+    sample = torch.as_tensor(np.random.default_rng(2026).choice(
+        n, 1000, replace=False), device=dev)
+    x64 = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    ref = direct_sum(x64[sample], x64, q.double(), kernel=plan.kernel,
+                     source_chunk=1 << 15)
+    err = rel2(phi[sample].double(), ref)
+    assert torch.isfinite(phi).all() and err <= 1e-5, err
+    qsorted = q[a["src_perm"]]
+    pre = {name: event_ms(lambda: fn(a, qsorted, degree=degree,
+                                     backend="cuda"), 10)
+           for name, fn in (("hierarchical", ev.compute_qhat_hierarchical),
+                            ("direct", ev.compute_qhat_direct))}
+    print(f"[11] hierarchical precompute: q_hat vs direct in f64 at N=100000"
+          f" max abs err {e5:.3e} (rtol 1e-10, atol 1e-12 max|q_hat|), two "
+          f"calls bitwise equal; at Fig. 4, N={n}: host plan "
+          f"{plan_ms:.0f} ms, {len(a['upward_pairs'])} upward levels "
+          f"{[int(p.shape[0]) for p in a['upward_pairs']]} pairs, "
+          f"{a['mc_leaf_chunks'].shape[0]} leaf chunks; execute "
+          f"{exec_ms:.3f} ms (warm median, CUDA events), launches {launches};"
+          f" rel 2-norm error vs f64 direct sum on 1000 targets {err:.3e} "
+          f"(bar 1e-5); q_hat {pre['hierarchical']:.3f} ms hierarchical "
+          f"(leaves' modified charges + the upward einsums) against "
+          f"{pre['direct']:.3f} ms direct (the kernel alone in this run's "
+          f"phase 4: {mc_ms:.3f} ms; 0.598 ms in run 6 of PR 15)",
+          flush=True)
 
 
 def phase_yukawa(dev, plan, x, q):
@@ -1680,11 +2011,17 @@ def main() -> int:
     phase_yukawa(dev, plan, x, q)
     del plan
     phase_periodic(dev)
-    md_launches = phase_md(dev)
+    md_launches, host_rebuild_ms = phase_md(dev)
     for entry in report:     # the field kernels' launches are the MD run's
         if entry["name"].startswith("batch_cluster_field"):
             entry["launches"] = md_launches[entry["name"]]
+    phase_md(dev, "[8d]", "device", host_rebuild_ms=host_rebuild_ms)
+    phase_md(dev, "[8a]", "device", async_replan=True,
+             host_rebuild_ms=host_rebuild_ms)
     phase_md_periodic(dev)
+    phase_device_plan(dev, smi, x, q)
+    phase_hierarchical(dev, x, q, next(e["ms"] for e in report
+                                       if e["name"] == "modified_charges"))
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(smi)

@@ -16,6 +16,10 @@ SCALING_YUKAWA = TreecodeConfig(theta=0.8, degree=8, leaf_size=4000,
                                 kernel="yukawa",
                                 kernel_params={"kappa": 0.5})
 
+# Beyond-paper optimized preset (hierarchical q-hat upward pass).
+OPTIMIZED = TreecodeConfig(theta=0.8, degree=8, leaf_size=4000,
+                           kernel="coulomb", precompute="hierarchical")
+
 
 def fig4(theta: float, degree: int) -> TreecodeConfig:
     """The FIG4 entry with this (theta, degree)."""

@@ -32,9 +32,17 @@ waits for the host::
 (`core.eval.Capacities`), and `replan` keeps it, so MD replans keep every
 array shape (`repro_torch.dynamics` relies on it).
 
+``TreecodeConfig(build_backend="device")`` builds the whole plan on the
+plan's device from a Morton ordering (`repro_torch.devtree`): no host
+tree, and a budgeted replan reads back only a short needs vector.
+`plan.replan_async(points)` dispatches such a replan on a side CUDA
+stream and returns at once; its `finalize()` swaps it in later (the MD
+engine's ``async_replan``). ``precompute="hierarchical"`` takes the
+internal clusters' modified charges from their children; like the
+reference, it needs the host build.
+
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): the hierarchical precompute, the device tree build, point
-budgets and sharded plans (nranks > 1).
+item): point budgets and sharded plans (nranks > 1).
 """
 from __future__ import annotations
 
@@ -56,10 +64,6 @@ _APPROX_R2 = ("diff", "matmul")
 _DTYPES = ("auto", "float32", "float64")
 
 _LATER = {
-    "hierarchical": "precompute='hierarchical' is not ported yet "
-                    "(ROADMAP queue A: hierarchical precompute)",
-    "device": "build_backend='device' is not ported yet "
-              "(ROADMAP queue A: device tree build)",
     "nranks": "sharded plans (nranks > 1) are not ported yet "
               "(ROADMAP queue A: sharded)",
 }
@@ -78,7 +82,10 @@ class TreecodeConfig:
     `backend`: "auto" (CUDA kernels on the card, plain torch on the CPU),
     "cuda" or "torch". `kahan` compensates the slot sums; `approx_r2`
     "matmul" takes r^2 = |x|^2+|y|^2-2x.y on the approximation lane.
-    `dtype` pins the working precision ("auto" follows the inputs).
+    `precompute`: "direct" (the paper's per-cluster modified charges) or
+    "hierarchical" (the exact upward pass). `dtype` pins the working
+    precision ("auto" follows the inputs). `build_backend`: "host" (the
+    paper's setup phase) or "device" (`repro_torch.devtree`).
     """
 
     theta: float = 0.7
@@ -127,6 +134,11 @@ class TreecodeConfig:
         if self.build_backend not in ("host", "device"):
             bad(f"unknown build_backend {self.build_backend!r}; "
                 f"choose from ('host', 'device')")
+        if self.build_backend == "device" \
+                and self.precompute == "hierarchical":
+            bad("build_backend='device' does not support "
+                "precompute='hierarchical' (the upward-pass tables are "
+                "host-built); use precompute='direct'")
         if not isinstance(self.kernel, (str, Kernel)):
             bad(f"kernel must be a registry name or a Kernel instance, "
                 f"got {type(self.kernel).__name__}")
@@ -140,10 +152,6 @@ class TreecodeConfig:
             bad(f"kernel_params must be a dict of named parameters or a "
                 f"tuple, got {type(kp).__name__}")
         object.__setattr__(self, "space", resolve_space(self.space))
-        if self.precompute == "hierarchical":
-            raise NotImplementedError(_LATER["hierarchical"])
-        if self.build_backend == "device":
-            raise NotImplementedError(_LATER["device"])
 
     def resolved_batch_size(self) -> int:
         return self.batch_size or self.leaf_size
@@ -173,7 +181,8 @@ class TreecodeConfig:
         return dict(degree=self.degree, kernel=kernel.stripped(),
                     space=self.space, backend=self.backend,
                     kahan=self.kahan, approx_r2=self.approx_r2,
-                    theta=self.theta, skin=self.skin)
+                    theta=self.theta, skin=self.skin,
+                    precompute=self.precompute)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -320,20 +329,31 @@ class SingleDevicePlan:
     def stats(self) -> dict:
         """Geometry / cost counters: tree and batch sizes, padding waste,
         the MAC slacks, build-phase times and static occupancy. Reads
-        counts off the device arrays: call it outside timed loops."""
-        tree = self.inner.tree
+        counts off the device arrays: call it outside timed loops. A
+        device-built plan reports its sizes from the needs its build
+        synced (``num_nodes`` counts the hybrid octree's node rows) and
+        leaves its lazy host trees unbuilt."""
         caps = self.inner.capacities
+        if self.inner.build_backend == "device":
+            dev = self.inner.dev
+            sizes = dict(num_nodes=dev["num_nodes"],
+                         num_leaves=dev["n_leaves"],
+                         tree_depth=dev["depth"],
+                         num_batches=dev["n_batches"])
+        else:
+            tree = self.inner.tree
+            sizes = dict(num_nodes=tree.num_nodes,
+                         num_leaves=tree.num_leaves,
+                         tree_depth=int(tree.level.max()),
+                         num_batches=self.inner.batches.num_batches)
         return dict(
             strategy="single_device",
             nranks=1,
-            build_backend="host",
+            build_backend=self.inner.build_backend,
             device=str(self.device),
             num_targets=self.inner.num_targets,
             num_sources=self.inner.num_sources,
-            num_nodes=tree.num_nodes,
-            num_leaves=tree.num_leaves,
-            tree_depth=int(tree.level.max()),
-            num_batches=self.inner.batches.num_batches,
+            **sizes,
             padding_waste=self.inner.padding_waste,
             dtype=str(self.dtype).replace("torch.", ""),
             space=repr(self.config.space),
@@ -355,34 +375,115 @@ class SingleDevicePlan:
         `capacities="keep"` (default) re-pads into this plan's own budget
         when it has one, growing it geometrically if the new geometry no
         longer fits; None drops the padding; "auto" or a
-        `core.eval.Capacities` pads into that."""
+        `core.eval.Capacities` pads into that. A device-built plan's
+        replan keeps its octree depths and traversal budgets with the
+        capacities (the budget is bound to the depths)."""
         if capacities == "keep":
             capacities = self.inner.capacities
+        dev = self.inner.dev or {}
+        keep = capacities is not None
         return _plan_single(self.config, self.kernel, targets,
                             targets if sources is None else sources,
-                            self.device, capacities)
+                            self.device, capacities,
+                            pair_caps=dev.get("pair_caps"),
+                            depth=dev.get("depth") if keep else None,
+                            batch_depth=dev.get("tdepth") if keep else None)
+
+    def replan_async(self, targets,
+                     sources=None) -> "PendingSingleDevicePlan":
+        """Dispatch a shadow replan without blocking (device builds only).
+
+        Enqueues the whole sort/build/list pipeline at this plan's budget
+        (on a side CUDA stream that first waits for the current one) and
+        returns at once; this plan stays live and untouched. `finalize()`
+        on the returned handle waits for what is left and gives the new
+        plan: the double-buffered rebuild the MD engine swaps in at a
+        step boundary. `targets` should already be a tensor on the
+        plan's device: an upload from the host would wait for it."""
+        if self.inner.build_backend != "device":
+            raise ValueError(
+                "replan_async requires build_backend='device' (host "
+                "builds run on the host thread and cannot overlap)")
+        if self.inner.capacities is None:
+            raise ValueError(
+                "replan_async requires a capacity-padded plan (the async "
+                "path never probes budgets)")
+        from repro_torch.devtree import build as _devbuild
+        dev = self.inner.dev
+        xt, xs = _on_device(targets, sources, self.dtype, self.device)
+        pending = _devbuild.dispatch_plan_device(
+            xt, xs, theta=self.config.theta, degree=self.config.degree,
+            leaf_size=self.config.leaf_size,
+            batch_size=self.config.resolved_batch_size(),
+            space=self.config.space, skin=self.config.skin,
+            capacities=self.inner.capacities, pair_caps=dev["pair_caps"],
+            depth=dev["depth"], batch_depth=dev["tdepth"])
+        return PendingSingleDevicePlan(self, pending)
+
+
+class PendingSingleDevicePlan:
+    """An in-flight `SingleDevicePlan.replan_async`.
+
+    `finalize()` waits for the shadow build and returns ``(plan,
+    wait_ms, grew)``: the new `SingleDevicePlan`, the milliseconds the
+    host spent waiting, and whether the budget grew (the handle then
+    rebuilt at the grown budget, blocking: the synchronous path's
+    `capacity_growth` contract)."""
+
+    def __init__(self, source: SingleDevicePlan, pending):
+        self._source = source
+        self._pending = pending
+
+    def finalize(self):
+        inner, wait_ms, grew = self._pending.finalize()
+        s = self._source
+        return (SingleDevicePlan(s.config, s.kernel, inner, s.dtype),
+                wait_ms, grew)
+
+
+def _on_device(targets, sources, dtype: torch.dtype, device: torch.device):
+    """Targets and sources as tensors of `dtype` on `device` (sources that
+    are the targets stay the same tensor: one sort serves both trees)."""
+    xt = torch.as_tensor(targets, dtype=dtype, device=device)
+    xs = xt if sources is None or sources is targets else torch.as_tensor(
+        sources, dtype=dtype, device=device)
+    return xt, xs
 
 
 def _plan_single(config: TreecodeConfig, kernel: Kernel, targets, sources,
-                 device: torch.device, capacities=None) -> SingleDevicePlan:
+                 device: torch.device, capacities=None, pair_caps=None,
+                 depth=None, batch_depth=None) -> SingleDevicePlan:
+    if isinstance(capacities, str) and capacities != "auto":
+        raise ValueError(f"capacities must be None, 'auto', 'keep' or a "
+                         f"Capacities, got {capacities!r}")
+    if not isinstance(capacities, (type(None), str, _eval.Capacities)):
+        raise NotImplementedError(
+            f"capacities of type {type(capacities).__name__} are not "
+            f"ported (ROADMAP queue A: sharded)")
     dtype = _resolve_dtype(config, targets)
+    if config.build_backend == "device":
+        # positions stay on the device, and the plan comes back padded
+        # into its capacities (probed on a first build)
+        from repro_torch.devtree import build as _devbuild
+        xt, xs = _on_device(targets, sources, dtype, device)
+        inner = _devbuild.prepare_plan_device(
+            xt, xs, theta=config.theta, degree=config.degree,
+            leaf_size=config.leaf_size,
+            batch_size=config.resolved_batch_size(), space=config.space,
+            skin=config.skin,
+            capacities=None if capacities == "auto" else capacities,
+            pair_caps=pair_caps, depth=depth, batch_depth=batch_depth)
+        return SingleDevicePlan(config, kernel, inner, dtype)
     inner = _eval.prepare_plan(
         _host(targets, dtype), _host(sources, dtype),
         theta=config.theta, degree=config.degree,
         leaf_size=config.leaf_size, batch_size=config.resolved_batch_size(),
         space=config.space, skin=config.skin, device=device)
+    if config.precompute == "hierarchical":
+        inner = _eval.add_hierarchical_tables(inner)
     if capacities is not None:
-        if isinstance(capacities, str):
-            if capacities != "auto":
-                raise ValueError(f"capacities must be None, 'auto', 'keep' "
-                                 f"or a Capacities, got {capacities!r}")
-            capacities = _eval.Capacities.for_plan(inner)
-        elif not isinstance(capacities, _eval.Capacities):
-            raise NotImplementedError(
-                f"capacities of type {type(capacities).__name__} are not "
-                f"ported (ROADMAP queue A: sharded)")
-        else:
-            capacities = capacities.grown_to_fit(inner)
+        capacities = (_eval.Capacities.for_plan(inner) if capacities == "auto"
+                      else capacities.grown_to_fit(inner))
         inner = _eval.pad_plan(inner, capacities)
     return SingleDevicePlan(config, kernel, inner, dtype)
 
@@ -437,4 +538,5 @@ class TreecodeSolver:
 
 
 __all__ = ["TreecodeConfig", "TreecodeSolver", "SingleDevicePlan",
-           "FreeSpace", "PeriodicBox", "resolve_device"]
+           "PendingSingleDevicePlan", "FreeSpace", "PeriodicBox",
+           "resolve_device"]

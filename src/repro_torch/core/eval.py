@@ -19,8 +19,13 @@ the plan's device. It also takes a reference plan's arrays (pulled to
 NumPy), which is how the tests run both packages on one plan.
 
 Capacity padding (`Capacities`, `pad_plan`, `plan_signature`) re-pads a
-plan into a fixed budget so MD replans keep every array shape. The
-hierarchical precompute comes with a later slice (ROADMAP queue A).
+plan into a fixed budget so MD replans keep every array shape.
+
+``precompute="hierarchical"`` (`compute_qhat_hierarchical`) takes the
+leaves' modified charges from their particles and every internal
+cluster's from its children; `add_hierarchical_tables` adds the tables
+it reads. Plans built on the device (`repro_torch.devtree`) carry the
+same arrays, built there.
 """
 from __future__ import annotations
 
@@ -52,9 +57,12 @@ def _round_pow2(x: int) -> int:
 # Plan arrays the executor indexes with (torch gathers take int64); the
 # interaction lists stay int32, the CUDA kernel's index type.
 _INDEX_KEYS = ("src_perm", "gather_index", "leaf_gather", "bucket_gather",
-               "bucket_nodes", "parent_of")
+               "bucket_nodes", "parent_of", "upward_pairs")
 #: The modified-charge chunk table `arrays_from_numpy` adds (int32).
 CHUNK_KEYS = ("mc_chunks", "mc_chunk_ptr")
+#: The hierarchical precompute's chunk table over the leaves' ranges only
+#: (`add_hierarchical_tables`; int32, the layout of `CHUNK_KEYS`).
+LEAF_CHUNK_KEYS = ("mc_leaf_chunks", "mc_leaf_chunk_ptr")
 
 
 @dataclasses.dataclass
@@ -75,9 +83,16 @@ class Plan:
     # were padded to, and the scratch node row absorbing sentinel writes.
     capacities: "Capacities | None" = None
     scratch_node: int = -1
-    # Host build-phase wall times in ms (tree_build / interaction_lists /
-    # pack / pad), surfaced via plan.stats().
+    # Build-phase wall times in ms (host: tree_build / interaction_lists /
+    # pack / pad; device: morton / needs / build / lists / assemble),
+    # surfaced via plan.stats().
     build_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # Which builder made the plan ("host" | "device") and, for a device
+    # build, the `repro_torch.devtree` metadata behind the lazy
+    # `tree` / `batches` proxies (the synced needs, the octree depths and
+    # the traversal budgets `replan` keeps).
+    build_backend: str = "host"
+    dev: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
@@ -196,6 +211,38 @@ def _prepare_plan_timed(targets, sources, *, theta, degree, leaf_size,
         fold_slack=float(lists.fold_slack),
         skin=float(skin), build_ms=build_ms,
     )
+
+
+def add_hierarchical_tables(plan: Plan) -> Plan:
+    """The plan with the hierarchical precompute's tables (a new Plan;
+    call it before padding, on a host-built plan):
+
+    - ``upward_pairs``: per level, deepest first, the (parent, child)
+      node pairs (int64);
+    - ``mc_leaf_chunks`` / ``mc_leaf_chunk_ptr``: the chunk table of the
+      leaves' particle ranges over every node (internal nodes own no
+      chunk), which the leaves' modified charges sweep. The reference
+      keeps the leaves' node ids (``leaf_node_ids``) instead: its leaf
+      pass gathers padded particle blocks, the port's is ranged."""
+    tree = plan.tree
+    device = plan.device
+    pairs = []
+    for lvl in range(int(tree.level.max()), 0, -1):
+        nodes = np.nonzero(tree.level == lvl)[0]
+        if len(nodes) == 0:
+            continue
+        pairs.append(torch.as_tensor(
+            np.stack([tree.parent[nodes], nodes], axis=1), dtype=torch.int64,
+            device=device))
+    start = np.zeros(tree.num_nodes, np.int64)
+    count = np.zeros(tree.num_nodes, np.int64)
+    start[tree.leaf_ids] = tree.start[tree.leaf_ids]
+    count[tree.leaf_ids] = tree.count[tree.leaf_ids]
+    arrays = dict(plan.arrays, upward_pairs=tuple(pairs))
+    arrays.update(zip(LEAF_CHUNK_KEYS, (
+        torch.as_tensor(a, device=device) for a in chunk_table(start,
+                                                               count))))
+    return dataclasses.replace(plan, arrays=arrays)
 
 
 def _pack(targets, sources, tree, batches, lists, dtype) -> dict:
@@ -330,6 +377,79 @@ def compute_qhat_direct(arrays, q_sorted, *, degree, backend):
         degree=degree, backend=backend)
 
 
+#: Children of a node at most (`Tree.children` is (M, 8)); the upward
+#: pass adds a parent's children one rank at a time.
+MAX_CHILDREN = 8
+
+
+def _add_children(qhat: torch.Tensor, parents: torch.Tensor,
+                  contrib: torch.Tensor) -> torch.Tensor:
+    """qhat[parents] += contrib, each parent's children added in pair
+    order, one at a time: pass k adds every parent's k-th child, and the
+    other rows add an exact 0. No float sum depends on the order of
+    atomics (the reference's `.at[parents].add` on the card would), so
+    the result is the same from run to run."""
+    p, order = torch.sort(parents, stable=True)
+    pos = torch.arange(p.shape[0], device=p.device)
+    first = torch.ones_like(p, dtype=torch.bool)
+    first[1:] = p[1:] != p[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    c = contrib[order]
+    zero = torch.zeros((), dtype=c.dtype, device=c.device)
+    for k in range(MAX_CHILDREN):
+        qhat = qhat.index_add(0, p, torch.where((rank == k)[:, None], c,
+                                                zero))
+    return qhat
+
+
+def compute_qhat_hierarchical(arrays, q_sorted, *, degree, backend):
+    """Upward-pass q_hat (beyond the paper, exact).
+
+    The leaves' from their particles (one ranged modified-charge call
+    over the leaves' chunk table, `LEAF_CHUNK_KEYS`; every other node
+    comes out 0); every internal cluster's from its children by
+    barycentric Chebyshev-to-Chebyshev restriction, deepest level first.
+    L^parent_k is a degree-n polynomial per dimension, so interpolating
+    it on the child grid is exact:
+
+        qhat_p[k] = sum_child sum_k' (prod_l L^p_{k_l}(s^c_{k'_l})) qhat_c[k'].
+
+    Cost O((n+1)^3 N) for the leaves + O(nodes (n+1)^4) for the pass."""
+    lo, hi = arrays["node_lo"], arrays["node_hi"]
+    chunks, ptr = (arrays[k] for k in LEAF_CHUNK_KEYS)
+    qhat = ops.modified_charges_ranged(
+        arrays["src_sorted"], q_sorted, chunks, ptr, lo, hi, degree=degree,
+        backend=backend)
+    n1 = degree + 1
+    dt, dev = q_sorted.dtype, q_sorted.device
+    w = cheby.bary_weights_1d(degree, dt, dev)
+    s01 = cheby.cheb_points_1d(degree, dt, dev)
+    eps = torch.finfo(dt).eps
+    for pairs in arrays["upward_pairs"]:          # deepest level first
+        parents, children = pairs[:, 0], pairs[:, 1]
+        rows = []
+        for ax in range(3):
+            child_nodes = cheby.map_points(
+                s01, lo[children, ax:ax + 1], hi[children, ax:ax + 1])
+            parent_nodes = cheby.map_points(
+                s01, lo[parents, ax:ax + 1], hi[parents, ax:ax + 1])
+            # child grids share corners with the parent box up to
+            # rounding: a hit within ~64 ulp of the span
+            tol = (64.0 * eps) * (hi[parents, ax] - lo[parents, ax])
+            t, den = cheby.bary_terms(child_nodes, parent_nodes[:, None, :],
+                                      w, tol=tol[:, None, None])
+            rows.append(t / den[..., None])  # (P, n1 child, n1 parent)
+        qc = qhat[children].reshape(-1, n1, n1, n1)
+        contrib = torch.einsum("pxa,pyb,pzc,pxyz->pabc",
+                               rows[0], rows[1], rows[2], qc)
+        qhat = _add_children(qhat, parents, contrib.reshape(-1, n1 ** 3))
+    return qhat
+
+
+_QHAT = {"direct": compute_qhat_direct,
+         "hierarchical": compute_qhat_hierarchical}
+
+
 def _skin_routed_lists(arrays: dict, theta: float, space):
     """Current-distance routing of the Verlet-skin dual lists.
 
@@ -358,12 +478,14 @@ def _skin_routed_lists(arrays: dict, theta: float, space):
 
 def lane_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
                 space=_FREE, backend: str = "auto", theta: float = 0.7,
-                skin: float = 0.0, grid_nodes: bool = False) -> dict:
+                skin: float = 0.0, grid_nodes: bool = False,
+                precompute: str = "direct") -> dict:
     """The two lanes' kernel inputs for `charges`, as the executor feeds
     them: ``{"approx": (idx, pts, q, counts), "direct": (...)}``.
 
-    One modified-charge call. With ``skin > 0`` the Verlet-skin dual
-    lists are routed by the runtime MAC gate. Both lanes pass the batch
+    One modified-charge call (`precompute` "direct" or "hierarchical",
+    whose tables the plan must hold). With ``skin > 0`` the Verlet-skin
+    dual lists are routed by the runtime MAC gate. Both lanes pass the batch
     rows' target counts; the direct lane (skin-routed slots included,
     which are leaf ids too) also the leaves' particle counts, while every
     Chebyshev grid is all real points. With ``grid_nodes=True`` the
@@ -372,10 +494,12 @@ def lane_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
     `ops.batch_cluster_field_grid` takes them (q_hat is k3 fastest
     either way). `chip_smoke.py` holds the kernels against their plain
     versions on these very tensors."""
+    if precompute not in _QHAT:
+        raise ValueError(f"unknown precompute {precompute!r}")
     inp = kernel_inputs(arrays, charges, degree=degree, grids=not grid_nodes)
     with _trace.span("eval.modified_charges"):
-        qhat = compute_qhat_direct(arrays, inp.q_sorted, degree=degree,
-                                   backend=backend)
+        qhat = _QHAT[precompute](arrays, inp.q_sorted, degree=degree,
+                                 backend=backend)
         _trace.sync(charges.device)
     if skin > 0.0:
         approx_idx, direct_idx = _skin_routed_lists(arrays, theta, space)
@@ -404,13 +528,13 @@ _LANE_OPS = {
 def _sweep(span: str, arrays: dict, charges: torch.Tensor, params, *,
            degree: int, kernel: Kernel, space=_FREE, backend: str = "auto",
            kahan: bool = False, approx_r2: str = "diff", theta: float = 0.7,
-           skin: float = 0.0) -> torch.Tensor:
+           skin: float = 0.0, precompute: str = "direct") -> torch.Tensor:
     """The `_LANE_OPS[span]` entry points over both lanes, summed and
     gathered back to the caller's input order."""
     field = span == "field"
     lanes = lane_inputs(arrays, charges, degree=degree, space=space,
                         backend=backend, theta=theta, skin=skin,
-                        grid_nodes=field)
+                        grid_nodes=field, precompute=precompute)
     out = None
     for lane, (idx, pts, q, counts) in lanes.items():
         if lane == "approx" and not field:
@@ -431,7 +555,7 @@ def _execute_impl(arrays: dict, charges: torch.Tensor, params=None,
     `charges` lives on the plan's device. `params` carries kernel
     parameter values (tensors on the device, or None for the kernel's
     defaults). `opts` are `_sweep`'s: degree, kernel, space, backend,
-    kahan, approx_r2, theta and skin."""
+    kahan, approx_r2, theta, skin and precompute."""
     return _sweep("lane", arrays, charges, params, **opts)
 
 
@@ -510,9 +634,13 @@ _POINTS_LATER = ("point budgets (num_targets / num_sources, the serving "
 class Capacities:
     """Fixed padded-dimension budget for shape-stable replans.
 
-    The reference's single-device schema (without the hierarchical and
-    device-tree rows, which come with those slices) plus `num_chunks`,
-    the budget of the modified charges' chunk table. `num_targets` /
+    The reference's single-device schema plus the budgets of the port's
+    chunk tables: `num_chunks` rows of the modified charges' table and,
+    for the hierarchical precompute, `num_leaf_chunks` rows of the
+    leaves' one (0 without it). `upward_rows` budgets the upward pass's
+    (parent, child) pairs per level; `sparse_rows` /
+    `batch_sparse_rows` the occupied cells of a device-built octree's
+    levels past its dense split (`repro_torch.devtree`). `num_targets` /
     `num_sources` are the reference's opt-in point budgets of the
     serving setting: 0 here, and asking for them raises."""
 
@@ -528,6 +656,10 @@ class Capacities:
     bucket_rows: Tuple[int, ...]      # len == depth
     bucket_widths: Tuple[int, ...]    # len == depth, powers of two
     num_chunks: int = 0               # rows of the chunk table
+    upward_rows: Tuple[int, ...] = ()  # len == depth - 1 (hierarchical)
+    num_leaf_chunks: int = 0          # rows of the leaves' chunk table
+    sparse_rows: Tuple[int, ...] = ()  # device octree, past the split
+    batch_sparse_rows: Tuple[int, ...] = ()
     num_targets: int = 0              # 0 = unbudgeted (fixed-N replans)
     num_sources: int = 0
     headroom: float = 1.15
@@ -570,6 +702,12 @@ class Capacities:
             bucket_rows=tuple(h(r) for r in need["bucket_rows"]),
             bucket_widths=tuple(_round_pow2(w) for w in need["bucket_widths"]),
             num_chunks=h(need["num_chunks"]),
+            upward_rows=tuple(h(r) for r in need.get("upward_rows", ())),
+            num_leaf_chunks=(h(need["num_leaf_chunks"])
+                             if need.get("num_leaf_chunks") else 0),
+            sparse_rows=tuple(h(r) for r in need.get("sparse_rows", ())),
+            batch_sparse_rows=tuple(
+                h(r) for r in need.get("batch_sparse_rows", ())),
             headroom=headroom, growth=growth,
         )
 
@@ -611,6 +749,12 @@ class Capacities:
             bucket_widths=gt(self.bucket_widths, need["bucket_widths"],
                              _round_pow2),
             num_chunks=g(self.num_chunks, need["num_chunks"]),
+            upward_rows=gt(self.upward_rows, need.get("upward_rows", ())),
+            num_leaf_chunks=g(self.num_leaf_chunks,
+                              need.get("num_leaf_chunks", 0)),
+            sparse_rows=gt(self.sparse_rows, need.get("sparse_rows", ())),
+            batch_sparse_rows=gt(self.batch_sparse_rows,
+                                 need.get("batch_sparse_rows", ())),
         )
 
     def fits(self, plan: Plan) -> bool:
@@ -621,6 +765,7 @@ def _plan_dims(plan: Plan) -> dict:
     """The plan's padded dimensions (the needs a `Capacities` budgets)."""
     a = plan.arrays
     bg = a["bucket_gather"]
+    dev = plan.dev or {}
     return dict(
         num_batches=a["tgt_batched"].shape[0],
         batch_width=a["tgt_batched"].shape[1],
@@ -634,6 +779,11 @@ def _plan_dims(plan: Plan) -> dict:
         bucket_rows=tuple(g.shape[0] for g in bg),
         bucket_widths=tuple(g.shape[1] for g in bg),
         num_chunks=a["mc_chunks"].shape[0],
+        upward_rows=tuple(p.shape[0] for p in a.get("upward_pairs", ())),
+        num_leaf_chunks=(a["mc_leaf_chunks"].shape[0]
+                         if "mc_leaf_chunks" in a else 0),
+        sparse_rows=tuple(dev.get("sparse_occ", ())),
+        batch_sparse_rows=tuple(dev.get("batch_sparse_occ", ())),
     )
 
 
@@ -703,17 +853,37 @@ def _pad_plan_impl(plan: Plan, caps: Capacities) -> Plan:
             bns.append(a["bucket_nodes"][0].new_full(shape[:1], scratch))
     out["bucket_gather"] = tuple(bgs)
     out["bucket_nodes"] = tuple(bns)
-    ptr = a["mc_chunk_ptr"]
-    out["mc_chunk_ptr"] = _pad_to(ptr, (caps.num_nodes + 1,), 0)
-    out["mc_chunk_ptr"][ptr.shape[0]:] = ptr[-1]
-    chunks = _pad_to(a["mc_chunks"], (caps.num_chunks,), 0)
-    chunks[a["mc_chunks"].shape[0]:, 0] = scratch
-    out["mc_chunks"] = chunks
+    out.update(zip(CHUNK_KEYS, _pad_chunks(
+        a["mc_chunks"], a["mc_chunk_ptr"], caps.num_chunks, caps)))
+    if "upward_pairs" in a:
+        ups = []
+        for slot, rows in enumerate(caps.upward_rows):
+            if slot < len(a["upward_pairs"]):
+                ups.append(_pad_to(a["upward_pairs"][slot], (rows,),
+                                   scratch))
+            else:
+                ups.append(a["upward_pairs"][0].new_full((rows, 2),
+                                                         scratch))
+        out["upward_pairs"] = tuple(ups)
+        out.update(zip(LEAF_CHUNK_KEYS, _pad_chunks(
+            a["mc_leaf_chunks"], a["mc_leaf_chunk_ptr"],
+            caps.num_leaf_chunks, caps)))
     build_ms = dict(plan.build_ms)
     build_ms["pad"] = build_ms.get("pad", 0.0) \
         + (time.perf_counter() - t_pad) * 1e3
     return dataclasses.replace(plan, arrays=out, capacities=caps,
                                scratch_node=scratch, build_ms=build_ms)
+
+
+def _pad_chunks(chunks, ptr, rows: int, caps: Capacities):
+    """A chunk table padded into `rows` chunk rows and the node budget:
+    the pointer repeats its last value (padded nodes own no chunk) and
+    the padded rows are empty ranges (scratch, 0, 0)."""
+    out_ptr = _pad_to(ptr, (caps.num_nodes + 1,), 0)
+    out_ptr[ptr.shape[0]:] = ptr[-1]
+    out = _pad_to(chunks, (rows,), 0)
+    out[chunks.shape[0]:, 0] = caps.scratch_node
+    return out, out_ptr
 
 
 def plan_signature(plan: Plan) -> Tuple:

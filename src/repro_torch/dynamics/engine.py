@@ -16,10 +16,11 @@ Port of `repro/dynamics/engine.py` (single device). One
            4 * drift                   < safety * fold_slack
 
        and the max interval K has not elapsed; otherwise REBUILD the
-       tree on the host (the paper's CPU setup phase), re-padded into the
-       plan's fixed `Capacities`. Verlet-skin pairs (plans built with
-       ``skin > 0``) are gated inside the executors and never constrain
-       the budgets.
+       tree, re-padded into the plan's fixed `Capacities`: on the host
+       (the paper's CPU setup phase) or, for ``build_backend="device"``
+       plans, on the device from the live device positions. Verlet-skin
+       pairs (plans built with ``skin > 0``) are gated inside the
+       executors and never constrain the budgets.
     3. finish: device tree refit -> slack refresh from the refitted
        boxes -> treecode forces (the field kernel, one launch per lane)
        -> integrator post-step. Forces never visit the host.
@@ -31,9 +32,14 @@ calls, or a call on plan shapes that executable has not run before.
 ``retraces`` are those after step 1: 0 while every rebuild fits the
 capacity budget.
 
-Not ported yet: ``async_replan`` (it needs the device tree build) and
-sharded plans; the reference's ``REPRO_DEBUG_NANS`` hook waits for the
-checking tools (`debug_nans` is False).
+With ``async_replan=True`` (device builds) the rebuild is
+double-buffered: when a budget is `dispatch_fraction` spent, or the
+interval one step from elapsing, the engine dispatches a shadow device
+build on a side CUDA stream and keeps refitting on the live plan; the
+next step swaps it in (the `plan_swap` span).
+
+Not ported yet: sharded plans; the reference's ``REPRO_DEBUG_NANS`` hook
+waits for the checking tools (`debug_nans` is False).
 """
 from __future__ import annotations
 
@@ -55,8 +61,6 @@ from repro_torch.obs import trace as _trace
 from repro_torch.obs.occupancy import occupancy_counters as _occ_counters
 
 _REBUILD_POLICIES = ("auto", "always", "never")
-_ASYNC_LATER = ("async_replan needs the device tree build, which is not "
-                "ported yet (ROADMAP queue A: device tree build)")
 
 
 class Simulation:
@@ -83,7 +87,18 @@ class Simulation:
         `repro_torch.checkpoint.store.Checkpointer`.
       profile: compute device-side occupancy counters (`repro_torch.obs`)
         in the finish pass; they appear under ``stats()["occupancy"]``.
-      async_replan: not ported (raises NotImplementedError).
+      async_replan: double-buffer the rebuilds (device build backend,
+        rebuild="auto"). When a drift budget is `dispatch_fraction` spent,
+        or the interval is one step from elapsing, the engine DISPATCHES
+        a shadow device build over the current (wrapped) positions on a
+        side CUDA stream without waiting, keeps refitting on the live
+        plan, and swaps the shadow in at the next step boundary. The
+        swap counts as a rebuild under the cause recorded at dispatch;
+        ``rebuild_wait_ms`` is the host time blocked on builds,
+        ``rebuild_total_ms`` their end-to-end time.
+      dispatch_fraction: fraction of a drift budget spent before a shadow
+        build is dispatched (the rest covers the drift while it is in
+        flight).
     """
 
     def __init__(self, plan, charges, *, dt: float,
@@ -97,13 +112,12 @@ class Simulation:
                  checkpointer: Optional[Checkpointer] = None,
                  checkpoint_every: int = 0,
                  profile: bool = False,
-                 async_replan: bool = False):
+                 async_replan: bool = False,
+                 dispatch_fraction: float = 0.5):
         if rebuild not in _REBUILD_POLICIES:
             raise ValueError(f"rebuild must be one of {_REBUILD_POLICIES}")
         if refit_interval < 1:
             raise ValueError("refit_interval must be >= 1")
-        if async_replan:
-            raise NotImplementedError(_ASYNC_LATER)
         self.debug_nans = False
         self.dt = float(dt)
         self.refit_interval = int(refit_interval)
@@ -127,6 +141,24 @@ class Simulation:
         self.plan = self.adapter.plan
         self.device = self.plan.device
         dtype = self.plan.dtype
+        self.async_replan = bool(async_replan)
+        self.dispatch_fraction = float(dispatch_fraction)
+        if self.async_replan:
+            if rebuild != "auto":
+                raise ValueError(
+                    "async_replan requires rebuild='auto' (the shadow "
+                    "dispatch rides the drift/interval triggers)")
+            if not self.adapter.supports_async_rebuild:
+                raise ValueError(
+                    "async_replan requires a capacity-padded device-"
+                    "backend plan (build_backend='device')")
+            if not 0.0 < self.dispatch_fraction <= 1.0:
+                raise ValueError("dispatch_fraction must be in (0, 1]")
+        # The in-flight shadow build (an adapter handle), the rebuild
+        # cause recorded at dispatch, and the dispatch call's host ms.
+        self._pending = None
+        self._pending_cause = None
+        self._pending_dispatch_ms = 0.0
 
         n = self.plan.num_targets
         if self.plan.num_sources != n:
@@ -164,14 +196,21 @@ class Simulation:
         self._slack_fallback = False  # NaN slack seen: interval cadence
 
         # Counters (stats() surface). Rebuild causes PARTITION the
-        # rebuild count: rebuilds == drift + interval + forced.
+        # rebuild count: rebuilds == drift + interval + forced, and so do
+        # the backends: rebuilds == host + device.
         self.steps = 0
         self.refits = 0
         self.rebuilds = 0
         self.rebuilds_drift = 0
         self.rebuilds_interval = 0
         self.rebuilds_forced = 0
+        self.rebuilds_host = 0
+        self.rebuilds_device = 0
+        # Rebuild wall time: `total` end to end (sync rebuild, or async
+        # dispatch + commit), `wait` the part the host was blocked.
         self.rebuild_total_ms = 0.0
+        self.rebuild_wait_ms = 0.0
+        self.plan_swaps = 0
         self.force_evals = 0
         self.capacity_growths = 0
         self._steps_since_rebuild = 0
@@ -307,12 +346,11 @@ class Simulation:
             exceeded |= fold_drift_rate() * drift >= self.drift_safety * fs
         return exceeded
 
-    def _rebuild(self, x: torch.Tensor) -> None:
-        """Host rebuild at `x` (wrapped); counts a capacity growth."""
-        t0 = time.perf_counter()
-        if self.adapter.rebuild(x):
-            # A capacity budget grew: new shapes, counted (geometric
-            # growth bounds how often this can happen).
+    def _adopt(self, invalidated: bool) -> None:
+        """Take the adapter's new plan after a rebuild or a swap; a
+        capacity budget that grew (new shapes) is counted (geometric
+        growth bounds how often this can happen)."""
+        if invalidated:
             self.capacity_growths += 1
         self.plan = self.adapter.plan
         self._arrays = self.adapter.arrays
@@ -322,7 +360,81 @@ class Simulation:
         self._slack_dev = None
         self._steps_since_rebuild = 0
         self.rebuilds += 1
-        self.rebuild_total_ms += (time.perf_counter() - t0) * 1e3
+
+    def _rebuild(self, x: torch.Tensor) -> None:
+        """Synchronous rebuild at `x` (wrapped), on the host or, for a
+        device-built plan, on the device from `x` as it is."""
+        t0 = time.perf_counter()
+        self._adopt(self.adapter.rebuild(x))
+        if self.adapter.device_rebuild:
+            self.rebuilds_device += 1
+        else:
+            self.rebuilds_host += 1
+        wall = (time.perf_counter() - t0) * 1e3
+        self.rebuild_total_ms += wall     # blocked for all of it
+        self.rebuild_wait_ms += wall
+
+    # ------------------------------------------------------------------
+    # double-buffered replan (async_replan=True)
+    # ------------------------------------------------------------------
+
+    def _dispatch_cause(self, drift: float) -> Optional[str]:
+        """The rebuild cause (if any) that warrants dispatching a shadow
+        build NOW, while the live plan still has budget to cover the
+        in-flight window: drift at `dispatch_fraction` of either
+        refreshed budget (a NaN slack never fires: the interval fallback
+        owns that regime), or the interval one step before the hard
+        K-step cadence."""
+        ts, fs = self._theta_slack, self._fold_slack
+        if not (math.isnan(ts) or math.isnan(fs)):
+            frac = self.dispatch_fraction * self.drift_safety
+            if math.isfinite(ts) and \
+                    theta_drift_rate(self._theta) * drift >= frac * ts:
+                return "drift"
+            if math.isfinite(fs) and fold_drift_rate() * drift >= frac * fs:
+                return "drift"
+        if self._steps_since_rebuild + 1 >= self.refit_interval - 1:
+            return "interval"
+        return None
+
+    def _dispatch_shadow(self, s1, cause: str) -> None:
+        """Enqueue the shadow device build over the CURRENT wrapped
+        positions (a separate tensor: the live trajectory keeps its
+        unwrapped coordinates until the swap). Nothing here waits."""
+        with _trace.span("md.rebuild_dispatch"):
+            t0 = time.perf_counter()
+            self._pending = self.adapter.rebuild_dispatch(
+                self.space.wrap(s1.x))
+            self._pending_dispatch_ms = (time.perf_counter() - t0) * 1e3
+        self._pending_cause = cause
+
+    def _swap_plan(self, s1):
+        """Commit the in-flight shadow build at a step boundary: wait for
+        what is left of it, swap the live plan, and count the swap as a
+        rebuild under the cause recorded at dispatch."""
+        with _trace.span("plan_swap"):
+            t0 = time.perf_counter()
+            invalidated, wait_ms, _grew = self.adapter.rebuild_commit(
+                self._pending)
+            commit_ms = (time.perf_counter() - t0) * 1e3
+        self._pending = None
+        cause, self._pending_cause = self._pending_cause, None
+        self.rebuild_wait_ms += wait_ms
+        self.rebuild_total_ms += self._pending_dispatch_ms + commit_ms
+        self._pending_dispatch_ms = 0.0
+        self.plan_swaps += 1
+        # the shadow was built over wrapped positions: re-anchor the
+        # live trajectory on them (a lattice shift, as at a rebuild)
+        s1 = s1._replace(x=self.space.wrap(s1.x))
+        self._adopt(invalidated)
+        if cause == "drift":
+            self.rebuilds_drift += 1
+        elif cause == "interval":
+            self.rebuilds_interval += 1
+        else:
+            self.rebuilds_forced += 1
+        self.rebuilds_device += 1
+        return s1
 
     def step(self) -> MDState:
         """One integration step (one force evaluation)."""
@@ -338,8 +450,17 @@ class Simulation:
         by_interval = (policy == "auto"
                        and self._steps_since_rebuild + 1
                        >= self.refit_interval)
-        if policy == "always" or by_drift or by_interval:
-            with _trace.span("md.rebuild_host"):
+        if self._pending is not None:
+            # A shadow build is in flight: swap it in at this boundary.
+            # It is newer than the live topology, so it supersedes a hard
+            # trigger of this very step; the finish pass refits it to the
+            # current positions, and drift since the dispatch re-fires
+            # the drift trigger next step if it must.
+            s1 = self._swap_plan(s1)
+        elif policy == "always" or by_drift or by_interval:
+            on_device = self.adapter.device_rebuild
+            with _trace.span("md.rebuild_device" if on_device
+                             else "md.rebuild_host"):
                 # Wrap into the primary cell (a per-particle lattice
                 # shift: forces and energies are minimum-image invariant).
                 s1 = s1._replace(x=self.space.wrap(s1.x))
@@ -354,6 +475,10 @@ class Simulation:
                 self.rebuilds_forced += 1
         else:
             self.refits += 1
+            if self.async_replan:
+                cause = self._dispatch_cause(drift)
+                if cause is not None:
+                    self._dispatch_shadow(s1, cause)
 
         with _trace.span("md.finish"):
             self._arrays, self.state, self._slack_dev, self._occ_dev = \
@@ -415,7 +540,14 @@ class Simulation:
           ``rebuilds``, PARTITIONED by cause: ``rebuilds ==
           rebuilds_drift + rebuilds_interval + rebuilds_forced``
           (drift wins ties; "always" steps and checkpoint restores are
-          forced); all are host builds.
+          forced), and by backend: ``rebuilds == rebuilds_host +
+          devtree_rebuilds``; ``build_backend`` is the plan's.
+        - ``rebuild_total_ms`` / ``rebuild_wait_ms``: rebuild wall time,
+          end to end and the part the host was blocked (equal for
+          synchronous rebuilds; ``async_replan`` hides the rest behind
+          live steps). ``plan_swaps`` counts double-buffer swaps (each
+          also a rebuild under its dispatch-time cause);
+          ``pending_replan`` flags a shadow build in flight.
         - ``compiles``: kernel-library builds and first-seen plan shapes
           of the step's functions; ``retraces``: those after step 1 (0
           while every rebuild fits the budget); ``kernel_builds``:
@@ -440,12 +572,18 @@ class Simulation:
             rebuilds_drift=self.rebuilds_drift,
             rebuilds_interval=self.rebuilds_interval,
             rebuilds_forced=self.rebuilds_forced,
-            build_backend="host",
+            rebuilds_host=self.rebuilds_host,
+            devtree_rebuilds=self.rebuilds_device,
+            build_backend=self.plan.config.build_backend,
             retraces=self.retraces,
             compiles=self.compiles,
             kernel_builds=self.kernel_builds,
             capacity_growths=self.capacity_growths,
+            async_replan=self.async_replan,
+            plan_swaps=self.plan_swaps,
+            pending_replan=self._pending is not None,
             rebuild_total_ms=self.rebuild_total_ms,
+            rebuild_wait_ms=self.rebuild_wait_ms,
             force_evals=self.force_evals,
             refit_interval=self.refit_interval,
             rebuild_policy=self.rebuild_policy,
@@ -491,13 +629,16 @@ class Simulation:
 
     def restore_checkpoint(self, step: Optional[int] = None) -> int:
         """Restore (x, v, f, phi, key) and re-anchor the tree at the
-        restored positions (a host rebuild, counted as forced).
+        restored positions (a rebuild, counted as forced).
 
         Checkpoints of the reference restore too: their `key` is a JAX
         PRNG key, which seeds this state's generator (the noise streams
         of the two packages differ anyway)."""
         if self.checkpointer is None:
             raise ValueError("Simulation built without a checkpointer")
+        # the restored positions supersede an in-flight shadow build
+        self._pending = self._pending_cause = None
+        self._pending_dispatch_ms = 0.0
         like = dict(self._state_tree(), key=None)
         tree, step, _meta = self.checkpointer.restore(like, step=step)
         key = self.state.key

@@ -102,11 +102,18 @@ def max_drift(x: torch.Tensor, x_ref: torch.Tensor,
 class PlanAdapter:
     """Strategy-specific hooks the dynamics engine composes into a step:
     `refit`, `slack_fn` and `force_fn` run on the device and never wait
-    for the host; `rebuild` is the host path (tree construction is a host
-    phase, as in the paper) and returns True when the plan's shapes
-    changed (a capacity growth)."""
+    for the host; `rebuild` rebuilds the tree (on the host, the paper's
+    setup phase, or on the device for ``build_backend="device"`` plans)
+    and returns True when the plan's shapes changed (a capacity growth).
+    Device-built plans also rebuild double-buffered:
+    `rebuild_dispatch` enqueues a shadow build and `rebuild_commit` swaps
+    it in."""
 
     plan = None
+    #: The plan rebuilds on the device (positions never visit the host).
+    device_rebuild = False
+    #: `rebuild_dispatch` / `rebuild_commit` are available.
+    supports_async_rebuild = False
 
     def positions(self) -> torch.Tensor:
         """Current particle positions in input order, on the device."""
@@ -151,8 +158,21 @@ class PlanAdapter:
         raise NotImplementedError
 
     def rebuild(self, x) -> bool:
-        """Host tree rebuild at new positions, re-padded into the plan's
+        """Tree rebuild at new positions, re-padded into the plan's
         capacity budget; True only when a budget grew."""
+        raise NotImplementedError
+
+    def rebuild_dispatch(self, x):
+        """Enqueue a shadow rebuild at positions `x` without waiting and
+        without touching the live plan; returns a handle for
+        `rebuild_commit`."""
+        raise NotImplementedError
+
+    def rebuild_commit(self, pending) -> Tuple[bool, float, bool]:
+        """Swap the live plan for a dispatched shadow build. Returns
+        ``(invalidated, wait_ms, grew)``: the plan's shapes changed, the
+        host milliseconds spent waiting for the shadow build, and a
+        budget overflowed (the handle rebuilt at a grown budget)."""
         raise NotImplementedError
 
     def sync_arrays(self, arrays: dict) -> None:
@@ -200,10 +220,28 @@ class SingleDeviceAdapter(PlanAdapter):
 
         return force
 
+    @property
+    def device_rebuild(self) -> bool:
+        return self.plan.config.build_backend == "device"
+
+    @property
+    def supports_async_rebuild(self) -> bool:
+        # the device pipeline, and a budget to dispatch fixed shapes into
+        return self.device_rebuild and self.plan.capacities is not None
+
     def rebuild(self, x) -> bool:
         old_sig = self.signature()
         self.plan = self.plan.replan(x)   # keeps capacities, grows
         return self.signature() != old_sig
+
+    def rebuild_dispatch(self, x):
+        return self.plan.replan_async(x)
+
+    def rebuild_commit(self, pending) -> Tuple[bool, float, bool]:
+        old_sig = self.signature()
+        plan, wait_ms, grew = pending.finalize()
+        self.plan = plan
+        return self.signature() != old_sig, wait_ms, grew
 
     def sync_arrays(self, arrays: dict) -> None:
         self.plan.inner.arrays = arrays

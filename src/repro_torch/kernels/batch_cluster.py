@@ -54,6 +54,7 @@ import torch
 from repro_torch.core.potentials import Kernel, builtin_id
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.kernels import _build
+from repro_torch.kernels.modified_charges import DEGREE_LATER
 
 #: Launches of the potential kernel since import (or the last reset by a
 #: caller).
@@ -299,9 +300,10 @@ def _check_grid_inputs(what, idx, par, tgt, nodes, q_hat, tgt_count):
             f" nodes {tuple(nodes.shape)}, q_hat {tuple(q_hat.shape)} do not"
             f" match (B,S),(B,NB,3),(C,3,n+1),(C,(n+1)^3)")
     if n1 - 1 not in GRID_DEGREES:
-        raise ValueError(f"{what}: degree {n1 - 1}; the grid field kernel "
-                         f"is built for degrees {GRID_DEGREES.start}-"
-                         f"{GRID_DEGREES.stop - 1}")
+        raise NotImplementedError(
+            f"{what}: degree {n1 - 1}; the grid field kernel is built for "
+            f"degrees {GRID_DEGREES.start}-{GRID_DEGREES.stop - 1} "
+            f"({DEGREE_LATER}); backend='torch' takes any degree")
     if tgt_count is not None:
         _check_count(what, "tgt_count", tgt_count, b, tgt.device)
     _check_grid_limit(what, nb, grid_tile(tgt.element_size(), n1))

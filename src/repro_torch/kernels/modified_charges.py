@@ -46,6 +46,8 @@ _SIG = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
 _SIGNATURES = {"mc_eval_f32": _SIG, "mc_eval_f64": _SIG, "mc_tile": (_I, _I)}
 
 MAX_DEGREE = 14  # n + 1 <= 15: the kernel's instantiations
+#: The ROADMAP item that higher degrees on CUDA wait for.
+DEGREE_LATER = "ROADMAP queue B: degree above 14 on CUDA"
 
 
 def chunk_table(start, count, chunk: int = CHUNK):
@@ -100,7 +102,9 @@ def modified_charges_ranged_cuda(pts: torch.Tensor, q: torch.Tensor,
            dev)
     if not 1 <= degree <= MAX_DEGREE:
         raise NotImplementedError(
-            f"{what}: degree {degree} outside 1..{MAX_DEGREE}")
+            f"{what}: degree {degree} outside 1..{MAX_DEGREE}, the "
+            f"kernel's instantiations ({DEGREE_LATER}); backend='torch' "
+            f"takes any degree")
     n1 = degree + 1
     num_nodes = chunk_ptr.shape[0] - 1
     k = chunks.shape[0]

@@ -144,10 +144,13 @@ def test_config_validation_and_unported_options():
         TreecodeConfig(backend="xla")
     with pytest.raises(ValueError, match="skin"):
         TreecodeConfig(skin=-1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TreecodeConfig(precompute="hierarchical")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TreecodeConfig(build_backend="device")
+    # ported: the hierarchical precompute and the device build, which
+    # (as in the reference) do not go together
+    assert TreecodeConfig(precompute="hierarchical").precompute \
+        == "hierarchical"
+    assert TreecodeConfig(build_backend="device").build_backend == "device"
+    with pytest.raises(ValueError, match="hierarchical"):
+        TreecodeConfig(build_backend="device", precompute="hierarchical")
     x, q = _particles(6, 300)
     solver = TreecodeSolver(TreecodeConfig(leaf_size=64), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -320,3 +320,64 @@ def test_simulation_on_the_card(cuda_device):
     dx = (runs["cuda"].state.x - runs["torch"].state.x).abs().max().item()
     assert dx < 1e-5, dx
     assert runs["cuda"].log.drift() < 1e-3
+
+
+@pytest.mark.cuda
+def test_degree_above_14_names_its_queue_item(cuda_device):
+    """The modified-charge and grid field kernels are instantiated for
+    degrees 1-14: degree 15 raises, naming its ROADMAP item, and the
+    plain versions take it."""
+    later = "queue B: degree above 14 on CUDA"
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    lo = torch.zeros((2, 3), device=cuda_device)
+    hi = lo + 1.0
+    pts = torch.rand((2, 16, 3), generator=gen, device=cuda_device)
+    q = torch.rand((2, 16), generator=gen, device=cuda_device)
+    with pytest.raises(NotImplementedError, match=later):
+        ops.modified_charges(pts, q, lo, hi, degree=15)
+    qhat = ops.modified_charges(pts, q, lo, hi, degree=15, backend="torch")
+    assert qhat.shape == (2, 16 ** 3)
+    args = (torch.zeros((1, 2), dtype=torch.int32, device=cuda_device),
+            2.0 + torch.rand((1, 8, 3), generator=gen, device=cuda_device),
+            ops._cluster_nodes(lo, hi, 15), qhat)
+    with pytest.raises(NotImplementedError, match=later):
+        ops.batch_cluster_field_grid(*args, kernel=coulomb())
+    out = ops.batch_cluster_field_grid(*args, kernel=coulomb(),
+                                       backend="torch")
+    assert out.shape == (1, 8, 4) and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_device_build_on_the_card_equals_the_cpu_build(cuda_device):
+    """The device tree build on the card gives the CPU build's plan (f64,
+    so no MAC margin sits within the rounding of the two devices' sums):
+    every integer array equal, the boxes too (min and max only); a replan
+    is bitwise the same, and `replan_async` dispatches without a host
+    sync and gives the same plan."""
+    from repro_torch.core.api import TreecodeConfig, TreecodeSolver
+
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-1, 1, (30000, 3))
+    cfg = TreecodeConfig(theta=0.7, degree=4, leaf_size=64, skin=0.01,
+                         build_backend="device")
+    gpu = TreecodeSolver(cfg).plan(x)
+    cpu = TreecodeSolver(cfg, device="cpu").plan(x)
+    assert gpu.capacities == cpu.capacities
+    for k, v in cpu.arrays.items():
+        for g, c in zip(gpu.arrays[k] if isinstance(v, tuple) else (
+                gpu.arrays[k],), v if isinstance(v, tuple) else (v,)):
+            assert torch.equal(g.cpu(), c), k
+    xd = torch.as_tensor(x, device=cuda_device)
+    again = gpu.replan(xd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = gpu.replan_async(xd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    shadow, wait_ms, grew = pending.finalize()
+    assert not grew and wait_ms >= 0.0
+    for p in (again, shadow):
+        for k, v in gpu.arrays.items():
+            if not isinstance(v, tuple):
+                assert torch.equal(p.arrays[k], v), k

@@ -286,7 +286,7 @@ def test_integrator_registry_and_bad_args():
         _sim(x, q[:-1])
     with pytest.raises(ValueError):
         _sim(x, q, refit_interval=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="device"):   # a host plan
         _sim(x, q, async_replan=True)
     with pytest.raises(TypeError):
         make_adapter(object())

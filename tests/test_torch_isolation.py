@@ -11,7 +11,9 @@ PKG = os.path.join(ROOT, "src", "repro_torch")
 MODULES = ["repro_torch.core.api", "repro_torch.core.direct",
            "repro_torch.configs.bltc", "repro_torch.obs",
            "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-           "repro_torch.dynamics", "repro_torch.checkpoint.store"]
+           "repro_torch.dynamics", "repro_torch.checkpoint.store",
+           "repro_torch.devtree", "repro_torch.devtree.morton",
+           "repro_torch.devtree.lists"]
 
 
 @pytest.mark.parametrize("module", MODULES)
