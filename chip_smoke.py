@@ -1314,7 +1314,7 @@ def plan_lanes(plan, q):
     c = plan.config
     return ev.lane_inputs(plan.arrays, q, degree=c.degree, space=c.space,
                           backend="cuda", theta=c.theta, skin=c.skin,
-                          grid_nodes=True)
+                          grid_nodes=True, precompute=c.precompute)
 
 
 def plan_field_rows(plan, q, what, rows=64):
@@ -1383,15 +1383,19 @@ PR15_HOST_REBUILD_MS = 1501.3
 
 
 def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
-             host_rebuild_ms=None):
+             host_ref=None):
     """`Simulation` at N = 10^6 and the Fig. 4 settings: a jittered 100^3
     lattice in [-1,1]^3, velocity Verlet, MD_STEPS steps, refit interval
     MD_REFIT, rebuilding on the host or (``build_backend="device"``) on
     the card, synchronously or double-buffered (`async_replan`). Steps
     2.. run with every launch counter at 0 before them; each refit step
     (a shadow dispatch included) must make exactly one host sync; no
-    capacity growth and no kernel build after step 1. Returns the
-    launches of each kernel in that run and the median rebuild step."""
+    capacity growth and no kernel build after step 1. Prints the
+    window's total, the refit steps that dispatch a shadow build apart
+    from the others, and (`host_ref`: the host-rebuild run's median
+    rebuild step and total) the host's numbers beside the device's.
+    Returns the launches of each kernel in that run, the median rebuild
+    step and the window's total (ms)."""
     import warnings
     import torch
     from repro_torch.configs.bltc import fig4
@@ -1419,7 +1423,7 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
     builds0 = events.build_count()
     bcm.LAUNCHES = bcm.FIELD_LAUNCHES = bcm.GRID_FIELD_LAUNCHES = 0
     mcm.LAUNCHES = 0
-    step_ms = {"refit": [], "rebuild": []}
+    step_ms = {"refit": [], "dispatch": [], "rebuild": []}
     syncs, dispatch_ms, wait_ms = [], [], []
     for _ in range(MD_STEPS - 1):
         refits0, pending0 = sim.refits, sim._pending
@@ -1433,13 +1437,15 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
         kind = "refit" if sim.refits > refits0 else "rebuild"
-        step_ms[kind].append((time.perf_counter() - t0) * 1e3)
         if kind == "refit":
             syncs.append(sum("called a synchronizing CUDA operation"
                              in str(w.message) for w in caught))
         if pending0 is None and sim._pending is not None:
             dispatch_ms.append(sim._pending_dispatch_ms)
+            kind = "dispatch"
+        step_ms[kind].append(ms)
         if sim.plan_swaps > swaps0:
             wait_ms.append(sim.rebuild_wait_ms - wait0)
     launches = {"batch_cluster_field": bcm.FIELD_LAUNCHES,
@@ -1481,6 +1487,7 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
     spans = {k: v / 2 for k, v in trace.phase_totals("md.").items()}
     med = {k: (statistics.median(v) if v else float("nan"))
            for k, v in step_ms.items()}
+    window_ms = sum(sum(v) for v in step_ms.values())
     how = {"host": "host rebuilds",
            "device": "device rebuilds" + (", async_replan" if async_replan
                                           else "")}[build_backend]
@@ -1488,8 +1495,11 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
           f"charges), {how}, skin {MD_SKIN}, velocity Verlet, dt {MD_DT}, "
           f"refit interval {MD_REFIT}: setup {setup_ms:.0f} ms; steps "
           f"2-{MD_STEPS}: "
-          f"{len(step_ms['refit'])} refit steps, median {med['refit']:.2f} "
-          f"ms, {len(step_ms['rebuild'])} rebuild steps, median "
+          f"{window_ms:.1f} ms in all; {len(step_ms['refit'])} refit steps "
+          f"(no dispatch), median {med['refit']:.2f} ms, "
+          f"{len(step_ms['dispatch'])} refit steps that dispatch a shadow "
+          f"build, ms {[round(v, 2) for v in step_ms['dispatch']]}, "
+          f"{len(step_ms['rebuild'])} rebuild steps, median "
           f"{med['rebuild']:.1f} ms (host clock to a synchronize); "
           f"refits {st['refits']}, rebuilds {st['rebuilds']} (drift "
           f"{st['rebuilds_drift']}, interval {st['rebuilds_interval']}, "
@@ -1505,8 +1515,10 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
           f"{sorted(set(syncs))}; launches over steps 2-{MD_STEPS} "
           f"{launches}", flush=True)
     if build_backend == "device":
-        ref = ("" if host_rebuild_ms is None else
-               f", {host_rebuild_ms:.1f} ms in this run's host-rebuild MD")
+        ref = ("" if host_ref is None else
+               f", {host_ref[0]:.1f} ms in this run's host-rebuild "
+               f"MD, whose steps 2-{MD_STEPS} took {host_ref[1]:.1f} "
+               f"ms in all")
         print(f"{tag} rebuild step {med['rebuild']:.1f} ms on the device "
               f"against {PR15_HOST_REBUILD_MS} ms on the host (run 6 of PR "
               f"15{ref}); rebuild wall time in all {st['rebuild_total_ms']:.1f}"
@@ -1516,7 +1528,7 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
                  if async_replan else ""), flush=True)
     print(f"{tag} traced refit step, ms per step by span: " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(spans.items())), flush=True)
-    return launches, med["rebuild"]
+    return launches, med["rebuild"], window_ms
 
 
 def phase_md_periodic(dev):
@@ -1588,8 +1600,9 @@ def plan_potential_rows(plan, q, what, rows=64):
     """batch_cluster against its plain version on the first `rows` batch
     rows of both lanes of `plan`, on the tensors `execute` feeds it for
     charges `q` (`eval.lane_inputs`): padded target slots exactly 0, phi
-    at rtol 2e-4 and atol 2e-4 median|phi|. Returns the max abs error;
-    these launches are not counted."""
+    at rtol 2e-4 and atol 2e-4 median|phi|, q_hat from the plan's own
+    precompute. Returns the max abs error; these launches are not
+    counted."""
     import torch
     from repro_torch.core import eval as ev
     from repro_torch.kernels import ops
@@ -1597,7 +1610,8 @@ def plan_potential_rows(plan, q, what, rows=64):
     tgt, real = a["tgt_batched"][:rows], a["tgt_mask"][:rows]
     err = 0.0
     lanes = ev.lane_inputs(a, q, degree=c.degree, space=c.space,
-                           backend="cuda", theta=c.theta, skin=c.skin)
+                           backend="cuda", theta=c.theta, skin=c.skin,
+                           precompute=c.precompute)
     for lane, (idx, pts, qq, cnt) in lanes.items():
         cnt = dict(cnt, tgt_count=cnt["tgt_count"][:rows])
         got, want = (ops.batch_cluster_eval(
@@ -1790,8 +1804,11 @@ def phase_hierarchical(dev, x, q, mc_ms):
     the direct precompute in f64 on 10^5 points (rtol 1e-10, atol 1e-12
     max|q_hat|; positive charges), two calls bitwise equal; `execute` at
     10^6 on the main phase's points against an f64 direct sum (1e-5),
-    with the modified-charge kernel's launches counted from 0; the
-    precompute's time beside the direct one's."""
+    with the modified-charge kernel's launches counted from 0; on that
+    plan's own inputs the modified-charge kernel over the leaf chunk
+    table and batch_cluster on the first 64 batch rows (with the
+    hierarchical q_hat) against their plain versions; the precompute's
+    time beside the direct one's."""
     import numpy as np
     import torch
     from repro_torch.configs.bltc import fig4
@@ -1800,6 +1817,7 @@ def phase_hierarchical(dev, x, q, mc_ms):
     from repro_torch.core.direct import direct_sum
     from repro_torch.kernels import batch_cluster as bcm
     from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.kernels import ops
 
     cfg = dataclasses.replace(fig4(theta=0.7, degree=8),
                               precompute="hierarchical")
@@ -1834,6 +1852,17 @@ def phase_hierarchical(dev, x, q, mc_ms):
     assert launches["modified_charges"] == 2, launches
     assert launches["batch_cluster"] >= 2, launches
     exec_ms = event_ms(lambda: plan.execute(q), 5)
+    qsorted = q[a["src_perm"]]
+    leaf_args = (a["src_sorted"], qsorted, a["mc_leaf_chunks"],
+                 a["mc_leaf_chunk_ptr"], a["node_lo"], a["node_hi"])
+    leaf_err = close(
+        ops.modified_charges_ranged(*leaf_args, degree=degree,
+                                    backend="cuda"),
+        ops.modified_charges_ranged(*leaf_args, degree=degree,
+                                    backend="torch"),
+        3e-3, 3e-4, "[11] modified_charges on the leaf chunk table",
+        scale="max")
+    bc_err = plan_potential_rows(plan, q, "[11]")
     sample = torch.as_tensor(np.random.default_rng(2026).choice(
         n, 1000, replace=False), device=dev)
     x64 = torch.as_tensor(x, dtype=torch.float64, device=dev)
@@ -1841,7 +1870,6 @@ def phase_hierarchical(dev, x, q, mc_ms):
                      source_chunk=1 << 15)
     err = rel2(phi[sample].double(), ref)
     assert torch.isfinite(phi).all() and err <= 1e-5, err
-    qsorted = q[a["src_perm"]]
     pre = {name: event_ms(lambda: fn(a, qsorted, degree=degree,
                                      backend="cuda"), 10)
            for name, fn in (("hierarchical", ev.compute_qhat_hierarchical),
@@ -1854,7 +1882,11 @@ def phase_hierarchical(dev, x, q, mc_ms):
           f"{a['mc_leaf_chunks'].shape[0]} leaf chunks; execute "
           f"{exec_ms:.3f} ms (warm median, CUDA events), launches {launches};"
           f" rel 2-norm error vs f64 direct sum on 1000 targets {err:.3e} "
-          f"(bar 1e-5); q_hat {pre['hierarchical']:.3f} ms hierarchical "
+          f"(bar 1e-5); kernels vs plain on this plan's inputs: "
+          f"modified_charges on the leaf chunk table max abs err "
+          f"{leaf_err:.3e} (rtol 3e-3, atol 3e-4 max|q_hat|), batch_cluster "
+          f"on the first 64 batch rows with the hierarchical q_hat "
+          f"{bc_err:.3e}; q_hat {pre['hierarchical']:.3f} ms hierarchical "
           f"(leaves' modified charges + the upward einsums) against "
           f"{pre['direct']:.3f} ms direct (the kernel alone in this run's "
           f"phase 4: {mc_ms:.3f} ms; 0.598 ms in run 6 of PR 15)",
@@ -2011,13 +2043,13 @@ def main() -> int:
     phase_yukawa(dev, plan, x, q)
     del plan
     phase_periodic(dev)
-    md_launches, host_rebuild_ms = phase_md(dev)
+    md_launches, *host_ref = phase_md(dev)
     for entry in report:     # the field kernels' launches are the MD run's
         if entry["name"].startswith("batch_cluster_field"):
             entry["launches"] = md_launches[entry["name"]]
-    phase_md(dev, "[8d]", "device", host_rebuild_ms=host_rebuild_ms)
+    phase_md(dev, "[8d]", "device", host_ref=host_ref)
     phase_md(dev, "[8a]", "device", async_replan=True,
-             host_rebuild_ms=host_rebuild_ms)
+             host_ref=host_ref)
     phase_md_periodic(dev)
     phase_device_plan(dev, smi, x, q)
     phase_hierarchical(dev, x, q, next(e["ms"] for e in report

@@ -57,7 +57,8 @@ def _round_pow2(x: int) -> int:
 # Plan arrays the executor indexes with (torch gathers take int64); the
 # interaction lists stay int32, the CUDA kernel's index type.
 _INDEX_KEYS = ("src_perm", "gather_index", "leaf_gather", "bucket_gather",
-               "bucket_nodes", "parent_of", "upward_pairs")
+               "bucket_nodes", "parent_of", "upward_pairs",
+               "upward_children")
 #: The modified-charge chunk table `arrays_from_numpy` adds (int32).
 CHUNK_KEYS = ("mc_chunks", "mc_chunk_ptr")
 #: The hierarchical precompute's chunk table over the leaves' ranges only
@@ -213,12 +214,36 @@ def _prepare_plan_timed(targets, sources, *, theta, degree, leaf_size,
     )
 
 
+#: Children of a node at most (`Tree.children` is (M, 8)): the width of
+#: the upward pass's ``upward_children`` rows.
+MAX_CHILDREN = 8
+
+
+def _children_rows(parents: np.ndarray) -> np.ndarray:
+    """(P, MAX_CHILDREN) int64 over one level's pairs: on each parent's
+    first pair, the rows of that parent's pairs in pair order; -1 after
+    them and on every other row."""
+    order = np.argsort(parents, kind="stable")
+    p = parents[order]
+    first = np.ones(len(p), dtype=bool)
+    first[1:] = p[1:] != p[:-1]
+    seg = np.cumsum(first) - 1
+    starts = np.flatnonzero(first)
+    rank = np.arange(len(p)) - starts[seg]
+    out = np.full((len(p), MAX_CHILDREN), -1, np.int64)
+    out[order[starts[seg]], rank] = order
+    return out
+
+
 def add_hierarchical_tables(plan: Plan) -> Plan:
     """The plan with the hierarchical precompute's tables (a new Plan;
     call it before padding, on a host-built plan):
 
     - ``upward_pairs``: per level, deepest first, the (parent, child)
       node pairs (int64);
+    - ``upward_children``: per level, each parent's children as rows of
+      that level's pairs (`_children_rows`), so the upward pass sums
+      them in a fixed order;
     - ``mc_leaf_chunks`` / ``mc_leaf_chunk_ptr``: the chunk table of the
       leaves' particle ranges over every node (internal nodes own no
       chunk), which the leaves' modified charges sweep. The reference
@@ -226,19 +251,22 @@ def add_hierarchical_tables(plan: Plan) -> Plan:
       pass gathers padded particle blocks, the port's is ranged."""
     tree = plan.tree
     device = plan.device
-    pairs = []
+    pairs, children = [], []
     for lvl in range(int(tree.level.max()), 0, -1):
         nodes = np.nonzero(tree.level == lvl)[0]
         if len(nodes) == 0:
             continue
-        pairs.append(torch.as_tensor(
-            np.stack([tree.parent[nodes], nodes], axis=1), dtype=torch.int64,
-            device=device))
+        parents = tree.parent[nodes]
+        pairs.append(torch.as_tensor(np.stack([parents, nodes], axis=1),
+                                     dtype=torch.int64, device=device))
+        children.append(torch.as_tensor(_children_rows(parents),
+                                        device=device))
     start = np.zeros(tree.num_nodes, np.int64)
     count = np.zeros(tree.num_nodes, np.int64)
     start[tree.leaf_ids] = tree.start[tree.leaf_ids]
     count[tree.leaf_ids] = tree.count[tree.leaf_ids]
-    arrays = dict(plan.arrays, upward_pairs=tuple(pairs))
+    arrays = dict(plan.arrays, upward_pairs=tuple(pairs),
+                  upward_children=tuple(children))
     arrays.update(zip(LEAF_CHUNK_KEYS, (
         torch.as_tensor(a, device=device) for a in chunk_table(start,
                                                                count))))
@@ -377,31 +405,6 @@ def compute_qhat_direct(arrays, q_sorted, *, degree, backend):
         degree=degree, backend=backend)
 
 
-#: Children of a node at most (`Tree.children` is (M, 8)); the upward
-#: pass adds a parent's children one rank at a time.
-MAX_CHILDREN = 8
-
-
-def _add_children(qhat: torch.Tensor, parents: torch.Tensor,
-                  contrib: torch.Tensor) -> torch.Tensor:
-    """qhat[parents] += contrib, each parent's children added in pair
-    order, one at a time: pass k adds every parent's k-th child, and the
-    other rows add an exact 0. No float sum depends on the order of
-    atomics (the reference's `.at[parents].add` on the card would), so
-    the result is the same from run to run."""
-    p, order = torch.sort(parents, stable=True)
-    pos = torch.arange(p.shape[0], device=p.device)
-    first = torch.ones_like(p, dtype=torch.bool)
-    first[1:] = p[1:] != p[:-1]
-    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
-    c = contrib[order]
-    zero = torch.zeros((), dtype=c.dtype, device=c.device)
-    for k in range(MAX_CHILDREN):
-        qhat = qhat.index_add(0, p, torch.where((rank == k)[:, None], c,
-                                                zero))
-    return qhat
-
-
 def compute_qhat_hierarchical(arrays, q_sorted, *, degree, backend):
     """Upward-pass q_hat (beyond the paper, exact).
 
@@ -425,7 +428,8 @@ def compute_qhat_hierarchical(arrays, q_sorted, *, degree, backend):
     w = cheby.bary_weights_1d(degree, dt, dev)
     s01 = cheby.cheb_points_1d(degree, dt, dev)
     eps = torch.finfo(dt).eps
-    for pairs in arrays["upward_pairs"]:          # deepest level first
+    for pairs, kids in zip(arrays["upward_pairs"],
+                           arrays["upward_children"]):  # deepest first
         parents, children = pairs[:, 0], pairs[:, 1]
         rows = []
         for ax in range(3):
@@ -442,7 +446,14 @@ def compute_qhat_hierarchical(arrays, q_sorted, *, degree, backend):
         qc = qhat[children].reshape(-1, n1, n1, n1)
         contrib = torch.einsum("pxa,pyb,pzc,pxyz->pabc",
                                rows[0], rows[1], rows[2], qc)
-        qhat = _add_children(qhat, parents, contrib.reshape(-1, n1 ** 3))
+        # each parent's children summed in pair order on its first pair's
+        # row (-1 picks the zero row put last), the other rows 0: every
+        # parent gets one nonzero sum onto its 0, so the add is exact in
+        # any order (no float atomics decide the result on the card)
+        contrib = contrib.reshape(-1, n1 ** 3)
+        summed = torch.cat([contrib, contrib.new_zeros((1, n1 ** 3))])[
+            kids].sum(1)
+        qhat.index_add_(0, parents, summed)
     return qhat
 
 
@@ -865,6 +876,14 @@ def _pad_plan_impl(plan: Plan, caps: Capacities) -> Plan:
                 ups.append(a["upward_pairs"][0].new_full((rows, 2),
                                                          scratch))
         out["upward_pairs"] = tuple(ups)
+        kids = []
+        for slot, rows in enumerate(caps.upward_rows):
+            if slot < len(a["upward_children"]):
+                kids.append(_pad_to(a["upward_children"][slot], (rows,), -1))
+            else:
+                kids.append(a["upward_children"][0].new_full(
+                    (rows, MAX_CHILDREN), -1))
+        out["upward_children"] = tuple(kids)
         out.update(zip(LEAF_CHUNK_KEYS, _pad_chunks(
             a["mc_leaf_chunks"], a["mc_leaf_chunk_ptr"],
             caps.num_leaf_chunks, caps)))

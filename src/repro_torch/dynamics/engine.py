@@ -35,8 +35,10 @@ capacity budget.
 With ``async_replan=True`` (device builds) the rebuild is
 double-buffered: when a budget is `dispatch_fraction` spent, or the
 interval one step from elapsing, the engine dispatches a shadow device
-build on a side CUDA stream and keeps refitting on the live plan; the
-next step swaps it in (the `plan_swap` span).
+build on a side CUDA stream, behind that step's forces (the reference
+dispatches before them; the host's enqueueing then overlaps the card's
+force sweep), and keeps refitting on the live plan; the next step swaps
+it in (the `plan_swap` span).
 
 Not ported yet: sharded plans; the reference's ``REPRO_DEBUG_NANS`` hook
 waits for the checking tools (`debug_nans` is False).
@@ -446,6 +448,7 @@ class Simulation:
         self._last_drift = drift
 
         policy = self.rebuild_policy
+        cause = None
         by_drift = policy == "auto" and self._drift_exceeds_budget(drift)
         by_interval = (policy == "auto"
                        and self._steps_since_rebuild + 1
@@ -477,14 +480,17 @@ class Simulation:
             self.refits += 1
             if self.async_replan:
                 cause = self._dispatch_cause(drift)
-                if cause is not None:
-                    self._dispatch_shadow(s1, cause)
 
         with _trace.span("md.finish"):
             self._arrays, self.state, self._slack_dev, self._occ_dev = \
                 self._call_logged("finish", self._finish, "Simulation.step",
                                   self._arrays, s1)
             _trace.sync(self.device)
+        if cause is not None:
+            # enqueued behind this step's forces (the reference dispatches
+            # before them): the host's dispatch overlaps the card's force
+            # sweep, and the shadow reads only s1.x, so nothing else moves
+            self._dispatch_shadow(s1, cause)
         # The refit/refresh point is s1.x (position Verlet moves x again
         # in post; the budgets were refreshed at the force point).
         self._x_eval_ref = s1.x

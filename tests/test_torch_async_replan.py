@@ -11,18 +11,30 @@ live plan must be invisible to the live plan until the swap:
   exact, and a swap that fits the budget makes no new shape;
 - a budget overflow inside an in-flight shadow (the commit reruns the
   growth loop) leaves the live plan's arrays and results untouched, and
-  the engine counts it like a synchronous growth.
+  the engine counts it like a synchronous growth;
+- the engine's dispatch triggers (drift at `dispatch_fraction` of a
+  budget, the interval one step early), the swap at the next step
+  boundary and the re-anchoring on wrapped positions: an f64 run held
+  against `repro.dynamics.Simulation(async_replan=True)` at rtol 1e-9,
+  with the same counters.
 
 On the CPU the shadow build runs at once, with no stream; on the card it
 runs on a side stream (`chip_smoke.py` dispatches it under
 ``torch.cuda.set_sync_debug_mode("error")``)."""
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.core.api import TreecodeConfig as JConfig
+from repro.core.api import TreecodeSolver as JSolver
+from repro.core.space import FREE as JFREE
+from repro.core.space import PeriodicBox as JBox
+from repro.dynamics import Simulation as JSimulation
 from repro_torch.core.api import TreecodeConfig, TreecodeSolver
+from repro_torch.core.space import FREE, PeriodicBox
 from repro_torch.dynamics import Simulation
 from repro_torch.obs import events, trace
 
@@ -157,3 +169,59 @@ def test_engine_growth_during_shadow_keeps_partitions_exact():
     st = sim.step()
     assert torch.isfinite(st.f).all()
     _assert_partitions(sim.stats())
+
+
+@pytest.fixture
+def x64():
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", prev)
+
+
+#: (points, box or None, refit interval, the cause the run must take):
+#: in a periodic 2^3 box no pair passes the MAC at 600 points, so the
+#: slacks are infinite and the interval trigger dispatches every shadow,
+#: one step before the hard cadence, while particles cross the boundary
+#: (the swap re-anchors them on wrapped positions); in free space at 900
+#: points a per-step drift above half the theta budget dispatches them.
+ASYNC_CASES = {
+    "periodic_interval": (600, 2.0, 4, "rebuilds_interval"),
+    "free_drift": (900, None, 8, "rebuilds_drift"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ASYNC_CASES))
+def test_async_simulation_matches_reference_f64(x64, case):
+    n, box, refit_interval, cause = ASYNC_CASES[case]
+    r = np.random.default_rng(7)
+    x = r.uniform(0.0, 2.0, (n, 3))
+    q = 0.05 * r.uniform(-1, 1, n)
+    v = 3.0 * np.random.default_rng(8).uniform(-1, 1, (n, 3))
+    space, jspace = ((PeriodicBox((box,) * 3), JBox((box,) * 3)) if box
+                     else (FREE, JFREE))
+    kw = dict(theta=0.8, degree=3, leaf_size=32, build_backend="device",
+              skin=0.03)
+    sim_kw = dict(velocities=v, dt=2e-3, refit_interval=refit_interval,
+                  async_replan=True, dispatch_fraction=0.5)
+    sim = Simulation(TreecodeSolver(TreecodeConfig(space=space, **kw),
+                                    device="cpu").plan(x, capacities="auto"),
+                     q, **sim_kw)
+    jsim = JSimulation(JSolver(JConfig(backend="xla", space=jspace, **kw))
+                       .plan(x, nranks=1, capacities="auto"), q, **sim_kw)
+    sim.run(10)
+    jsim.run(10)
+    jf = np.asarray(jsim.state.f)
+    np.testing.assert_allclose(sim.state.x.numpy(), np.asarray(jsim.state.x),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(sim.state.f.numpy(), jf, rtol=1e-9,
+                               atol=1e-9 * np.abs(jf).max())
+    s, j = sim.stats(), jsim.stats()
+    for key in ("steps", "refits", "rebuilds", "rebuilds_drift",
+                "rebuilds_interval", "rebuilds_forced", "rebuilds_host",
+                "devtree_rebuilds", "plan_swaps", "retraces",
+                "capacity_growths", "force_evals"):
+        assert s[key] == j[key], (key, s[key], j[key])
+    assert s["plan_swaps"] == s["rebuilds"] == s[cause] >= 2, s
+    if box:
+        assert ((x + 10 * 2e-3 * v < 0) | (x + 10 * 2e-3 * v >= box)).any()

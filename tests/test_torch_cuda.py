@@ -381,3 +381,46 @@ def test_device_build_on_the_card_equals_the_cpu_build(cuda_device):
         for k, v in gpu.arrays.items():
             if not isinstance(v, tuple):
                 assert torch.equal(p.arrays[k], v), k
+
+
+@pytest.mark.cuda
+def test_sparse_device_build_on_the_card_equals_the_cpu_build(cuda_device):
+    """The hybrid sparse levels of the device build (depth 6 over leaves
+    of 4: two sparse source levels and one target level, the searchsorted
+    and scatter spans `tests/test_torch_devtree.py` holds against the
+    reference on the CPU) give the CPU's plan on the card, f64: every
+    array equal; a budgeted replan is bitwise the same, and its
+    dispatch makes no host sync."""
+    from repro_torch.devtree import build as tbuild
+
+    x = np.random.default_rng(5).uniform(-1, 1, (1500, 3))
+    kw = dict(theta=0.7, degree=2, leaf_size=4, batch_size=4, skin=0.02,
+              depth=6, batch_depth=5)
+    plans = {}
+    for where in ("cpu", cuda_device):
+        t = torch.as_tensor(x, device=where)
+        plans[str(where)] = tbuild.prepare_plan_device(t, t, **kw)
+    cpu, gpu = plans["cpu"], plans[str(cuda_device)]
+    assert len(gpu.capacities.sparse_rows) == 2
+    assert len(gpu.capacities.batch_sparse_rows) == 1
+    assert gpu.capacities == cpu.capacities
+    for k, v in cpu.arrays.items():
+        for g, c in zip(gpu.arrays[k] if isinstance(v, tuple) else (
+                gpu.arrays[k],), v if isinstance(v, tuple) else (v,)):
+            assert torch.equal(g.cpu(), c), k
+    xd = torch.as_tensor(x, device=cuda_device)
+    budget = dict(kw, capacities=gpu.capacities,
+                  pair_caps=gpu.dev["pair_caps"])
+    again = tbuild.prepare_plan_device(xd, xd, **budget)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = tbuild.dispatch_plan_device(xd, xd, **budget)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    shadow, wait_ms, grew = pending.finalize()
+    assert not grew and wait_ms >= 0.0
+    for p in (again, shadow):
+        for k, v in gpu.arrays.items():
+            if not isinstance(v, tuple):
+                assert torch.equal(p.arrays[k], v), k

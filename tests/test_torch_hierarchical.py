@@ -75,6 +75,14 @@ def test_tables_match_reference(plans):
     assert len(a["upward_pairs"]) == len(jarrays["upward_pairs"])
     for got, want in zip(a["upward_pairs"], jarrays["upward_pairs"]):
         np.testing.assert_array_equal(got.numpy(), want)
+    # each parent's children listed once, in pair order, on its first row
+    for pairs, kids in zip(a["upward_pairs"], a["upward_children"]):
+        parents, kids = pairs[:, 0].numpy(), kids.numpy()
+        for p in np.unique(parents):
+            rows = np.flatnonzero(parents == p)
+            np.testing.assert_array_equal(kids[rows[0], :len(rows)], rows)
+            assert (kids[rows[0], len(rows):] == -1).all()
+            assert (kids[rows[1:]] == -1).all()
     # the leaves' chunk table covers exactly the reference's leaf rows
     leaves = jarrays["leaf_node_ids"]
     tree = plan.inner.tree
