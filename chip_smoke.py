@@ -8,7 +8,10 @@ Phases (each asserts; any failure exits non-zero):
  1. device line (nvidia-smi name and power limit), torch version, and the
     build of every CUDA kernel from `src/repro_torch/kernels/csrc/`
     (one nvcc per source, started together);
- 2. batch_cluster kernel vs its plain PyTorch version: interior -1
+ 2. batch_cluster kernel vs its plain PyTorch version (phases 2, 2f, 2g
+    and 3 end with their kernel's systems-axis cases, SYSTEMS_W stacked
+    systems against the plain version and each against its own
+    single-system launch): interior -1
     slots, an all-empty row, a coincident target/source pair, ragged
     NB and m, free and periodic space, Coulomb and Yukawa at two kappas,
     Kahan and the matmul-r2 form, each without and with target and
@@ -106,6 +109,22 @@ Phases (each asserts; any failure exits non-zero):
     precompute in f64 at 10^5 (rtol 1e-10, atol 1e-12 max|q_hat|),
     execute at 10^6 against an f64 direct sum (1e-5), and the
     precompute's ms beside the direct one's;
+ 12. serving at the Fig. 4 statics (`repro_torch.serve`): (12a) an
+    EnsemblePlan of 8 systems (SERVE_SIZES, Yukawa, a kappa per system):
+    execute and potential_and_forces beside the 8 single-system plans,
+    the launches a call (2/2/0/0 and 0/2/1/1 whatever W is), each system
+    against an f64 direct sum (1e-5, FORCE_BAR) and within 1e-6 of its
+    single plan, each lane kernel on the stacked shapes against its
+    bound and each kernel against its plain version on the first 64
+    batch rows of every system; (12b) a 5-kappa scan over one geometry
+    under torch.cuda.set_sync_debug_mode("error"); (12c) ServeFrontend
+    on 24 requests, then the same 24 (compiles <= buckets x 2 kinds; the
+    second pass 0 compiles, retraces and capacity growths; every request
+    against a single plan); (12d) an 8-replica EnsembleMD (launches a
+    step, every replica against its own Simulation(rebuild="never") and
+    its energy balance); 12b, 12c (each bucket's last flush) and 12d (the
+    refitted, skin-gated stack) also hold every kernel against its plain
+    version on their own stacked arrays (`stacked_rows_check`);
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -304,6 +323,7 @@ def phase_batch_cluster(dev):
     print(f"[2] batch_cluster vs plain: {n} cases ok; max abs err "
           f"f32 {worst[torch.float32]:.3e} (rtol/atol 2e-4), f64 "
           f"{worst[torch.float64]:.3e} (rtol 1e-12)", flush=True)
+    print_systems_axis("[2]", "batch_cluster", dev)
 
 
 def phase_field(dev):
@@ -398,6 +418,7 @@ def phase_field(dev):
           f"{worst_ratio[torch.float64]:.3e}; "
           f"{hits} lone exact hits give 0 in all four outputs; field phi vs "
           f"the potential kernel's max abs err {phi_worst:.3e}", flush=True)
+    print_systems_axis("[2f]", "field", dev)
 
 
 def fold_ties(length):
@@ -523,6 +544,7 @@ def phase_field_grid(dev):
           f"{f64[1]:.3e}; phi vs the potential kernel on the grid points, "
           f"max err / sum|G q| f32 {f32[2]:.3e}, f64 {f64[2]:.3e} (PHI_K "
           f"{PHI_K[4]} f32, {PHI_K[8]} f64)", flush=True)
+    print_systems_axis("[2g]", "grid_field", dev)
 
 
 #: (rtol, atol) of the field kernel's phi against its plain version:
@@ -604,6 +626,139 @@ def count_case(rng, B, NB, C, m, dev):
         sc[0] = m
     return {"tgt_count": torch.as_tensor(tc, dtype=torch.int32, device=dev),
             "src_count": torch.as_tensor(sc, dtype=torch.int32, device=dev)}
+
+
+#: Systems of a stacked case (`systems_axis_cases`).
+SYSTEMS_W = 4
+
+
+def stacked_case(rng, dtype, dev, B=5, S=7, NB=150, C=8, m=200):
+    """Operands of SYSTEMS_W systems with a leading systems axis, as an
+    ensemble stacks them: ragged per-system target and source counts, an
+    interior -1 slot, system 1 a dummy slot (all charges 0) and the last
+    batch row of every system a point-padded scratch row (count 0).
+    Returns (idx, tgt, src, q, tgt_count, src_count, kappas (W,))."""
+    import torch
+    W = SYSTEMS_W
+    qlo = -1.0 if dtype == torch.float32 else 0.0
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    def i32(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    idx = rng.integers(-1, C, (W, B, S))
+    idx[:, :, S // 2] = -1
+    q = rng.uniform(qlo, 1, (W, C, m))
+    q[1] = 0.0
+    tc = rng.integers(0, NB + 1, (W, B))
+    tc[:, 0] = NB
+    tc[:, -1] = 0
+    sc = rng.integers(0, m + 1, (W, C))
+    return (i32(idx), t(rng.uniform(-1, 1, (W, B, NB, 3))),
+            t(rng.uniform(-1, 1, (W, C, m, 3))), t(q), i32(tc), i32(sc),
+            t(rng.uniform(0.5, 2.0, W)))
+
+
+def systems_axis_cases(dev, kind):
+    """A kernel (`kind`: "batch_cluster", "field", "grid_field" or
+    "modified_charges") on stacked operands of SYSTEMS_W systems against
+    its plain version (the tolerances of its phase), f32 and f64, free
+    space and a periodic box, Coulomb and Yukawa with a kappa per system:
+    one launch a call, the scratch rows and the dummy slot exactly 0, and
+    each system bitwise its own single-system launch. Returns (cases,
+    max abs err)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.potentials import coulomb, yukawa
+    from repro_torch.core.space import FREE, PeriodicBox
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(31)
+    box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
+    n, worst = 0, 0.0
+    if kind == "modified_charges":
+        lib = _build.load("modified_charges", mcm._SIGNATURES)
+        for dtype, degree in itertools.product(
+                (torch.float32, torch.float64), (4, 8)):
+            rtol, atol = ((3e-3, 3e-4) if dtype == torch.float32
+                          else (1e-10, 1e-12))
+            tile = lib.mc_tile(dtype.itemsize, degree + 1)
+            cases = [ranged_case(rng, dtype, degree, dev, tile)
+                     for _ in range(SYSTEMS_W)]
+            args = [torch.stack([c[j] for c in cases]) for j in range(6)]
+            args[1][1] = 0.0                        # a dummy slot
+            before = mcm.LAUNCHES
+            got = ops.modified_charges_ranged(*args, degree=degree,
+                                              backend="cuda")
+            assert mcm.LAUNCHES == before + 2, "two launches a call"
+            want = ops.modified_charges_ranged(*args, degree=degree,
+                                               backend="torch")
+            what = f"modified_charges W={SYSTEMS_W} {dtype} degree={degree}"
+            worst = max(worst, close(got, want, rtol, atol, what,
+                                     scale="max"))
+            assert (got[1] == 0).all(), f"{what}: dummy slot"
+            for w in range(SYSTEMS_W):
+                one = ops.modified_charges_ranged(
+                    *(a[w] for a in args), degree=degree, backend="cuda")
+                assert torch.equal(got[w], one), f"{what}: system {w}"
+            n += 1
+        return n, worst
+    degree = 8
+    for dtype, space, kern in itertools.product(
+            (torch.float32, torch.float64), (FREE, box),
+            (coulomb(), yukawa())):
+        idx, tgt, src, q, tc, sc, kappa = stacked_case(rng, dtype, dev)
+        params = (kappa,) if kern.params else None
+        kw = dict(kernel=kern, space=space, tgt_count=tc)
+        if kind == "grid_field":
+            lo = src.amin(2)
+            hi = src.amax(2)
+            src = ops._cluster_nodes(lo, hi, degree).contiguous()
+            # f64 cases take positive charges, as in phase 2g
+            qlo = -1.0 if dtype == torch.float32 else 0.0
+            q = torch.as_tensor(rng.uniform(qlo, 1, (SYSTEMS_W, lo.shape[1],
+                                                     (degree + 1) ** 3)),
+                                dtype=dtype, device=dev)
+            q[1] = 0.0
+            op, counter = ops.batch_cluster_field_grid, "GRID_FIELD_LAUNCHES"
+        else:
+            kw["src_count"] = sc
+            op, counter = ((ops.batch_cluster_eval, "LAUNCHES")
+                           if kind == "batch_cluster"
+                           else (ops.batch_cluster_field, "FIELD_LAUNCHES"))
+        args = (idx, tgt, src, q, params)
+        before = getattr(bcm, counter)
+        got = op(*args, backend="cuda", **kw)
+        assert getattr(bcm, counter) == before + 1, "one launch a call"
+        want = op(*args, backend="torch", **kw)
+        what = (f"{kind} W={SYSTEMS_W} {dtype} {space} {kern.name} "
+                f"per-system kappas")
+        if kind == "batch_cluster":
+            rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 \
+                else (1e-12, 0.0)
+            err = close(got, want, rtol, atol, what)
+        else:
+            plain = (bcm.batch_cluster_field_grid_plain if kind ==
+                     "grid_field" else bcm.batch_cluster_field_plain)
+            mag = plain(*args, magnitude=True, **kw)
+            err, _ = field_close(got, want, mag, *FIELD_TOL[dtype.itemsize],
+                                 what)
+        worst = max(worst, err)
+        assert (got[:, -1] == 0).all(), f"{what}: scratch batch row"
+        assert (got[1] == 0).all(), f"{what}: dummy slot"
+        for w in range(SYSTEMS_W):
+            one = op(idx[w], tgt[w], src[w], q[w],
+                     None if params is None else (kappa[w],), backend="cuda",
+                     **{k: (v[w] if isinstance(v, torch.Tensor) else v)
+                        for k, v in kw.items()})
+            assert torch.equal(got[w], one), f"{what}: system {w}"
+        n += 1
+    return n, worst
 
 
 def smi_sampler():
@@ -743,6 +898,19 @@ def phase_modified_charges(dev):
           f"max abs err f32 {worst[torch.float32]:.3e} (rtol 3e-3 atol 3e-4"
           f"; ranged: times max|q_hat|), f64 {worst[torch.float64]:.3e} "
           f"(rtol 1e-10, atol 1e-12 max|q_hat|)", flush=True)
+    print_systems_axis("[3]", "modified_charges", dev)
+
+
+def print_systems_axis(tag, kind, dev):
+    import torch
+    n, err = systems_axis_cases(dev, kind)
+    torch.cuda.synchronize()
+    print(f"{tag} systems axis (W={SYSTEMS_W}: ragged per-system counts, "
+          f"per-system kappas, a dummy slot, scratch batch rows; f32 and "
+          f"f64, free and periodic): {n} cases ok against the plain "
+          f"version (the tolerances above), max abs err {err:.3e}; one "
+          f"launch per call, each system bitwise its own single-system "
+          f"launch, dummy slots and scratch rows exactly 0", flush=True)
 
 
 def ranged_case(rng, dtype, degree, dev, tile):
@@ -876,17 +1044,20 @@ def bound_by(sides):
 
 
 def mc_bound(plan, degree, dtype_bytes):
-    """(bound_ms, side) of one execute's modified charges: per real
-    particle of every cluster 3 rows of n+1 terms (sub, div, add), the
+    """(bound_ms, side) of one execute's modified charges (an ensemble's
+    over all its members): per real particle of every cluster 3 rows of
+    n+1 terms (sub, div, add), the
     denominator and q~ (2 mul, 1 div), t3*q~ (n+1 mul), t1 x t2 once
     ((n+1)^2 mul), then one FMA (2 operations) per (n+1)^3 output; bytes:
     xyz + q per real particle, the nodes and q_hat."""
-    tree = plan.inner.tree
+    members = plan.members if hasattr(plan, "members") else [plan.inner]
+    trees = [m.tree for m in members]
     n1 = degree + 1
-    particles = float(tree.count.sum())                    # over all nodes
+    particles = float(sum(t.count.sum() for t in trees))   # over all nodes
+    nodes = sum(t.num_nodes for t in trees)
     flops = particles * (9 * n1 + 3 + n1 + n1 ** 2 + 2 * n1 ** 3)
     nbytes = (particles * 4 * dtype_bytes
-              + tree.num_nodes * (3 * n1 + n1 ** 3) * dtype_bytes)
+              + nodes * (3 * n1 + n1 ** 3) * dtype_bytes)
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     side = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes) * 1e3, side
@@ -1972,6 +2143,535 @@ def phase_periodic(dev):
           f"{skin_slots} skin-direct slots gated", flush=True)
 
 
+# Phase 12 (serving) at the Fig. 4 statics: 8 systems of about 7.2*10^5
+# points in all for the ensemble, a 5-kappa scan, the service on 24
+# requests of 50,000-100,000 points, and an 8-replica MD of 32^3 lattices.
+SERVE_SIZES = (131_072, 120_000, 100_000, 90_000, 80_000, 70_000, 66_000,
+               60_000)
+SERVE_REQUEST_SIZES = (50_000, 60_000, 100_000)
+SERVE_KAPPAS = (0.5, 1.0, 2.0)
+SERVE_MD_M = 32
+SERVE_MD_STEPS = 20
+
+
+def serve_config(kernel="yukawa"):
+    """The Fig. 4 statics (theta 0.7, degree 8, N_L = N_B = 2000, f32)
+    with `kernel`."""
+    return dataclasses.replace(fig4_config(), kernel=kernel)
+
+
+def fig4_config():
+    from repro_torch.configs.bltc import fig4
+    return fig4(theta=0.7, degree=8)
+
+
+def launch_counts():
+    """(batch_cluster, modified_charges, field, grid field) launches."""
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    return (bcm.LAUNCHES, mcm.LAUNCHES, bcm.FIELD_LAUNCHES,
+            bcm.GRID_FIELD_LAUNCHES)
+
+
+def zero_launch_counts():
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    bcm.LAUNCHES = mcm.LAUNCHES = 0
+    bcm.FIELD_LAUNCHES = bcm.GRID_FIELD_LAUNCHES = 0
+
+
+def flat_systems(a, idx, m_of_cluster):
+    """A stacked lane as one flat single-system lane, for `bc_bound`:
+    ({"tgt_mask", "tgt_batched"} (W*B, ...), idx (W*B, S) with system w's
+    cluster ids offset by w*C, m_of_cluster (W*C,))."""
+    import types
+    import torch
+    w, c = m_of_cluster.shape
+    off = (torch.arange(w, device=idx.device) * c)[:, None, None]
+    flat_idx = torch.where(idx >= 0, idx + off, idx).flatten(0, 1)
+    view = types.SimpleNamespace(arrays={
+        "tgt_mask": a["tgt_mask"].flatten(0, 1),
+        "tgt_batched": a["tgt_batched"].flatten(0, 1)})
+    return view, flat_idx, m_of_cluster.flatten()
+
+
+#: How `stacked_rows_check` holds the kernels against their plain versions.
+STACKED_ROWS_RULE = (f"phi {PHI_K[4]} sum|G q| and gradient {GRAD_K[4]} "
+                     f"sum|terms| per entry, q_hat rtol 3e-3 atol 3e-4 "
+                     f"max|q_hat|")
+
+
+def stacked_rows_check(a, charges, kp, cfg, kernel, what, rows=64):
+    """Each kernel against its plain version on stacked plan arrays `a`
+    (an ensemble's, refitted or not) for charges (W, ns) and per-system
+    parameters `kp`, on the tensors the ensemble executors feed them
+    (`eval.lane_inputs` with the config's skin, so skin lists go through
+    the stacked MAC gate): batch_cluster on both potential lanes and the
+    two field kernels on the force lanes, each on the first `rows` batch
+    rows of every system, and the modified charges on every node of every
+    system. Padded target slots are exactly 0; each phi entry is held to
+    PHI_K times its own sum |G q| and each gradient entry to GRAD_K times
+    its sum |terms| (the plain field version's magnitude sweep over the
+    same slots), since a lane may leave most targets without a term (the
+    inner batches of 12d's small trees approximate no cluster) and
+    neutral systems cancel, where a median |phi| scale says nothing.
+    Returns {kernel: (max abs err, max err / sum|terms|)}; these
+    launches are not counted."""
+    import torch
+    from repro_torch.core import eval as ev
+    from repro_torch.kernels import ops
+    lane_kw = dict(degree=cfg.degree, space=cfg.space, backend="cuda",
+                   theta=cfg.theta, skin=cfg.skin, precompute=cfg.precompute)
+    opts = dict(kernel=kernel.stripped(), space=cfg.space, kahan=cfg.kahan)
+    tgt, real = a["tgt_batched"][:, :rows], a["tgt_mask"][:, :rows]
+    pot = ev.lane_inputs(a, charges, **lane_kw)
+    fld = ev.lane_inputs(a, charges, grid_nodes=True, **lane_kw)
+    worst = {}
+
+    def note(key, err, ratio):
+        e, r = worst.get(key, (0.0, 0.0))
+        worst[key] = (max(e, err), max(r, ratio))
+
+    for lane, (idx, pts, qq, cnt) in pot.items():
+        # the rows' lists up to their last real slot (the rest of the
+        # stacked width is -1 in every row): the plain versions sweep
+        # every slot they are given
+        cols = (idx[:, :rows] >= 0).any(0).any(0).nonzero()
+        used = int(cols.max()) + 1 if cols.numel() else 1
+        kw = dict(opts, **dict(cnt, tgt_count=cnt["tgt_count"][:, :rows]))
+        if lane == "approx":
+            kw["r2_mode"] = cfg.approx_r2
+        got, want = (ops.batch_cluster_eval(
+            idx[:, :rows, :used], tgt, pts, qq, kp, backend=b, **kw)
+            for b in ("cuda", "torch"))
+        op, plain = field_lane(lane)
+        fidx, fpts, fqq, fcnt = fld[lane]
+        fkw = dict(opts, **dict(fcnt, tgt_count=fcnt["tgt_count"][:, :rows]))
+        fargs = (fidx[:, :rows, :used], tgt, fpts, fqq, kp)
+        fgot, fwant = (op(*fargs, backend=b, **fkw) for b in ("cuda", "torch"))
+        mag = plain(*fargs, magnitude=True, **fkw)[real]
+        assert (got[~real] == 0).all(), f"{what}: batch_cluster {lane} pad"
+        assert (fgot[~real] == 0).all(), f"{what}: field {lane} padding"
+        note("batch_cluster", *phi_close(got[real], want[real], mag[:, 0],
+                                         f"{what}: batch_cluster {lane}"))
+        fgot, fwant = fgot[real], fwant[real]
+        e, r = phi_close(fgot[:, 0], fwant[:, 0], mag[:, 0],
+                         f"{what}: field {lane} phi")
+        ge, gr = grad_close(fgot[:, 1:], fwant[:, 1:], mag[:, 1:],
+                            f"{what}: field {lane}")
+        note("field_grid" if lane == "approx" else "field", max(e, ge),
+             max(r, gr))
+    chunk_keys = (ev.LEAF_CHUNK_KEYS if cfg.precompute == "hierarchical"
+                  else ("mc_chunks", "mc_chunk_ptr"))
+    inp = ev.kernel_inputs(a, charges, degree=cfg.degree, grids=False)
+    mc_args = (a["src_sorted"], inp.q_sorted, *(a[k] for k in chunk_keys),
+               a["node_lo"], a["node_hi"])
+    qh, qh_plain = (ops.modified_charges_ranged(
+        *mc_args, degree=cfg.degree, backend=b) for b in ("cuda", "torch"))
+    note("modified_charges", close(qh, qh_plain, 3e-3, 3e-4,
+                                   f"{what}: modified_charges",
+                                   scale="max"), 0.0)
+    torch.cuda.synchronize()
+    return {k: f"{e:.3e} ({r:.3e} of sum|terms|)" if r else f"{e:.3e}"
+            for k, (e, r) in worst.items()}
+
+
+def phase_serve_ensemble(dev, smi):
+    """12a: an EnsemblePlan over SERVE_SIZES (Yukawa, a kappa per system
+    as device tensors): execute and potential_and_forces beside the sum
+    of the 8 single-system plans' times, the launches a call, each system
+    against an f64 direct sum and against its own single-system plan,
+    each lane kernel on the stacked shapes against its bound, and each
+    kernel against its plain version on the first 64 batch rows of every
+    system."""
+    import numpy as np
+    import torch
+    from repro_torch.core import eval as ev
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.core.direct import direct_field, direct_sum
+    from repro_torch.core.potentials import yukawa
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import ops
+    from repro_torch.serve import EnsemblePlan
+
+    cfg = serve_config()
+    rng = np.random.default_rng(1212)
+    xs = [rng.uniform(-1, 1, (n, 3)).astype(np.float32) for n in SERVE_SIZES]
+    qs = [torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32),
+                          device=dev) for n in SERVE_SIZES]
+    W = len(xs)
+    kappa = torch.linspace(0.5, 2.0, W, device=dev)
+    params = [{"kappa": kappa[i]} for i in range(W)]
+    t0 = time.perf_counter()
+    plan = EnsemblePlan.build(cfg, xs)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    caps = plan.capacities
+    slab = plan._charges(qs)
+    kp = plan._params(params)
+    opts = cfg.exec_opts(plan.kernel)
+
+    zero_launch_counts()
+    phi = plan.execute(slab, kernel_params=params)
+    torch.cuda.synchronize()
+    ex = launch_counts()
+    zero_launch_counts()
+    phi2, F = plan.potential_and_forces(slab, kernel_params=params)
+    torch.cuda.synchronize()
+    pf = launch_counts()
+    assert ex == (2, 2, 0, 0), f"execute launches {ex}"
+    assert pf == (0, 2, 1, 1), f"potential_and_forces launches {pf}"
+    exec_ms = event_ms(lambda: plan.execute(slab, kernel_params=params), 7)
+    pf_ms = event_ms(lambda: plan.potential_and_forces(
+        slab, kernel_params=params), 7)
+
+    singles, single_exec, single_pf, vs_single = [], [], [], []
+    for i, x in enumerate(xs):
+        sp = TreecodeSolver(cfg).plan(x)
+        kpi = {"kappa": kappa[i]}
+        single_exec.append(event_ms(lambda: sp.execute(
+            qs[i], kernel_params=kpi), 7))
+        single_pf.append(event_ms(lambda: sp.potential_and_forces(
+            qs[i], kernel_params=kpi), 7))
+        n = len(x)
+        ref_phi = sp.execute(qs[i], kernel_params=kpi)
+        ref_phi2, ref_F = sp.potential_and_forces(qs[i], kernel_params=kpi)
+        vs_single.append(max(rel2(phi[i, :n], ref_phi),
+                             rel2(phi2[i, :n], ref_phi2),
+                             rel2(F[i, :n], ref_F)))
+        assert vs_single[-1] <= 1e-6, (i, vs_single[-1])
+        del sp
+    errs, ferrs = [], []
+    for i, x in enumerate(xs):
+        n = len(x)
+        sample = torch.as_tensor(rng.choice(n, 1000, replace=False),
+                                 device=dev)
+        x64 = torch.as_tensor(x, dtype=torch.float64, device=dev)
+        q64 = qs[i].double()
+        kern = yukawa(float(kappa[i]))
+        ref = direct_sum(x64[sample], x64, q64, kernel=kern,
+                         source_chunk=1 << 15)
+        _, grad = direct_field(x64[sample], x64, q64, kernel=kern,
+                               source_chunk=1 << 14)
+        errs.append(rel2(phi[i, sample].double(), ref))
+        ferrs.append(rel2(F[i, sample].double(), -q64[sample, None] * grad))
+        assert torch.isfinite(phi[i]).all() and torch.isfinite(F[i]).all()
+        assert (phi[i, n:] == 0).all() and (F[i, n:] == 0).all(), i
+        assert errs[-1] <= 1e-5, (i, errs[-1])
+        assert ferrs[-1] <= FORCE_BAR, (i, ferrs[-1])
+    print(f"[12a] EnsemblePlan of {W} systems {SERVE_SIZES} "
+          f"({sum(SERVE_SIZES)} points), Yukawa kappa 0.5..2.0 per system "
+          f"(device tensors), Fig. 4 statics: host build {build_ms:.1f} ms; "
+          f"point budget {caps.num_targets}, batches {caps.num_batches} x "
+          f"{caps.batch_width}, nodes {caps.num_nodes}, approx width "
+          f"{caps.approx_width}, direct width {caps.direct_width}; launches "
+          f"a call (batch_cluster, modified_charges, field, grid field): "
+          f"execute {ex}, potential_and_forces {pf}", flush=True)
+    print(f"[12a] execute {exec_ms:.3f} ms, potential_and_forces "
+          f"{pf_ms:.3f} ms (CUDA events, median of 7); the 8 single-system "
+          f"plans in the same run: execute {sum(single_exec):.3f} ms, "
+          f"potential_and_forces {sum(single_pf):.3f} ms in all "
+          f"(stacked / sum: {exec_ms / sum(single_exec):.3f}, "
+          f"{pf_ms / sum(single_pf):.3f}; {smi})", flush=True)
+    print(f"[12a] per system vs f64 direct sum on 1000 sampled targets: phi "
+          f"rel 2-norm max {max(errs):.3e} (bar 1e-5), forces max "
+          f"{max(ferrs):.3e} (bar {FORCE_BAR}); vs its own single-system "
+          f"plan (phi, forces) max {max(vs_single):.3e} (bar 1e-6); padded "
+          f"slots exactly 0", flush=True)
+
+    # the lanes as the executors feed them, per kernel: stacked times and
+    # bounds; then every kernel against its plain version
+    a = plan.arrays
+    degree, n1 = cfg.degree, cfg.degree + 1
+    lane_kw = dict(degree=degree, space=cfg.space, backend="cuda",
+                   theta=cfg.theta, skin=cfg.skin)
+    pot = ev.lane_inputs(a, slab, **lane_kw)
+    fld = ev.lane_inputs(a, slab, grid_nodes=True, **lane_kw)
+    kern = plan.kernel.stripped()
+    leaf_counts = (a["leaf_gather"] >= 0).sum(-1)
+    n1c = torch.full(a["node_lo"].shape[:2], n1 ** 3, device=dev)
+    lines = []
+    for name, lanes in (("batch_cluster", pot), ("field", fld)):
+        for lane, (idx, pts, qq, cnt) in lanes.items():
+            op = ops.batch_cluster_eval if name == "batch_cluster" \
+                else field_lane(lane)[0]
+            ms = event_ms(lambda: op(idx, a["tgt_batched"], pts, qq, kp,
+                                     backend="cuda", kernel=kern, **cnt), 5)
+            view, fidx, m_of = flat_systems(
+                a, idx, leaf_counts if lane == "direct" else n1c)
+            if name == "batch_cluster":
+                bd = bc_bound(view, fidx, m_of, 4, (pts.numel()
+                              + qq.numel()) * 4, None)
+            elif lane == "approx":
+                bd = bc_bound(view, fidx, m_of, 4, (pts.numel()
+                              + qq.numel()) * 4, None, outputs=4,
+                              flops=lambda p: grid_flops(p, n1))
+            else:
+                bd = bc_bound(view, fidx, m_of, 4, (pts.numel()
+                              + qq.numel()) * 4, None,
+                              FIELD_FLOPS_PER_PAIR, 4)
+            lines.append(f"{op.__name__} {lane} {tuple(idx.shape)}: "
+                         f"{ms:.3f} ms, {bd['pairs']:.4e} pairs, "
+                         f"{bound_text(bd, smi)}")
+    inp = ev.kernel_inputs(a, slab, degree=degree, grids=False)
+    mc_args = (a["src_sorted"], inp.q_sorted, a["mc_chunks"],
+               a["mc_chunk_ptr"], a["node_lo"], a["node_hi"])
+    mc_ms = event_ms(lambda: ops.modified_charges_ranged(
+        *mc_args, degree=degree, backend="cuda"), 7)
+    rows = 64
+    worst = stacked_rows_check(a, slab, kp, cfg, plan.kernel, "12a", rows)
+    print("[12a] stacked lanes (W = 8, CUDA events, median of 5): "
+          + "; ".join(lines), flush=True)
+    mc_bound_ms, mc_side = mc_bound(plan, degree, 4)
+    print(f"[12a] modified_charges on the stack: {mc_ms:.3f} ms over "
+          f"{a['mc_chunks'].shape[0] * a['mc_chunks'].shape[1]} chunk rows, "
+          f"bound {mc_bound_ms:.4f} ms by {mc_side} ({smi}); "
+          f"each kernel vs its plain version (first {rows} batch rows of "
+          f"every system; the modified charges on every node; "
+          f"{STACKED_ROWS_RULE}): max abs err {worst}", flush=True)
+    assert (bcm.LAUNCHES, bcm.FIELD_LAUNCHES) != (0, 0)
+
+
+def phase_serve_kappa_scan(dev):
+    """12b: five kappas over one geometry (W = 5): the warm call runs
+    under torch.cuda.set_sync_debug_mode("error"), with no rebuild; each
+    row against a single-system plan of its kappa."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.kernels import _build
+    from repro_torch.serve import EnsemblePlan
+
+    cfg = serve_config()
+    rng = np.random.default_rng(1213)
+    n = SERVE_SIZES[2]
+    x = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    q = torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32), device=dev)
+    kappas = torch.linspace(0.25, 2.0, 5, device=dev)
+    plan = EnsemblePlan.build(cfg, [x] * 5)
+    slab = plan._charges([q] * 5)
+    params = [{"kappa": kappas[i]} for i in range(5)]
+    plan.execute(slab, kernel_params=params)           # warm
+    torch.cuda.synchronize()
+    libs, built = dict(_build._LIBS), dict(_build.BUILD_SECONDS)
+    zero_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        phi = plan.execute(slab, kernel_params=params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    assert launched == (2, 2, 0, 0), launched
+    assert _build._LIBS == libs and _build.BUILD_SECONDS == built, \
+        "a kernel was rebuilt or reloaded"
+    single = TreecodeSolver(cfg).plan(x)
+    errs = [rel2(phi[i, :n], single.execute(q, kernel_params={
+        "kappa": kappas[i]})) for i in range(5)]
+    assert max(errs) <= 1e-6, errs
+    assert not torch.equal(phi[0], phi[1])
+    rows = 16
+    worst = stacked_rows_check(plan.arrays, slab, plan._params(params), cfg,
+                               plan.kernel, "12b", rows)
+    print(f"[12b] kappa scan {[round(float(k), 4) for k in kappas]} over one "
+          f"geometry of {n} points (W = 5): the warm call under "
+          f"set_sync_debug_mode('error'), no rebuild, launches {launched}; "
+          f"each row vs a single-system plan of its kappa max rel 2-norm "
+          f"{max(errs):.3e} (bar 1e-6); each kernel vs its plain version "
+          f"(first {rows} batch rows of every system; the modified charges "
+          f"on every node; {STACKED_ROWS_RULE}): max abs err {worst}",
+          flush=True)
+
+
+def phase_serve_frontend(dev):
+    """12c: ServeFrontend(max_batch 8) on 24 requests (sizes cycling
+    SERVE_REQUEST_SIZES, kappas SERVE_KAPPAS, forces every third), then
+    the same 24 again: latency, occupancy, flushes, buckets and the
+    compile counters; resubmission adds no compile, retrace or capacity
+    growth; every request against a single-system plan, and each
+    bucket's last flush through `stacked_rows_check`."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.serve import ServeFrontend, bucket_key
+
+    cfg = serve_config()
+    rng = np.random.default_rng(1214)
+    reqs = []
+    for i in range(24):
+        n = SERVE_REQUEST_SIZES[i % 3]
+        reqs.append((rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+                     rng.uniform(-1, 1, n).astype(np.float32),
+                     {"kappa": SERVE_KAPPAS[i % 3]}, i % 3 == 0))
+    fe = ServeFrontend(cfg, max_batch=8)
+
+    def submit_all():
+        t0 = time.perf_counter()
+        futs = [fe.submit(x, q, kernel_params=p, forces=f)
+                for x, q, p, f in reqs]
+        fe.flush()
+        out = [f.result() for f in futs]
+        return out, (time.perf_counter() - t0) * 1e3
+
+    zero_launch_counts()
+    first, first_ms = submit_all()
+    launched = launch_counts()
+    assert all(launched), f"a kernel of the service never ran: {launched}"
+    s1 = fe.stats()
+    kinds = 2
+    assert s1["compiles"] <= s1["num_buckets"] * kinds, s1
+    assert s1["retraces"] == 0, s1
+    again, again_ms = submit_all()
+    s2 = fe.stats()
+    warm = {k: s2[k] - s1[k] for k in ("compiles", "retraces",
+                                       "capacity_growths", "flushes")}
+    assert warm["compiles"] == warm["retraces"] == 0, warm
+    assert warm["capacity_growths"] == 0, warm
+    # every request (each slot of every flush) against a single-system
+    # plan on the first pass; the warm pass bitwise the first
+    errs = []
+    for i, (x, q, p, forces) in enumerate(reqs):
+        sp = TreecodeSolver(dataclasses.replace(cfg, kernel_params=p)).plan(x)
+        if forces:
+            phi, F = (t.cpu() for t in sp.potential_and_forces(
+                torch.as_tensor(q, device=dev)))
+            errs += [rel2(first[i][0], phi), rel2(first[i][1], F)]
+            assert torch.equal(again[i][0], first[i][0])
+            assert torch.equal(again[i][1], first[i][1])
+        else:
+            phi = sp.execute(torch.as_tensor(q, device=dev)).cpu()
+            errs.append(rel2(first[i], phi))
+            assert torch.equal(again[i], first[i])
+        del sp
+    assert max(errs) <= 1e-6, errs
+    # each bucket's last flush (the last max_batch requests it took) on
+    # its own stacked plan: every kernel against its plain version
+    rows, worst = 16, {}
+    for key, bucket in fe.buckets.items():
+        batch = [r for r in reqs
+                 if bucket_key(cfg, r[0].shape[0]) == key][-fe.max_batch:]
+        plan = bucket.plan
+        kp = plan._params([r[2] for r in batch])
+        worst[key[1]] = stacked_rows_check(
+            plan.arrays, plan._charges([r[1] for r in batch]), kp, cfg,
+            plan.kernel, f"12c bucket {key[1]}", rows)
+    lat = sorted(fe.latencies[len(fe.latencies) // 2:])
+    print(f"[12c] ServeFrontend(max_batch 8), 24 requests of "
+          f"{SERVE_REQUEST_SIZES} points, kappas {SERVE_KAPPAS}, forces "
+          f"every third: {s1['num_buckets']} buckets, {s1['flushes']} "
+          f"flushes, occupancy mean {s1['occupancy_mean']:.3f}, compiles "
+          f"{s1['compiles']} (bar {s1['num_buckets']} buckets x {kinds} "
+          f"kinds), retraces {s1['retraces']}, capacity growths "
+          f"{s1['capacity_growths']}; {first_ms:.1f} ms wall; launches "
+          f"{launched}", flush=True)
+    print(f"[12c] the same 24 again: {again_ms:.1f} ms wall, "
+          f"{warm['flushes']} flushes, compiles {warm['compiles']}, retraces "
+          f"{warm['retraces']}, capacity growths {warm['capacity_growths']}; "
+          f"latency p50 {lat[len(lat) // 2] * 1e3:.1f} ms, p99 "
+          f"{lat[min(len(lat) - 1, round(0.99 * (len(lat) - 1)))] * 1e3:.1f}"
+          f" ms (host clock, submit to resolve, warm pass; all requests: "
+          f"p50 {s2['latency_p50'] * 1e3:.1f}, p99 "
+          f"{s2['latency_p99'] * 1e3:.1f} ms); every request vs a "
+          f"single-system plan max rel 2-norm {max(errs):.3e} (bar 1e-6); "
+          f"each bucket's last flush, each kernel vs its plain version "
+          f"(first {rows} batch rows of every slot; the modified charges on "
+          f"every node; {STACKED_ROWS_RULE}), by bucket: max abs err "
+          f"{worst}", flush=True)
+
+
+def phase_serve_md(dev):
+    """12d: EnsembleMD of 8 replicas of a jittered 32^3 salt lattice
+    (Coulomb, dt 1e-5), SERVE_MD_STEPS refit-only steps: the launches a
+    step, every replica against a `Simulation(rebuild="never")` of the
+    same system and its f64 energy balance, every kernel against its
+    plain version on the refitted, skin-gated stacked arrays, and the
+    integrator's share of a step."""
+    import torch
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.dynamics import Simulation
+    from repro_torch.dynamics.integrators import MDState
+    from repro_torch.serve import EnsembleMD, EnsemblePlan
+
+    cfg = dataclasses.replace(serve_config("coulomb"), skin=0.01)
+    m = SERVE_MD_M
+    # phase 8's lattice spacing, so its dt and step count hold here too
+    # (steps move particles many f32 ulps, and end well before the
+    # closest opposite pairs meet)
+    spacing = 2.0 / MD_M
+    systems = [salt_lattice(m, -0.5 * m * spacing, spacing, seed=300 + i)
+               for i in range(8)]
+    xs, qs = [s[0] for s in systems], [s[1] for s in systems]
+    dt = 1e-5
+    plan = EnsemblePlan.build(cfg, xs)
+    md = EnsembleMD(plan, qs, dt=dt)
+    torch.cuda.synchronize()
+    phi0, v0 = md.state.phi.clone(), md.state.v.clone()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    md.run(SERVE_MD_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / SERVE_MD_STEPS
+    launched = launch_counts()
+    want = (0, 2 * SERVE_MD_STEPS, SERVE_MD_STEPS, SERVE_MD_STEPS)
+    assert launched == want, (launched, want)
+    assert torch.isfinite(md.state.x).all()
+    n = m ** 3
+    dxs, balances = [], []
+    for i, (x, q) in enumerate(zip(xs, qs)):
+        sim = Simulation(TreecodeSolver(cfg).plan(x, capacities="auto"),
+                         q, dt=dt, rebuild="never")
+        sim.run(SERVE_MD_STEPS)
+        dxs.append(rel2(md.split_positions()[i], sim.state.x))
+        assert dxs[-1] <= 1e-6, (i, dxs[-1])
+        del sim
+        q64 = torch.as_tensor(q, device=dev).double()
+        v = md.state.v[i, :n].double()
+        dke = 0.5 * (v * v - v0[i, :n].double() ** 2).sum().item()
+        dpe = 0.5 * (q64 * (md.state.phi[i, :n].double()
+                            - phi0[i, :n].double())).sum().item()
+        balances.append(abs(dke + dpe) / abs(dke))
+        assert balances[-1] <= ENERGY_BAR, (i, dke, dpe)
+    rows = 64
+    worst = stacked_rows_check(md.arrays, md.charges, plan.kernel_params,
+                               cfg, plan.kernel, "12d", rows)
+
+    # the integrator's half-steps on the stacked state against a loop of
+    # per-replica half-steps restacked (CUDA events, median of 7)
+    st, f, phi, inv_m = md.state, md.state.f, md.state.phi, md._inv_m
+    pre, post = md.integrator.pre, md.integrator.post
+
+    def stacked_steps():
+        post(pre(st, dt, inv_m), phi, f, dt, inv_m)
+
+    def per_replica_steps():
+        for half in (pre, post):
+            out = [half(MDState(st.x[i], st.v[i], st.f[i], st.phi[i],
+                                st.key[i]),
+                        *((phi[i], f[i]) if half is post else ()), dt, inv_m)
+                   for i in range(len(st.key))]
+            MDState(*(torch.stack([getattr(o, k) for o in out])
+                      for k in ("x", "v", "f", "phi")), key=st.key)
+    integ_ms = event_ms(stacked_steps, 7)
+    loop_ms = event_ms(per_replica_steps, 7)
+    print(f"[12d] EnsembleMD of 8 replicas of a jittered {m}^3 salt lattice "
+          f"(spacing {spacing}, {8 * n} particles), Coulomb, dt {dt}, skin "
+          f"{cfg.skin}: "
+          f"{SERVE_MD_STEPS} refit steps at {step_ms:.3f} ms a step (host "
+          f"clock, synchronized); launches {launched} (batch_cluster, "
+          f"modified_charges, field, grid field); every replica vs its own "
+          f"Simulation(rebuild='never') positions rel 2-norm max "
+          f"{max(dxs):.3e} (bar 1e-6); energy balance |dKE + dPE| / dKE "
+          f"max {max(balances):.3e} over the replicas (bar {ENERGY_BAR})",
+          flush=True)
+    print(f"[12d] each kernel vs its plain version on the refitted, "
+          f"skin-gated stack (first {rows} batch rows of every replica; the "
+          f"modified charges on every node; {STACKED_ROWS_RULE}): max abs "
+          f"err {worst}; the "
+          f"integrator's two half-steps {integ_ms:.3f} ms on the stacked "
+          f"state, {loop_ms:.3f} ms as a per-replica loop (CUDA events, "
+          f"median of 7)", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2054,6 +2754,11 @@ def main() -> int:
     phase_device_plan(dev, smi, x, q)
     phase_hierarchical(dev, x, q, next(e["ms"] for e in report
                                        if e["name"] == "modified_charges"))
+    del x, q
+    phase_serve_ensemble(dev, smi)
+    phase_serve_kappa_scan(dev)
+    phase_serve_frontend(dev)
+    phase_serve_md(dev)
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(smi)

@@ -41,8 +41,11 @@ engine's ``async_replan``). ``precompute="hierarchical"`` takes the
 internal clusters' modified charges from their children; like the
 reference, it needs the host build.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): point budgets and sharded plans (nranks > 1).
+Point budgets (`core.eval.Capacities.num_targets` / `num_sources`) pad
+plans over different particle counts to one shape; `repro_torch.serve`
+stacks such plans into ensembles that run every kernel once for all
+systems. Not in this slice (raises NotImplementedError naming its
+ROADMAP item): sharded plans (nranks > 1).
 """
 from __future__ import annotations
 

@@ -19,7 +19,13 @@ the plan's device. It also takes a reference plan's arrays (pulled to
 NumPy), which is how the tests run both packages on one plan.
 
 Capacity padding (`Capacities`, `pad_plan`, `plan_signature`) re-pads a
-plan into a fixed budget so MD replans keep every array shape.
+plan into a fixed budget so MD replans keep every array shape. Point
+budgets (`Capacities.num_targets` / `num_sources`) pad the particle axes
+too, so plans over different particle counts share every shape: the
+ensemble setting of `repro_torch.serve`, whose executors
+(`ensemble_execute`, `ensemble_potential_and_forces`) run the same
+pipeline over stacked plan arrays with a leading systems axis, one
+launch per kernel for all systems.
 
 ``precompute="hierarchical"`` (`compute_qhat_hierarchical`) takes the
 leaves' modified charges from their particles and every internal
@@ -43,6 +49,8 @@ from repro_torch.core.space import FREE as _FREE
 from repro_torch.core.tree import Batches, Tree, build_batches, build_tree
 from repro_torch.kernels import ops
 from repro_torch.kernels.modified_charges import chunk_table
+from repro_torch.kernels.ops import take as _take
+from repro_torch.obs import events as _events
 from repro_torch.obs import trace as _trace
 
 
@@ -350,14 +358,21 @@ def _pack(targets, sources, tree, batches, lists, dtype) -> dict:
     )
 
 
-def _gathered(src_sorted, q_sorted, gather):
+def stacked(arrays: dict) -> bool:
+    """True for an ensemble's stacked plan arrays (a leading systems axis
+    on every array), False for one plan's."""
+    return arrays["node_lo"].dim() == 3
+
+
+def _gathered(src_sorted, q_sorted, gather, st: bool = False):
     """(rows, pad, 3) points and (rows, pad) charges from a -1-padded
-    gather table; padded slots hold the origin and charge 0."""
+    gather table; padded slots hold the origin and charge 0 (``st``: a
+    leading systems axis on all three)."""
     valid = gather >= 0
     safe = gather.clamp(min=0)
     zero = torch.zeros((), dtype=src_sorted.dtype, device=src_sorted.device)
-    pts = torch.where(valid[..., None], src_sorted[safe], zero)
-    q = torch.where(valid, q_sorted[safe], zero)
+    pts = torch.where(valid[..., None], _take(src_sorted, safe, st), zero)
+    q = torch.where(valid, _take(q_sorted, safe, st), zero)
     return pts, q
 
 
@@ -383,17 +398,19 @@ def kernel_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
     (``grids=False``: no Chebyshev grid points, for the grid field kernel).
 
     The packing fills batch rows and leaves from slot 0, so the counts are
-    the prefix lengths the batch-cluster kernel sweeps."""
-    q_sorted = charges[arrays["src_perm"]]
+    the prefix lengths the batch-cluster kernel sweeps. Stacked arrays
+    and charges (W, N) give every input with a leading systems axis."""
+    st = stacked(arrays)
+    q_sorted = _take(charges, arrays["src_perm"], st)
     leaf_pts, leaf_q = _gathered(arrays["src_sorted"], q_sorted,
-                                 arrays["leaf_gather"])
+                                 arrays["leaf_gather"], st)
     return KernelInputs(
         q_sorted=q_sorted,
         grids=(cheby.cluster_grid(arrays["node_lo"], arrays["node_hi"],
                                   degree) if grids else None),
         leaf_pts=leaf_pts, leaf_q=leaf_q,
-        tgt_count=arrays["tgt_mask"].sum(1, dtype=torch.int32),
-        leaf_count=(arrays["leaf_gather"] >= 0).sum(1, dtype=torch.int32))
+        tgt_count=arrays["tgt_mask"].sum(-1, dtype=torch.int32),
+        leaf_count=(arrays["leaf_gather"] >= 0).sum(-1, dtype=torch.int32))
 
 
 def compute_qhat_direct(arrays, q_sorted, *, degree, backend):
@@ -417,7 +434,9 @@ def compute_qhat_hierarchical(arrays, q_sorted, *, degree, backend):
 
         qhat_p[k] = sum_child sum_k' (prod_l L^p_{k_l}(s^c_{k'_l})) qhat_c[k'].
 
-    Cost O((n+1)^3 N) for the leaves + O(nodes (n+1)^4) for the pass."""
+    Cost O((n+1)^3 N) for the leaves + O(nodes (n+1)^4) for the pass.
+    Stacked arrays run the pass for every system at once."""
+    st = stacked(arrays)
     lo, hi = arrays["node_lo"], arrays["node_hi"]
     chunks, ptr = (arrays[k] for k in LEAF_CHUNK_KEYS)
     qhat = ops.modified_charges_ranged(
@@ -430,30 +449,41 @@ def compute_qhat_hierarchical(arrays, q_sorted, *, degree, backend):
     eps = torch.finfo(dt).eps
     for pairs, kids in zip(arrays["upward_pairs"],
                            arrays["upward_children"]):  # deepest first
-        parents, children = pairs[:, 0], pairs[:, 1]
+        parents, children = pairs[..., 0], pairs[..., 1]
+        p_lo, p_hi = _take(lo, parents, st), _take(hi, parents, st)
+        c_lo, c_hi = _take(lo, children, st), _take(hi, children, st)
         rows = []
         for ax in range(3):
             child_nodes = cheby.map_points(
-                s01, lo[children, ax:ax + 1], hi[children, ax:ax + 1])
+                s01, c_lo[..., ax:ax + 1], c_hi[..., ax:ax + 1])
             parent_nodes = cheby.map_points(
-                s01, lo[parents, ax:ax + 1], hi[parents, ax:ax + 1])
+                s01, p_lo[..., ax:ax + 1], p_hi[..., ax:ax + 1])
             # child grids share corners with the parent box up to
             # rounding: a hit within ~64 ulp of the span
-            tol = (64.0 * eps) * (hi[parents, ax] - lo[parents, ax])
-            t, den = cheby.bary_terms(child_nodes, parent_nodes[:, None, :],
-                                      w, tol=tol[:, None, None])
+            tol = (64.0 * eps) * (p_hi[..., ax] - p_lo[..., ax])
+            t, den = cheby.bary_terms(child_nodes,
+                                      parent_nodes[..., None, :], w,
+                                      tol=tol[..., None, None])
             rows.append(t / den[..., None])  # (P, n1 child, n1 parent)
-        qc = qhat[children].reshape(-1, n1, n1, n1)
-        contrib = torch.einsum("pxa,pyb,pzc,pxyz->pabc",
+        qc = _take(qhat, children, st).reshape(
+            children.shape + (n1, n1, n1))
+        contrib = torch.einsum("...pxa,...pyb,...pzc,...pxyz->...pabc",
                                rows[0], rows[1], rows[2], qc)
         # each parent's children summed in pair order on its first pair's
         # row (-1 picks the zero row put last), the other rows 0: every
         # parent gets one nonzero sum onto its 0, so the add is exact in
         # any order (no float atomics decide the result on the card)
-        contrib = contrib.reshape(-1, n1 ** 3)
-        summed = torch.cat([contrib, contrib.new_zeros((1, n1 ** 3))])[
-            kids].sum(1)
-        qhat.index_add_(0, parents, summed)
+        contrib = contrib.reshape(contrib.shape[:-3] + (n1 ** 3,))
+        padded = torch.cat([contrib, contrib.new_zeros(
+            contrib.shape[:-2] + (1, n1 ** 3))], dim=-2)
+        last = padded.shape[-2] - 1
+        summed = _take(padded, torch.where(kids >= 0, kids, last),
+                       st).sum(-2)
+        # every system's rows at once, in the flattened table
+        off = (torch.arange(qhat.shape[0], device=parents.device)[:, None]
+               * qhat.shape[1]) if st else 0
+        qhat.view(-1, n1 ** 3).index_add_(
+            0, (parents + off).flatten(), summed.reshape(-1, n1 ** 3))
     return qhat
 
 
@@ -483,7 +513,7 @@ def _skin_routed_lists(arrays: dict, theta: float, space):
     skin_direct = torch.where(gate_d, torch.full_like(gate_d, -1,
                                                       dtype=torch.int32),
                               arrays["skin_direct"])
-    direct_idx = torch.cat([arrays["direct_idx"], skin_direct], dim=1)
+    direct_idx = torch.cat([arrays["direct_idx"], skin_direct], dim=-1)
     return approx_idx, direct_idx
 
 
@@ -556,7 +586,8 @@ def _sweep(span: str, arrays: dict, charges: torch.Tensor, params, *,
                 space=space, backend=backend, kahan=kahan, **counts)
             _trace.sync(charges.device)
         out = y if out is None else out + y
-    return out.flatten(0, 1)[arrays["gather_index"]]
+    st = stacked(arrays)
+    return _take(out.flatten(int(st), int(st) + 1), arrays["gather_index"], st)
 
 
 def _execute_impl(arrays: dict, charges: torch.Tensor, params=None,
@@ -599,7 +630,7 @@ def potential_and_gradient(arrays: dict, charges: torch.Tensor,
     needs the displacement; against the matmul form only rounding
     differs)."""
     f = _sweep("field", arrays, charges, params, **opts)
-    return f[:, 0], f[:, 1:]
+    return f[..., 0], f[..., 1:]
 
 
 def potential_and_forces(arrays: dict, charges: torch.Tensor,
@@ -610,7 +641,7 @@ def potential_and_forces(arrays: dict, charges: torch.Tensor,
     force -q_i grad phi(x_i). `opts` are those of
     `potential_and_gradient`."""
     phi, g = potential_and_gradient(arrays, charges, params, **opts)
-    return phi, -weights[:, None] * g
+    return phi, -weights[..., None] * g
 
 
 # ---------------------------------------------------------------------------
@@ -634,11 +665,13 @@ def potential_and_forces(arrays: dict, charges: torch.Tensor,
 #   - the port's chunk table of the modified charges: `mc_chunk_ptr`
 #     padded to num_nodes + 1 with its last value (scratch and padded
 #     nodes own no chunk, so their q_hat is 0), `mc_chunks` to a chunk
-#     budget with empty ranges (scratch, 0, 0).
-
-#: ROADMAP item that point budgets (the serving setting) wait for.
-_POINTS_LATER = ("point budgets (num_targets / num_sources, the serving "
-                 "setting) are not ported yet (ROADMAP queue A: serving)")
+#     budget with empty ranges (scratch, 0, 0);
+#   - with point budgets: padded gather_index entries point at the first
+#     slot of the SCRATCH BATCH row (the last one, masked and list-free,
+#     so its potential is exactly 0), src_sorted gets zero rows and
+#     src_perm the slots arange(N, num_sources) (charges arrive padded
+#     with zeros); padded particles lie in no node's range, so they own
+#     no chunk.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -651,9 +684,19 @@ class Capacities:
     leaves' one (0 without it). `upward_rows` budgets the upward pass's
     (parent, child) pairs per level; `sparse_rows` /
     `batch_sparse_rows` the occupied cells of a device-built octree's
-    levels past its dense split (`repro_torch.devtree`). `num_targets` /
-    `num_sources` are the reference's opt-in point budgets of the
-    serving setting: 0 here, and asking for them raises."""
+    levels past its dense split (`repro_torch.devtree`).
+
+    `num_targets` / `num_sources` are the opt-in point budgets of the
+    ensemble setting (`repro_torch.serve`): 0, the MD default, leaves the
+    particle axes unpadded. When set, `pad_plan` also pads the source
+    slab, the source permutation and the targets' `gather_index`, so
+    plans over DIFFERENT particle counts become shape-identical and stack
+    along a systems axis; such plans reserve one scratch batch row (the
+    last) that absorbs the padded `gather_index` entries, and their
+    executors take charges padded with zeros to `num_sources`. Point
+    budgets enter only through needs dicts with explicit
+    ``num_targets`` / ``num_sources`` keys; `for_plan` / `grown_to_fit`
+    never enable them."""
 
     num_batches: int
     batch_width: int
@@ -676,13 +719,19 @@ class Capacities:
     headroom: float = 1.15
     growth: float = 1.5
 
-    def __post_init__(self):
-        if self.num_targets or self.num_sources:
-            raise NotImplementedError(_POINTS_LATER)
-
     @property
     def scratch_node(self) -> int:
         return self.num_nodes - 1
+
+    @property
+    def points_budgeted(self) -> bool:
+        return self.num_targets > 0
+
+    @property
+    def scratch_batch(self) -> int:
+        """The batch row absorbing padded gather_index entries (point
+        budgets only; its slots are never real targets)."""
+        return self.num_batches - 1
 
     @classmethod
     def for_plan(cls, plan: Plan, headroom: float = 1.15,
@@ -693,15 +742,22 @@ class Capacities:
     @classmethod
     def for_need(cls, need: dict, headroom: float = 1.15,
                  growth: float = 1.5, base: int = 8) -> "Capacities":
-        """Initial budget from a needs dict (`_plan_dims` keys)."""
-        if need.get("num_targets", 0) or need.get("num_sources", 0):
-            raise NotImplementedError(_POINTS_LATER)
+        """Initial budget from a needs dict (`_plan_dims` keys).
+
+        Explicit ``num_targets`` / ``num_sources`` keys enable the point
+        budgets and reserve the scratch batch row. `headroom` / `base`
+        trade slack against padded kernel work: the MD default (1.15 / 8)
+        buys drift room; ensembles want tight budgets (1.0 / 1), since
+        their padded slots are work multiplied by the ensemble width."""
 
         def h(x):
             return _round_up(int(np.ceil(x * headroom)), base)
 
+        points = bool(need.get("num_targets", 0))
         return cls(
-            num_batches=h(need["num_batches"]),
+            num_targets=_round_up(need["num_targets"], base) if points else 0,
+            num_sources=_round_up(need["num_sources"], base) if points else 0,
+            num_batches=h(need["num_batches"]) + (1 if points else 0),
             batch_width=h(need["batch_width"]),
             num_leaves=h(need["num_leaves"]),
             leaf_width=h(need["leaf_width"]),
@@ -728,9 +784,8 @@ class Capacities:
         return self.grown_to_fit_need(_plan_dims(plan))
 
     def grown_to_fit_need(self, need: dict) -> "Capacities":
-        """`grown_to_fit` from a needs dict (`_plan_dims` keys)."""
-        if need.get("num_targets", 0) or need.get("num_sources", 0):
-            raise NotImplementedError(_POINTS_LATER)
+        """`grown_to_fit` from a needs dict (`_plan_dims` keys, and the
+        point keys when the budget has them)."""
 
         def g(cap, n, rounder=_round_up):
             if n <= cap:
@@ -744,9 +799,17 @@ class Capacities:
             return tuple(g(c, n, rounder) for c, n
                          in zip(caps, tuple(needs) + (0,) * len(caps)))
 
+        # point budgets grow only when active; the +1 keeps the scratch
+        # batch row (the last one) clear of real target batches
+        points = self.points_budgeted
         return dataclasses.replace(
             self,
-            num_batches=g(self.num_batches, need["num_batches"]),
+            num_targets=(g(self.num_targets, need.get("num_targets", 0))
+                         if points else 0),
+            num_sources=(g(self.num_sources, need.get("num_sources", 0))
+                         if points else 0),
+            num_batches=g(self.num_batches,
+                          need["num_batches"] + (1 if points else 0)),
             batch_width=g(self.batch_width, need["batch_width"]),
             num_leaves=g(self.num_leaves, need["num_leaves"]),
             leaf_width=g(self.leaf_width, need["leaf_width"]),
@@ -814,7 +877,9 @@ def pad_plan(plan: Plan, caps: Capacities) -> Plan:
     The returned plan computes the same potentials and forces (every
     padded slot is masked, or owned by the scratch node) but its array
     shapes depend only on `caps`. The padding runs on the plan's device;
-    the host trees are kept for diagnostics."""
+    the host trees are kept for diagnostics. With point budgets its
+    executors take charges padded with zeros to `caps.num_sources` and
+    give `caps.num_targets` potentials, exactly 0 past the real ones."""
     with _trace.span("plan.pad"):
         return _pad_plan_impl(plan, caps)
 
@@ -825,6 +890,15 @@ def _pad_plan_impl(plan: Plan, caps: Capacities) -> Plan:
         raise ValueError(
             "capacities do not fit this plan; call caps.grown_to_fit(plan) "
             "first (the growth is a deliberate, counted event)")
+    if caps.points_budgeted and (plan.num_targets > caps.num_targets
+                                 or plan.num_sources > caps.num_sources):
+        # `fits` cannot see this: point budgets grow only through needs
+        # dicts with explicit num_targets / num_sources keys
+        raise ValueError(
+            f"plan ({plan.num_targets} targets / {plan.num_sources} "
+            f"sources) exceeds the point budget ({caps.num_targets} / "
+            f"{caps.num_sources}); grow via grown_to_fit_need with "
+            f"explicit num_targets/num_sources keys")
     a = plan.arrays
     scratch = caps.scratch_node
     nb_old = a["tgt_batched"].shape[1]
@@ -852,6 +926,18 @@ def _pad_plan_impl(plan: Plan, caps: Capacities) -> Plan:
         tgt_mask=_pad_to(a["tgt_mask"], rows + (caps.batch_width,), False),
         parent_of=_pad_to(a["parent_of"], (caps.num_nodes,), scratch),
     )
+    if caps.points_budgeted:
+        if a["tgt_batched"].shape[0] >= caps.num_batches:
+            raise ValueError("point-budgeted capacities must keep the "
+                             "scratch batch row free of real batches")
+        nt, ns = plan.num_targets, plan.num_sources
+        out["gather_index"] = torch.cat([gi, gi.new_full(
+            (caps.num_targets - nt,),
+            caps.scratch_batch * caps.batch_width)])
+        out["src_sorted"] = _pad_to(a["src_sorted"], (caps.num_sources,), 0)
+        out["src_perm"] = torch.cat([a["src_perm"], torch.arange(
+            ns, caps.num_sources, dtype=a["src_perm"].dtype,
+            device=a["src_perm"].device)])
     bgs, bns = [], []
     for lvl in range(caps.depth):
         shape = (caps.bucket_rows[lvl], caps.bucket_widths[lvl])
@@ -905,14 +991,81 @@ def _pad_chunks(chunks, ptr, rows: int, caps: Capacities):
     return out, out_ptr
 
 
-def plan_signature(plan: Plan) -> Tuple:
+def plan_signature(plan) -> Tuple:
     """Hashable shape/dtype signature of a plan's device arrays (the chunk
     table's budget included): equal signatures mean equal shapes, the
-    MD engine's test for a capacity growth."""
+    MD engine's test for a capacity growth. Any object with `arrays`
+    (an ensemble's stacked ones too) has one."""
+    return _arrays_signature(plan.arrays)
+
+
+def _arrays_signature(arrays: dict) -> Tuple:
     def leaf_sig(v):
         return (tuple(v.shape), str(v.dtype))
 
     return tuple(sorted(
         (k, tuple(leaf_sig(x) for x in v) if isinstance(v, tuple)
          else leaf_sig(v))
-        for k, v in plan.arrays.items()))
+        for k, v in arrays.items()))
+
+
+# ---------------------------------------------------------------------------
+# Ensemble executors: one launch per kernel over a leading systems axis
+# ---------------------------------------------------------------------------
+#
+# Plans padded into one point-budgeted `Capacities` have identical shapes,
+# so W of them stack along a leading axis (every array (W, ...)), and the
+# executors above run on the stack as they are (`_execute_impl`,
+# `potential_and_forces`: the reference's `_ensemble_execute_impl` and
+# `_ensemble_pf_impl` are their vmaps): the gathers take each
+# system's rows (`ops.take`), and each kernel makes ONE launch for all W
+# systems (the systems axis of `kernels.ops`), with per-system charges
+# (W, num_sources), weights and kernel parameter values (every leaf with
+# a leading W). This is the counterpart of the reference's vmapped
+# executors, and what `repro_torch.serve` builds on. Nothing is traced, so
+# a "compile" is what `obs.events.log_compiles` counts: the first call of
+# an executor on a stacked signature, plus kernel libraries built during
+# a call (`ensemble_compile_count`).
+
+#: Owner of the ensemble executors' events in `repro_torch.obs.events`.
+ENSEMBLE_OWNER = _events.owner_token("ensemble")
+_ENSEMBLE_SEEN = {"ensemble_execute": set(),
+                  "ensemble_potential_and_forces": set()}
+
+
+def _logged(label: str, fn, arrays: dict, charges: torch.Tensor, *args,
+            **opts):
+    key = (_arrays_signature(arrays), tuple(charges.shape),
+           str(charges.dtype), tuple(sorted(
+               (k, repr(v)) for k, v in opts.items())))
+    out, _ = _events.log_compiles(label, fn, arrays, charges, *args,
+                                  key=key, seen=_ENSEMBLE_SEEN[label],
+                                  site="core.eval", owner=ENSEMBLE_OWNER,
+                                  **opts)
+    return out
+
+
+def ensemble_execute(arrays: dict, charges: torch.Tensor, params=None,
+                     **opts) -> torch.Tensor:
+    """Stacked potentials (W, num_targets) for W systems, padded target
+    slots exactly 0: one modified-charge call and one batch-cluster
+    launch per lane. `opts` are `_execute_impl`'s."""
+    return _logged("ensemble_execute", _execute_impl, arrays, charges,
+                   params, **opts)
+
+
+def ensemble_potential_and_forces(arrays: dict, charges: torch.Tensor,
+                                  weights: torch.Tensor, params=None,
+                                  **opts):
+    """Stacked (phi (W, num_targets), F (W, num_targets, 3)) for W
+    systems: one modified-charge call and one field launch per lane.
+    Padded slots carry zero weights, so their forces are exactly 0."""
+    return _logged("ensemble_potential_and_forces", potential_and_forces,
+                   arrays, charges, weights, params, **opts)
+
+
+def ensemble_compile_count() -> int:
+    """Events of the ensemble executors so far (first calls on a stacked
+    signature and kernel builds during their calls): serving's compile
+    and retrace counters difference it."""
+    return _events.log.count(owner=ENSEMBLE_OWNER)

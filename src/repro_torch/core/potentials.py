@@ -17,7 +17,10 @@ Kernel parameters:
     optionally names the entries so user APIs accept ``{"kappa": 0.7}``.
   - `pack_params` flattens a params tuple into ONE flat tensor on the
     target device: the CUDA batch-cluster kernel reads its parameters
-    through that device pointer.
+    through that device pointer. Its stacked form (``systems=W``) packs
+    per-system values, every leaf with a leading W, into (W, P) rows,
+    one per system of an ensemble; `system_params` picks one system's
+    values out of such a tree.
 """
 from __future__ import annotations
 
@@ -202,14 +205,38 @@ def resolve_kernel(kernel, **params) -> Kernel:
                     f"{type(kernel).__name__}")
 
 
-def pack_params(params, *, dtype, device) -> torch.Tensor:
+def pack_params(params, *, dtype, device, systems=None) -> torch.Tensor:
     """Flatten a params tree into one flat (max(P, 1),) tensor.
 
     Tensor leaves already on `device` are concatenated there (no host
     round trip); Python floats are uploaded. An empty tree packs to one
-    zero so the kernel signature is uniform."""
+    zero so the kernel signature is uniform. With ``systems=W`` each leaf
+    carries a leading systems axis (a scalar is shared by every system)
+    and the result is (W, max(P, 1)), system w's values in row w."""
     leaves = _leaves(params)
+    if systems is None:
+        if not leaves:
+            return torch.zeros(1, dtype=dtype, device=device)
+        return torch.cat([torch.as_tensor(v, dtype=dtype, device=device)
+                          .reshape(-1) for v in leaves])
     if not leaves:
-        return torch.zeros(1, dtype=dtype, device=device)
-    return torch.cat([torch.as_tensor(v, dtype=dtype, device=device)
-                      .reshape(-1) for v in leaves])
+        return torch.zeros((systems, 1), dtype=dtype, device=device)
+    rows = []
+    for v in leaves:
+        t = torch.as_tensor(v, dtype=dtype, device=device)
+        rows.append(t.expand(systems) if t.dim() == 0
+                    else t.reshape(systems, -1))
+    return torch.cat([r.reshape(systems, -1) for r in rows], dim=1)
+
+
+def system_params(params, i: int):
+    """System i's parameter values from a tree whose tensor leaves carry
+    a leading systems axis (scalars and 0-d tensors are shared); None
+    stays None."""
+    if params is None:
+        return None
+    if isinstance(params, (tuple, list)):
+        return tuple(system_params(p, i) for p in params)
+    if isinstance(params, torch.Tensor) and params.dim() > 0:
+        return params[i]
+    return params

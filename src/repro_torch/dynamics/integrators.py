@@ -37,7 +37,8 @@ class MDState(NamedTuple):
     v: torch.Tensor    # (N, 3) velocities
     f: torch.Tensor    # (N, 3) forces at x (or at the last force point)
     phi: torch.Tensor  # (N,)   potentials accompanying f
-    key: torch.Generator  # Langevin noise, on the state's device
+    key: torch.Generator  # Langevin noise, on the state's device (a
+    #                       tuple of them, one a replica, when stacked)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +87,16 @@ def leapfrog() -> Integrator:
                       uses_cached_forces=False, phi_at_step_end=False)
 
 
+def _normal(like: torch.Tensor, key) -> torch.Tensor:
+    """Standard normal noise shaped like `like` from generator `key`. A
+    tuple of generators (an ensemble's stacked state, replicas along the
+    leading axis) draws each replica's rows from its own."""
+    if isinstance(key, tuple):
+        return torch.stack([_normal(row, k) for row, k in zip(like, key)])
+    return torch.randn(like.shape, generator=key, dtype=like.dtype,
+                       device=like.device)
+
+
 def langevin(friction: float = 1.0, temperature: float = 0.1) -> Integrator:
     """BAOAB: B(dt/2) A(dt/2) O(dt) A(dt/2) [force] B(dt/2).
 
@@ -100,8 +111,7 @@ def langevin(friction: float = 1.0, temperature: float = 0.1) -> Integrator:
         v = state.v + (0.5 * dt) * state.f * inv_m           # B
         x = state.x + (0.5 * dt) * v                          # A
         c = math.exp(-gamma * dt)
-        xi = torch.randn(v.shape, generator=state.key, dtype=v.dtype,
-                         device=v.device)
+        xi = _normal(v, state.key)
         sigma = torch.sqrt((1.0 - c * c) * temp * inv_m)
         v = c * v + sigma * xi                                # O
         x = x + (0.5 * dt) * v                                # A

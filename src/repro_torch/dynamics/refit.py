@@ -46,9 +46,9 @@ def _masked_boxes(pts, valid, old_lo_rows, old_hi_rows):
     `index_copy_` applies duplicates does not matter."""
     big = torch.finfo(pts.dtype).max
     m = valid[..., None]
-    lo = torch.where(m, pts, torch.full_like(pts, big)).amin(dim=1)
-    hi = torch.where(m, pts, torch.full_like(pts, -big)).amax(dim=1)
-    has = valid.any(dim=1)[..., None]
+    lo = torch.where(m, pts, torch.full_like(pts, big)).amin(dim=-2)
+    hi = torch.where(m, pts, torch.full_like(pts, -big)).amax(dim=-2)
+    has = valid.any(dim=-1)[..., None]
     return (torch.where(has, lo, old_lo_rows),
             torch.where(has, hi, old_hi_rows))
 
@@ -58,21 +58,39 @@ def refit_single_arrays(arrays: dict, x: torch.Tensor) -> dict:
     order), as a new dict; `arrays` is not modified.
 
     Assumes the MD setting: targets == sources == the N particles the
-    plan was built over (gather_index covers every target once)."""
+    plan was built over (gather_index covers every target once; under a
+    point budget the padded entries all name the scratch batch row's
+    first slot and their positions are equal, zero in
+    `serve.EnsembleMD`). Stacked arrays (a leading systems axis) with x
+    (W, N, 3) refit every system at once."""
+    st = _eval.stacked(arrays)
     x = x.to(arrays["src_sorted"].dtype)
-    src_sorted = x[arrays["src_perm"]]
+    src_sorted = _ops.take(x, arrays["src_perm"], st)
     lo = arrays["node_lo"].clone()
     hi = arrays["node_hi"].clone()
+    # row offsets of each system in the flattened (W * rows) tables
+    lead = x.shape[0] if st else 1
+    flat_lo, flat_hi = lo.view(-1, 3), hi.view(-1, 3)
+    node_off = _row_offsets(lead, lo.shape[-2], x.device)
     for gidx, nodes in zip(arrays["bucket_gather"], arrays["bucket_nodes"]):
-        pts = src_sorted[gidx.clamp(min=0)]
-        lo_rows, hi_rows = _masked_boxes(pts, gidx >= 0, lo[nodes],
-                                         hi[nodes])
-        lo.index_copy_(0, nodes, lo_rows)
-        hi.index_copy_(0, nodes, hi_rows)
-    b, nb, _ = arrays["tgt_batched"].shape
-    flat = x.new_zeros((b * nb, 3)).index_copy_(0, arrays["gather_index"], x)
+        pts = _ops.take(src_sorted, gidx.clamp(min=0), st)
+        rows = (nodes + node_off).flatten()
+        lo_rows, hi_rows = _masked_boxes(pts.flatten(0, -3),
+                                         (gidx >= 0).flatten(0, -2),
+                                         flat_lo[rows], flat_hi[rows])
+        flat_lo.index_copy_(0, rows, lo_rows)
+        flat_hi.index_copy_(0, rows, hi_rows)
+    b, nb = arrays["tgt_batched"].shape[-3:-1]
+    slot = (arrays["gather_index"] + _row_offsets(lead, b * nb, x.device))
+    flat = x.new_zeros((lead * b * nb, 3)).index_copy_(
+        0, slot.flatten(), x.reshape(-1, 3))
     return dict(arrays, src_sorted=src_sorted, node_lo=lo, node_hi=hi,
-                tgt_batched=flat.reshape(b, nb, 3))
+                tgt_batched=flat.reshape(arrays["tgt_batched"].shape))
+
+
+def _row_offsets(systems: int, rows: int, device) -> torch.Tensor:
+    """(systems, 1) offsets of each system's rows in a flattened table."""
+    return torch.arange(0, systems * rows, rows, device=device)[:, None]
 
 
 def refresh_slacks_single(arrays: dict, *, theta: float,

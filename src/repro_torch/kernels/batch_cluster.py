@@ -44,6 +44,16 @@ grid field functions take target counts only: every grid point is real.
 
 Exact hits (r^2 == 0, a particle meeting itself) add exactly 0 to phi
 and to every gradient component.
+
+Systems axis: every function also takes a leading axis of W independent
+systems of one shape (an ensemble, `repro_torch.serve`) on every operand,
+idx (W, B, S) and so on, each system's cluster ids indexing its own
+clusters, and per-system kernel parameters (every parameter leaf a
+tensor with a leading W, or a scalar shared by all). The CUDA functions
+take the packed parameters as par (W, P) and sweep all W systems in one
+launch (the grid's third dimension is the system); the plain versions
+run the single-system sweep once per system. Without the axis a call is
+the launch of one system (W = 1).
 """
 from __future__ import annotations
 
@@ -51,7 +61,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.potentials import Kernel, builtin_id
+from repro_torch.core.potentials import Kernel, builtin_id, system_params
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.kernels import _build
 from repro_torch.kernels.modified_charges import DEGREE_LATER
@@ -67,17 +77,18 @@ GRID_FIELD_LAUNCHES = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_SIG = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _D, _D, _D, _P)
+# idx, par, tgt, src, q, tgt_count, src_count, out; B, S, NB, m, W, C, P,
+# kernel id, periodic, kahan, matmul; the box lengths; the stream
+_SIG = (_P,) * 8 + (_I,) * 11 + (_D,) * 3 + (_P,)
 _SIGNATURES = {"bc_eval_f32": _SIG, "bc_eval_f64": _SIG,
                "bc_geometry": (_I,)}
 # the field entries take no matmul flag
-_FIELD_SIG = _SIG[:15] + _SIG[16:]
+_FIELD_SIG = (_P,) * 8 + (_I,) * 10 + (_D,) * 3 + (_P,)
 FIELD_SIGNATURES = {"bcf_eval_f32": _FIELD_SIG, "bcf_eval_f64": _FIELD_SIG,
                     "bcf_geometry": (_I,)}
-# idx, par, tgt, nodes, q_hat, tgt_count, out; B, S, NB, n1, kernel id,
-# periodic, kahan; the box lengths; the stream
-_GRID_SIG = (_P,) * 7 + (_I,) * 7 + (_D,) * 3 + (_P,)
+# idx, par, tgt, nodes, q_hat, tgt_count, out; B, S, NB, n1, W, C, P,
+# kernel id, periodic, kahan; the box lengths; the stream
+_GRID_SIG = (_P,) * 7 + (_I,) * 10 + (_D,) * 3 + (_P,)
 GRID_FIELD_SIGNATURES = {"bcfg_eval_f32": _GRID_SIG,
                          "bcfg_eval_f64": _GRID_SIG, "bcfg_tile": (_I, _I)}
 
@@ -143,16 +154,34 @@ def swept_pairs(idx: torch.Tensor, nb: int, m: int,
             "tiles_launched": b * -(-nb // tile)}
 
 
-def _check_count(what: str, name: str, t: torch.Tensor, n: int,
+def _check_count(what: str, name: str, t: torch.Tensor, shape: tuple,
                  dev) -> None:
     if t.device != dev or not t.is_cuda:
         raise ValueError(f"{what}: {name} is on {t.device}, expected the "
                          f"CUDA device {dev}")
     if t.dtype != torch.int32 or not t.is_contiguous():
         raise TypeError(f"{what}: {name} must be a contiguous int32 tensor")
-    if tuple(t.shape) != (n,):
+    if tuple(t.shape) != shape:
         raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
-                         f"expected ({n},)")
+                         f"expected {shape}")
+
+
+def _stacked(what: str, idx: torch.Tensor, par: torch.Tensor,
+             *tensors):
+    """The operands of a launch with a leading systems axis: a single
+    system's (idx (B, S), par (P,)) get W = 1 as views; a stacked call's
+    (idx (W, B, S)) need par (W, P). None stays None."""
+    if idx.dim() == 2:
+        return [None if t is None else t.unsqueeze(0)
+                for t in (idx, par, *tensors)]
+    if idx.dim() != 3:
+        raise ValueError(f"{what}: idx must be (B, S) or (W, B, S), got "
+                         f"{tuple(idx.shape)}")
+    w = idx.shape[0]
+    if par.dim() != 2 or par.shape[0] != w:
+        raise ValueError(f"{what}: {w} systems need par ({w}, P), got "
+                         f"{tuple(par.shape)}")
+    return [idx, par, *tensors]
 
 
 def _check_tensors(what, idx, tgt, named):
@@ -181,27 +210,36 @@ def _check_grid_limit(what, nb, tile):
                          f"{65535 * tile} targets per batch row")
 
 
+def _check_systems(what, w):
+    if w > 65535:      # the grid's third dimension
+        raise ValueError(f"{what}: {w} systems exceed the grid limit of "
+                         f"65535")
+
+
 def _check_inputs(what, idx, par, tgt, src_pts, src_q, tgt_count,
                   src_count):
-    """Device, dtype, shape and contiguity checks of a launch; returns
-    (B, S, NB, m)."""
+    """Device, dtype, shape and contiguity checks of a launch on stacked
+    operands; returns (W, B, S, NB, C, m)."""
     _check_tensors(what, idx, tgt, {"par": par, "src_pts": src_pts,
                                     "src_q": src_q})
-    b, s = idx.shape
-    _, nb, three = tgt.shape
-    c, m, three_s = src_pts.shape
-    if (tgt.shape[0] != b or three != 3 or three_s != 3
-            or tuple(src_q.shape) != (c, m)):
+    w, b, s = idx.shape
+    c, m = src_q.shape[1:]
+    nb = tgt.shape[2]
+    if (tuple(tgt.shape) != (w, b, nb, 3)
+            or tuple(src_pts.shape) != (w, c, m, 3)
+            or tuple(src_q.shape) != (w, c, m)):
         raise ValueError(
             f"{what}: shapes idx {tuple(idx.shape)}, tgt "
             f"{tuple(tgt.shape)}, src_pts {tuple(src_pts.shape)}, src_q "
-            f"{tuple(src_q.shape)} do not match (B,S),(B,NB,3),(C,m,3),(C,m)")
+            f"{tuple(src_q.shape)} do not match (W,B,S),(W,B,NB,3),"
+            f"(W,C,m,3),(W,C,m)")
     if tgt_count is not None:
-        _check_count(what, "tgt_count", tgt_count, b, tgt.device)
+        _check_count(what, "tgt_count", tgt_count, (w, b), tgt.device)
     if src_count is not None:
-        _check_count(what, "src_count", src_count, c, tgt.device)
+        _check_count(what, "src_count", src_count, (w, c), tgt.device)
     _check_grid_limit(what, nb, _TARGETS_PER_BLOCK)
-    return b, s, nb, m
+    _check_systems(what, w)
+    return w, b, s, nb, c, m
 
 
 def _ptr(t: torch.Tensor | None):
@@ -224,10 +262,15 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
     float64 alike; tgt_count (B,) and src_count (C,) optional int32
     prefix lengths (the module's count contract). `r2_mode="matmul"`
     takes |x|^2+|y|^2-2x.y in free space; periodic spaces always take
-    the difference form."""
+    the difference form. With a leading systems axis on every operand
+    (par (W, P)) the one launch sweeps all W systems: phi (W, B, NB)."""
     global LAUNCHES
-    b, s, nb, m = _check_inputs("batch_cluster_eval_cuda", idx, par, tgt,
-                                src_pts, src_q, tgt_count, src_count)
+    what = "batch_cluster_eval_cuda"
+    single = idx.dim() == 2
+    idx, par, tgt, src_pts, src_q, tgt_count, src_count = _stacked(
+        what, idx, par, tgt, src_pts, src_q, tgt_count, src_count)
+    w, b, s, nb, c, m = _check_inputs(what, idx, par, tgt, src_pts, src_q,
+                                      tgt_count, src_count)
     if r2_mode not in ("diff", "matmul"):
         raise ValueError(f"unknown r2_mode {r2_mode!r}")
     kid = kernel_id(kernel)
@@ -237,18 +280,18 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
 
     lib = _build.load("batch_cluster", _SIGNATURES)
     fn = lib.bc_eval_f32 if tgt.dtype == torch.float32 else lib.bc_eval_f64
-    out = torch.empty((b, nb), dtype=tgt.dtype, device=tgt.device)
+    out = torch.empty((w, b, nb), dtype=tgt.dtype, device=tgt.device)
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = fn(idx.data_ptr(), par.data_ptr(), tgt.data_ptr(),
                 src_pts.data_ptr(), src_q.data_ptr(), _ptr(tgt_count),
-                _ptr(src_count), out.data_ptr(), b, s, nb, m, kid,
-                int(periodic), int(kahan), int(matmul), *map(float, lengths),
-                stream)
+                _ptr(src_count), out.data_ptr(), b, s, nb, m, w, c,
+                par.shape[1], kid, int(periodic), int(kahan), int(matmul),
+                *map(float, lengths), stream)
     _build.check(rc, "batch_cluster")
-    if b > 0 and nb > 0:        # the C entry launches nothing otherwise
+    if w > 0 and b > 0 and nb > 0:   # the C entry launches nothing otherwise
         LAUNCHES += 1
-    return out
+    return out[0] if single else out
 
 
 def batch_cluster_field_cuda(idx: torch.Tensor, par: torch.Tensor,
@@ -260,54 +303,61 @@ def batch_cluster_field_cuda(idx: torch.Tensor, par: torch.Tensor,
                              ) -> torch.Tensor:
     """(B, NB, 4) = (phi, grad_x phi) by one launch of the field kernel.
 
-    The arguments are those of `batch_cluster_eval_cuda`, without
-    `r2_mode`: the gradient needs the displacement, so the field kernel
-    always takes the difference form."""
+    The arguments are those of `batch_cluster_eval_cuda` (a leading
+    systems axis included), without `r2_mode`: the gradient needs the
+    displacement, so the field kernel always takes the difference form."""
     global FIELD_LAUNCHES
-    b, s, nb, m = _check_inputs("batch_cluster_field_cuda", idx, par, tgt,
-                                src_pts, src_q, tgt_count, src_count)
+    what = "batch_cluster_field_cuda"
+    single = idx.dim() == 2
+    idx, par, tgt, src_pts, src_q, tgt_count, src_count = _stacked(
+        what, idx, par, tgt, src_pts, src_q, tgt_count, src_count)
+    w, b, s, nb, c, m = _check_inputs(what, idx, par, tgt, src_pts, src_q,
+                                      tgt_count, src_count)
     kid = kernel_id(kernel)
     periodic = bool(space.periodic)
     lengths = space.lengths if periodic else (1.0, 1.0, 1.0)
 
     lib = _build.load("batch_cluster_field", FIELD_SIGNATURES)
     fn = lib.bcf_eval_f32 if tgt.dtype == torch.float32 else lib.bcf_eval_f64
-    out = torch.empty((b, nb, 4), dtype=tgt.dtype, device=tgt.device)
+    out = torch.empty((w, b, nb, 4), dtype=tgt.dtype, device=tgt.device)
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = fn(idx.data_ptr(), par.data_ptr(), tgt.data_ptr(),
                 src_pts.data_ptr(), src_q.data_ptr(), _ptr(tgt_count),
-                _ptr(src_count), out.data_ptr(), b, s, nb, m, kid,
-                int(periodic), int(kahan), *map(float, lengths), stream)
+                _ptr(src_count), out.data_ptr(), b, s, nb, m, w, c,
+                par.shape[1], kid, int(periodic), int(kahan),
+                *map(float, lengths), stream)
     _build.check(rc, "batch_cluster_field")
-    if b > 0 and nb > 0:        # the C entry launches nothing otherwise
+    if w > 0 and b > 0 and nb > 0:   # the C entry launches nothing otherwise
         FIELD_LAUNCHES += 1
-    return out
+    return out[0] if single else out
 
 
 def _check_grid_inputs(what, idx, par, tgt, nodes, q_hat, tgt_count):
     """Device, dtype, shape, contiguity and degree checks of a grid field
-    launch; returns (B, S, NB, n1)."""
+    launch on stacked operands; returns (W, B, S, NB, C, n1)."""
     _check_tensors(what, idx, tgt, {"par": par, "nodes": nodes,
                                     "q_hat": q_hat})
-    b, s = idx.shape
-    _, nb, three = tgt.shape
-    c, three_n, n1 = nodes.shape
-    if (tgt.shape[0] != b or three != 3 or three_n != 3
-            or tuple(q_hat.shape) != (c, n1 ** 3)):
+    w, b, s = idx.shape
+    nb = tgt.shape[2]
+    c, n1 = nodes.shape[1], nodes.shape[-1]
+    if (tuple(tgt.shape) != (w, b, nb, 3)
+            or tuple(nodes.shape) != (w, c, 3, n1)
+            or tuple(q_hat.shape) != (w, c, n1 ** 3)):
         raise ValueError(
             f"{what}: shapes idx {tuple(idx.shape)}, tgt {tuple(tgt.shape)},"
             f" nodes {tuple(nodes.shape)}, q_hat {tuple(q_hat.shape)} do not"
-            f" match (B,S),(B,NB,3),(C,3,n+1),(C,(n+1)^3)")
+            f" match (W,B,S),(W,B,NB,3),(W,C,3,n+1),(W,C,(n+1)^3)")
     if n1 - 1 not in GRID_DEGREES:
         raise NotImplementedError(
             f"{what}: degree {n1 - 1}; the grid field kernel is built for "
             f"degrees {GRID_DEGREES.start}-{GRID_DEGREES.stop - 1} "
             f"({DEGREE_LATER}); backend='torch' takes any degree")
     if tgt_count is not None:
-        _check_count(what, "tgt_count", tgt_count, b, tgt.device)
+        _check_count(what, "tgt_count", tgt_count, (w, b), tgt.device)
     _check_grid_limit(what, nb, grid_tile(tgt.element_size(), n1))
-    return b, s, nb, n1
+    _check_systems(what, w)
+    return w, b, s, nb, c, n1
 
 
 def batch_cluster_field_grid_cuda(idx: torch.Tensor, par: torch.Tensor,
@@ -322,10 +372,16 @@ def batch_cluster_field_grid_cuda(idx: torch.Tensor, par: torch.Tensor,
     tgt (B, NB, 3), nodes (C, 3, n+1) the clusters' 1-D Chebyshev nodes
     (`ops._cluster_nodes`), q_hat (C, (n+1)^3) k3 fastest, all contiguous
     CUDA tensors on one device, float32 or float64 alike; tgt_count (B,)
-    optional int32 prefix lengths. Degrees 1-14; others raise."""
+    optional int32 prefix lengths. Degrees 1-14; others raise. With a
+    leading systems axis on every operand (par (W, P)) the one launch
+    sweeps all W systems."""
     global GRID_FIELD_LAUNCHES
-    b, s, nb, n1 = _check_grid_inputs("batch_cluster_field_grid_cuda", idx,
-                                      par, tgt, nodes, q_hat, tgt_count)
+    what = "batch_cluster_field_grid_cuda"
+    single = idx.dim() == 2
+    idx, par, tgt, nodes, q_hat, tgt_count = _stacked(
+        what, idx, par, tgt, nodes, q_hat, tgt_count)
+    w, b, s, nb, c, n1 = _check_grid_inputs(what, idx, par, tgt, nodes,
+                                            q_hat, tgt_count)
     kid = kernel_id(kernel)
     periodic = bool(space.periodic)
     lengths = space.lengths if periodic else (1.0, 1.0, 1.0)
@@ -333,17 +389,27 @@ def batch_cluster_field_grid_cuda(idx: torch.Tensor, par: torch.Tensor,
     lib = _build.load("batch_cluster_field_grid", GRID_FIELD_SIGNATURES)
     fn = (lib.bcfg_eval_f32 if tgt.dtype == torch.float32
           else lib.bcfg_eval_f64)
-    out = torch.empty((b, nb, 4), dtype=tgt.dtype, device=tgt.device)
+    out = torch.empty((w, b, nb, 4), dtype=tgt.dtype, device=tgt.device)
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = fn(idx.data_ptr(), par.data_ptr(), tgt.data_ptr(),
                 nodes.data_ptr(), q_hat.data_ptr(), _ptr(tgt_count),
-                out.data_ptr(), b, s, nb, n1, kid, int(periodic), int(kahan),
-                *map(float, lengths), stream)
+                out.data_ptr(), b, s, nb, n1, w, c, par.shape[1], kid,
+                int(periodic), int(kahan), *map(float, lengths), stream)
     _build.check(rc, "batch_cluster_field_grid")
-    if b > 0 and nb > 0:        # the C entry launches nothing otherwise
+    if w > 0 and b > 0 and nb > 0:   # the C entry launches nothing otherwise
         GRID_FIELD_LAUNCHES += 1
-    return out
+    return out[0] if single else out
+
+
+def _per_system(fn, idx, tgt, src, q, params, counts, **kw):
+    """`fn` (a plain version) once per system of stacked operands, each
+    with its own parameter values and counts; the results stacked."""
+    return torch.stack([
+        fn(idx[i], tgt[i], src[i], q[i], system_params(params, i),
+           **{k: None if c is None else c[i] for k, c in counts.items()},
+           **kw)
+        for i in range(idx.shape[0])])
 
 
 def batch_cluster_eval_plain(idx: torch.Tensor, tgt: torch.Tensor,
@@ -358,7 +424,14 @@ def batch_cluster_eval_plain(idx: torch.Tensor, tgt: torch.Tensor,
     A loop over batch chunks and list slots bounds the (chunk, NB, m)
     intermediate; Kahan compensates across slots in list order, as the
     kernel does. Points at or beyond `src_count` get charge 0, and target
-    slots at or beyond `tgt_count` phi = 0 (the count contract)."""
+    slots at or beyond `tgt_count` phi = 0 (the count contract). With a
+    leading systems axis, one such sweep per system."""
+    if idx.dim() == 3:
+        return _per_system(batch_cluster_eval_plain, idx, tgt, src_pts,
+                           src_q, params, dict(tgt_count=tgt_count,
+                                               src_count=src_count),
+                           kernel=kernel, space=space, kahan=kahan,
+                           r2_mode=r2_mode)
     pw = kernel.pairwise_matmul if r2_mode == "matmul" else kernel.pairwise
     bsz, nb = tgt.shape[0], tgt.shape[1]
     m = src_pts.shape[1]
@@ -438,7 +511,14 @@ def batch_cluster_field_plain(idx: torch.Tensor, tgt: torch.Tensor,
 
     With ``magnitude=True`` the same sweep sums the terms' magnitudes,
     |G q| and |2 G' d_k q|: per output, the scale of the rounding in its
-    sum, against which a kernel's error is held."""
+    sum, against which a kernel's error is held. With a leading systems
+    axis, one such sweep per system."""
+    if idx.dim() == 3:
+        return _per_system(batch_cluster_field_plain, idx, tgt, src_pts,
+                           src_q, params, dict(tgt_count=tgt_count,
+                                               src_count=src_count),
+                           kernel=kernel, space=space, kahan=kahan,
+                           r2_mode=r2_mode, magnitude=magnitude)
     bsz, nb = tgt.shape[0], tgt.shape[1]
     m = src_pts.shape[1]
     dtype = tgt.dtype
@@ -507,7 +587,13 @@ def batch_cluster_field_grid_plain(idx: torch.Tensor, tgt: torch.Tensor,
     R and g_x = sum_k1 d_x[k1] sum_k2 R. The difference form of r^2
     always. Kahan compensates the four sums across slots; target slots at
     or beyond `tgt_count` get 0. ``magnitude=True`` sums the terms'
-    magnitudes as `batch_cluster_field_plain` does."""
+    magnitudes as `batch_cluster_field_plain` does. With a leading systems
+    axis, one such sweep per system."""
+    if idx.dim() == 3:
+        return _per_system(batch_cluster_field_grid_plain, idx, tgt, nodes,
+                           q_hat, params, dict(tgt_count=tgt_count),
+                           kernel=kernel, space=space, kahan=kahan,
+                           magnitude=magnitude)
     bsz, nb = tgt.shape[0], tgt.shape[1]
     n1 = nodes.shape[-1]
     dtype = tgt.dtype

@@ -8,6 +8,13 @@
 //   c = idx[b, s],  n_c = src_count[c] (m without counts),
 //   phi[b, i] = 0 for i >= tgt_count[b] (NB without counts).
 //
+// Systems axis: every operand may carry a leading axis of W independent
+// systems (an ensemble, `repro_torch.serve`), each with its own parameter
+// row par[w, :P]. blockIdx.z is the system, as the grid dimension vmap
+// gives the Pallas kernel: a block reads its own system's rows, its
+// cluster ids index its own system's clusters, and W = 1 is the launch of
+// a single system.
+//
 // The same direct-sum form serves the direct lane (leaf particles, Eq. 9)
 // and the approximation lane (Chebyshev grid points with modified charges,
 // Eq. 11).
@@ -164,8 +171,10 @@ batch_cluster_kernel(const int* __restrict__ idx, const T* __restrict__ par,
                      const T* __restrict__ q,
                      const int* __restrict__ tgt_count,
                      const int* __restrict__ src_count, T* __restrict__ out,
-                     int S, int NB, int m, T Lx, T Ly, T Lz) {
-  const int b = blockIdx.x;
+                     int S, int NB, int m, int C, int P, T Lx, T Ly, T Lz) {
+  // the row in the stacked (W * B) slab, and the system's first cluster
+  const int b = blockIdx.z * gridDim.x + blockIdx.x;
+  const int cbase = blockIdx.z * C;
   const int i0 = blockIdx.y * kTile;
   const int nt = tgt_count ? min(max(tgt_count[b], 0), NB) : NB;
   T* orow = out + static_cast<size_t>(b) * NB;
@@ -197,7 +206,7 @@ batch_cluster_kernel(const int* __restrict__ idx, const T* __restrict__ par,
     acc[r] = T(0);
     comp[r] = T(0);
   }
-  const T kappa = KID == kYukawa ? par[0] : T(0);
+  const T kappa = KID == kYukawa ? par[blockIdx.z * P] : T(0);
   const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
 
   T* buf = stage[warp];
@@ -210,9 +219,10 @@ batch_cluster_kernel(const int* __restrict__ idx, const T* __restrict__ par,
 #pragma unroll
     for (int r = 0; r < kPerThread; ++r) slot[r] = T(0);
     if (c >= 0) {
-      const int n = src_count ? min(max(src_count[c], 0), m) : m;
-      const T* cp = src + static_cast<size_t>(c) * m * 3;
-      const T* cq = q + static_cast<size_t>(c) * m;
+      const int cg = cbase + c;
+      const int n = src_count ? min(max(src_count[cg], 0), m) : m;
+      const T* cp = src + static_cast<size_t>(cg) * m * 3;
+      const T* cq = q + static_cast<size_t>(cg) * m;
       for (int j0 = 0; j0 < n; j0 += kChunk, ++g) {
         if (g % kWarps != warp) continue;  // another warp's chunk
         const int len = min(kChunk, n - j0);
@@ -301,17 +311,17 @@ struct Args {
   const int* idx;
   const int* tgt_count;
   const int* src_count;
-  int B, S, NB, m;
+  int B, S, NB, m, W, C, P;
 };
 
 template <typename T, int KID, bool PERIODIC, bool KAHAN, bool MATMUL>
 void launch_one(const Args& a, const T* par, const T* tgt, const T* src,
                 const T* q, T* out, T Lx, T Ly, T Lz, cudaStream_t stream) {
-  const dim3 grid(a.B, (a.NB + kTile - 1) / kTile);
+  const dim3 grid(a.B, (a.NB + kTile - 1) / kTile, a.W);
   batch_cluster_kernel<T, KID, PERIODIC, KAHAN, MATMUL>
       <<<grid, kThreads, 0, stream>>>(a.idx, par, tgt, src, q, a.tgt_count,
-                                      a.src_count, out, a.S, a.NB, a.m, Lx,
-                                      Ly, Lz);
+                                      a.src_count, out, a.S, a.NB, a.m, a.C,
+                                      a.P, Lx, Ly, Lz);
 }
 
 template <typename T, int KID, bool KAHAN>
@@ -335,7 +345,7 @@ int launch(const Args& a, const T* par, const T* tgt, const T* src,
            int matmul, T Lx, T Ly, T Lz, cudaStream_t st) {
   if (kernel_id != kCoulomb && kernel_id != kYukawa)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a.B > 0 && a.NB > 0) {
+  if (a.W > 0 && a.B > 0 && a.NB > 0) {
     if (kernel_id == kCoulomb) {
       if (kahan)
         launch_space<T, kCoulomb, true>(a, par, tgt, src, q, out, periodic,
@@ -358,17 +368,20 @@ int launch(const Args& a, const T* par, const T* tgt, const T* src,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Pointers are device pointers,
-// `stream` the caller's cudaStream_t; tgt_count (B,) and src_count (C,)
-// may be null (every target slot and every source point is real). The
-// launch is asynchronous and the return value is cudaGetLastError() right
-// after it (0 = launched).
+// `stream` the caller's cudaStream_t; idx (W, B, S), par (W, P), tgt
+// (W, B, NB, 3), src (W, C, m, 3), q (W, C, m), out (W, B, NB) (W = 1: a
+// single system); tgt_count (W, B) and src_count (W, C) may be null
+// (every target slot and every source point is real). The launch is
+// asynchronous and the return value is cudaGetLastError() right after it
+// (0 = launched).
 extern "C" int bc_eval_f32(const int* idx, const float* par, const float* tgt,
                            const float* src, const float* q,
                            const int* tgt_count, const int* src_count,
-                           float* out, int B, int S, int NB, int m,
-                           int kernel_id, int periodic, int kahan, int matmul,
-                           double Lx, double Ly, double Lz, void* stream) {
-  const Args a{idx, tgt_count, src_count, B, S, NB, m};
+                           float* out, int B, int S, int NB, int m, int W,
+                           int C, int P, int kernel_id, int periodic,
+                           int kahan, int matmul, double Lx, double Ly,
+                           double Lz, void* stream) {
+  const Args a{idx, tgt_count, src_count, B, S, NB, m, W, C, P};
   return launch<float>(a, par, tgt, src, q, out, kernel_id, periodic, kahan,
                        matmul, static_cast<float>(Lx), static_cast<float>(Ly),
                        static_cast<float>(Lz),
@@ -379,10 +392,10 @@ extern "C" int bc_eval_f64(const int* idx, const double* par,
                            const double* tgt, const double* src,
                            const double* q, const int* tgt_count,
                            const int* src_count, double* out, int B, int S,
-                           int NB, int m, int kernel_id, int periodic,
-                           int kahan, int matmul, double Lx, double Ly,
-                           double Lz, void* stream) {
-  const Args a{idx, tgt_count, src_count, B, S, NB, m};
+                           int NB, int m, int W, int C, int P, int kernel_id,
+                           int periodic, int kahan, int matmul, double Lx,
+                           double Ly, double Lz, void* stream) {
+  const Args a{idx, tgt_count, src_count, B, S, NB, m, W, C, P};
   return launch<double>(a, par, tgt, src, q, out, kernel_id, periodic, kahan,
                         matmul, Lx, Ly, Lz, static_cast<cudaStream_t>(stream));
 }

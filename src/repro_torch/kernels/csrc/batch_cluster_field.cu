@@ -14,7 +14,9 @@
 //   phi = g = 0 for i >= tgt_count[b] (NB without counts).
 //
 // Coulomb: 2 G'(r2) = -r^-3; Yukawa: 2 G'(r2) = -(1 + kappa r) e^(-kappa r)
-// r^-3. out is (B, NB, 4): phi, then the three gradient components.
+// r^-3. out is (B, NB, 4): phi, then the three gradient components. Like
+// batch_cluster.cu, every operand may carry a leading systems axis W
+// (blockIdx.z = system, parameter row par[w, :P]).
 //
 // It takes the grid, the -1 sentinels and the count contract of
 // batch_cluster.cu, and that kernel's design (count-aware tiles, one
@@ -203,8 +205,10 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
              const T* __restrict__ tgt, const T* __restrict__ src,
              const T* __restrict__ q, const int* __restrict__ tgt_count,
              const int* __restrict__ src_count, T* __restrict__ out, int S,
-             int NB, int m, T Lx, T Ly, T Lz) {
-  const int b = blockIdx.x;
+             int NB, int m, int C, int P, T Lx, T Ly, T Lz) {
+  // the row in the stacked (W * B) slab, and the system's first cluster
+  const int b = blockIdx.z * gridDim.x + blockIdx.x;
+  const int cbase = blockIdx.z * C;
   const int i0 = blockIdx.y * kTile;
   const int nt = tgt_count ? min(max(tgt_count[b], 0), NB) : NB;
   T* orow = out + static_cast<size_t>(b) * NB * kOut;
@@ -236,7 +240,7 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
       comp[r][k] = T(0);
     }
   }
-  const T kappa = KID == kYukawa ? par[0] : T(0);
+  const T kappa = KID == kYukawa ? par[blockIdx.z * P] : T(0);
 
   T* buf = stage[warp];
   const int* row = idx + static_cast<size_t>(b) * S;
@@ -247,9 +251,10 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
 #pragma unroll
     for (int r = 0; r < kPerThread; ++r) zero(slot[r]);
     if (c >= 0) {
-      const int n = src_count ? min(max(src_count[c], 0), m) : m;
-      const T* cp = src + static_cast<size_t>(c) * m * 3;
-      const T* cq = q + static_cast<size_t>(c) * m;
+      const int cg = cbase + c;
+      const int n = src_count ? min(max(src_count[cg], 0), m) : m;
+      const T* cp = src + static_cast<size_t>(cg) * m * 3;
+      const T* cq = q + static_cast<size_t>(cg) * m;
       for (int j0 = 0; j0 < n; j0 += kChunk, ++g) {
         if (g % kWarps != warp) continue;  // another warp's chunk
         const int len = min(kChunk, n - j0);
@@ -328,16 +333,16 @@ struct Args {
   const int* idx;
   const int* tgt_count;
   const int* src_count;
-  int B, S, NB, m;
+  int B, S, NB, m, W, C, P;
 };
 
 template <typename T, int KID, bool PERIODIC, bool KAHAN>
 void launch_one(const Args& a, const T* par, const T* tgt, const T* src,
                 const T* q, T* out, T Lx, T Ly, T Lz, cudaStream_t stream) {
-  const dim3 grid(a.B, (a.NB + kTile - 1) / kTile);
+  const dim3 grid(a.B, (a.NB + kTile - 1) / kTile, a.W);
   field_kernel<T, KID, PERIODIC, KAHAN><<<grid, kThreads, 0, stream>>>(
       a.idx, par, tgt, src, q, a.tgt_count, a.src_count, out, a.S, a.NB, a.m,
-      Lx, Ly, Lz);
+      a.C, a.P, Lx, Ly, Lz);
 }
 
 template <typename T, int KID>
@@ -364,7 +369,7 @@ int launch(const Args& a, const T* par, const T* tgt, const T* src,
            T Ly, T Lz, cudaStream_t st) {
   if (kernel_id != kCoulomb && kernel_id != kYukawa)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a.B > 0 && a.NB > 0) {
+  if (a.W > 0 && a.B > 0 && a.NB > 0) {
     if (kernel_id == kCoulomb)
       launch_kid<T, kCoulomb>(a, par, tgt, src, q, out, periodic, kahan, Lx,
                               Ly, Lz, st);
@@ -378,18 +383,19 @@ int launch(const Args& a, const T* par, const T* tgt, const T* src,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Pointers are device pointers,
-// `stream` the caller's cudaStream_t; tgt_count (B,) and src_count (C,)
-// may be null (every target slot and every source point is real); out is
-// (B, NB, 4). The launch is asynchronous and the return value is
-// cudaGetLastError() right after it (0 = launched).
+// `stream` the caller's cudaStream_t; the shapes are those of bc_eval_*
+// (a leading W on every operand, par (W, P)) and out is (W, B, NB, 4);
+// tgt_count (W, B) and src_count (W, C) may be null (every target slot and
+// every source point is real). The launch is asynchronous and the return
+// value is cudaGetLastError() right after it (0 = launched).
 extern "C" int bcf_eval_f32(const int* idx, const float* par,
                             const float* tgt, const float* src,
                             const float* q, const int* tgt_count,
                             const int* src_count, float* out, int B, int S,
-                            int NB, int m, int kernel_id, int periodic,
-                            int kahan, double Lx, double Ly, double Lz,
-                            void* stream) {
-  const Args a{idx, tgt_count, src_count, B, S, NB, m};
+                            int NB, int m, int W, int C, int P, int kernel_id,
+                            int periodic, int kahan, double Lx, double Ly,
+                            double Lz, void* stream) {
+  const Args a{idx, tgt_count, src_count, B, S, NB, m, W, C, P};
   return launch<float>(a, par, tgt, src, q, out, kernel_id, periodic, kahan,
                        static_cast<float>(Lx), static_cast<float>(Ly),
                        static_cast<float>(Lz),
@@ -400,10 +406,10 @@ extern "C" int bcf_eval_f64(const int* idx, const double* par,
                             const double* tgt, const double* src,
                             const double* q, const int* tgt_count,
                             const int* src_count, double* out, int B, int S,
-                            int NB, int m, int kernel_id, int periodic,
-                            int kahan, double Lx, double Ly, double Lz,
-                            void* stream) {
-  const Args a{idx, tgt_count, src_count, B, S, NB, m};
+                            int NB, int m, int W, int C, int P,
+                            int kernel_id, int periodic, int kahan, double Lx,
+                            double Ly, double Lz, void* stream) {
+  const Args a{idx, tgt_count, src_count, B, S, NB, m, W, C, P};
   return launch<double>(a, par, tgt, src, q, out, kernel_id, periodic, kahan,
                         Lx, Ly, Lz, static_cast<cudaStream_t>(stream));
 }

@@ -15,7 +15,9 @@
 //   phi = g = 0 for i >= tgt_count[b] (NB without counts),
 //
 // nodes (C, 3, n+1) being ops._cluster_nodes, bitwise the coordinates
-// cluster_grid builds. out is (B, NB, 4): phi, then the gradient.
+// cluster_grid builds. out is (B, NB, 4): phi, then the gradient. Every
+// operand may carry a leading systems axis W (blockIdx.z = system, its
+// own parameter row), as in batch_cluster.cu.
 //
 // The structure: for one target and one cluster, d_x depends on k1 only,
 // d_y on k2 only and d_z on k3 only. So
@@ -217,11 +219,14 @@ grid_field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
                   const T* __restrict__ tgt, const T* __restrict__ nodes,
                   const T* __restrict__ qhat,
                   const int* __restrict__ tgt_count, T* __restrict__ out,
-                  int S, int NB, bool periodic, bool kahan, T Lx, T Ly,
-                  T Lz) {
+                  int S, int NB, int C, int np, bool periodic, bool kahan,
+                  T Lx, T Ly, T Lz) {
   using G = GridGeo<T, N1>;
   constexpr int P = G::PER, TILE = G::TILE, R = G::ROW, N2 = N1 * N1;
-  const int b = blockIdx.x;
+  // systems axis (blockIdx.z): the row in the stacked (W * B) slab, and
+  // the system's first cluster; np is the parameter row's length
+  const int b = blockIdx.z * gridDim.x + blockIdx.x;
+  const int cbase = blockIdx.z * C;
   const int i0 = blockIdx.y * TILE;
   const int nt = tgt_count ? min(max(tgt_count[b], 0), NB) : NB;
   T* orow = out + static_cast<size_t>(b) * NB * kOut;
@@ -253,7 +258,7 @@ grid_field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
     for (int k = 0; k < kOut; ++k)
       tot[warp][k][lane + 32 * r] = comp[warp][k][lane + 32 * r] = T(0);
   }
-  const T kappa = KID == kYukawa ? par[0] : T(0);
+  const T kappa = KID == kYukawa ? par[blockIdx.z * np] : T(0);
   const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
 
   T* qp = plane[warp];
@@ -269,10 +274,10 @@ grid_field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
     // the cluster's planes g .. g + N1 - 1 go round robin to the warps
     int k1 = ((warp - g) % kWarps + kWarps) % kWarps;
     if (c >= 0 && k1 < N1) {
-      const T* cq = qhat + static_cast<size_t>(c) * N1 * N2;
+      const size_t cg = static_cast<size_t>(cbase + c);
+      const T* cq = qhat + cg * N1 * N2;
       __syncwarp();  // the previous cluster's nodes are consumed
-      for (int t = lane; t < 3 * N1; t += 32)
-        ax[t] = nodes[static_cast<size_t>(c) * 3 * N1 + t];
+      for (int t = lane; t < 3 * N1; t += 32) ax[t] = nodes[cg * 3 * N1 + t];
       __syncwarp();
       T dz[P][N1];
 #pragma unroll
@@ -340,7 +345,7 @@ grid_field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
 struct Args {
   const int* idx;
   const int* tgt_count;
-  int B, S, NB;
+  int B, S, NB, W, C, P;
   cudaStream_t stream;
 };
 
@@ -349,9 +354,9 @@ void launch_one(const Args& a, const T* par, const T* tgt, const T* nodes,
                 const T* qhat, T* out, int periodic, int kahan, T Lx, T Ly,
                 T Lz) {
   constexpr int TILE = GridGeo<T, N1>::TILE;
-  const dim3 grid(a.B, (a.NB + TILE - 1) / TILE);
+  const dim3 grid(a.B, (a.NB + TILE - 1) / TILE, a.W);
   grid_field_kernel<T, N1, KID><<<grid, kThreads, 0, a.stream>>>(
-      a.idx, par, tgt, nodes, qhat, a.tgt_count, out, a.S, a.NB,
+      a.idx, par, tgt, nodes, qhat, a.tgt_count, out, a.S, a.NB, a.C, a.P,
       periodic != 0, kahan != 0, Lx, Ly, Lz);
 }
 
@@ -391,7 +396,7 @@ int launch(const Args& a, const T* par, const T* tgt, const T* nodes,
            int kahan, T Lx, T Ly, T Lz) {
   if ((kernel_id != kCoulomb && kernel_id != kYukawa) || tile<T>(n1) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a.B > 0 && a.NB > 0)
+  if (a.W > 0 && a.B > 0 && a.NB > 0)
     dispatch<T>(n1, a, par, tgt, nodes, qhat, out, kernel_id, periodic, kahan,
                 Lx, Ly, Lz);
   return static_cast<int>(cudaGetLastError());
@@ -400,18 +405,21 @@ int launch(const Args& a, const T* par, const T* tgt, const T* nodes,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Pointers are device pointers,
-// `stream` the caller's cudaStream_t; idx (B, S) int32 with -1 sentinels;
-// tgt (B, NB, 3); nodes (C, 3, n1); qhat (C, n1^3), k3 fastest; tgt_count
-// (B,) may be null (every target slot is real); out (B, NB, 4). n1 is
+// `stream` the caller's cudaStream_t; idx (W, B, S) int32 with -1
+// sentinels; par (W, P); tgt (W, B, NB, 3); nodes (W, C, 3, n1); qhat
+// (W, C, n1^3), k3 fastest; tgt_count (W, B) may be null (every target
+// slot is real); out (W, B, NB, 4); W = 1 is a single system. n1 is
 // 2..15. The launch is asynchronous and the return value is
 // cudaGetLastError() right after it (0 = launched).
 extern "C" int bcfg_eval_f32(const int* idx, const float* par,
                              const float* tgt, const float* nodes,
                              const float* qhat, const int* tgt_count,
-                             float* out, int B, int S, int NB, int n1,
-                             int kernel_id, int periodic, int kahan,
-                             double Lx, double Ly, double Lz, void* stream) {
-  const Args a{idx, tgt_count, B, S, NB, static_cast<cudaStream_t>(stream)};
+                             float* out, int B, int S, int NB, int n1, int W,
+                             int C, int P, int kernel_id, int periodic,
+                             int kahan, double Lx, double Ly, double Lz,
+                             void* stream) {
+  const Args a{idx, tgt_count, B, S, NB, W, C, P,
+               static_cast<cudaStream_t>(stream)};
   return launch<float>(a, par, tgt, nodes, qhat, out, n1, kernel_id, periodic,
                        kahan, static_cast<float>(Lx), static_cast<float>(Ly),
                        static_cast<float>(Lz));
@@ -421,9 +429,11 @@ extern "C" int bcfg_eval_f64(const int* idx, const double* par,
                              const double* tgt, const double* nodes,
                              const double* qhat, const int* tgt_count,
                              double* out, int B, int S, int NB, int n1,
-                             int kernel_id, int periodic, int kahan,
-                             double Lx, double Ly, double Lz, void* stream) {
-  const Args a{idx, tgt_count, B, S, NB, static_cast<cudaStream_t>(stream)};
+                             int W, int C, int P, int kernel_id, int periodic,
+                             int kahan, double Lx, double Ly, double Lz,
+                             void* stream) {
+  const Args a{idx, tgt_count, B, S, NB, W, C, P,
+               static_cast<cudaStream_t>(stream)};
   return launch<double>(a, par, tgt, nodes, qhat, out, n1, kernel_id,
                         periodic, kahan, Lx, Ly, Lz);
 }

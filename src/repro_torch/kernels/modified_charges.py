@@ -21,7 +21,10 @@ tree-ordered sources, cut into chunks of at most `CHUNK` particles by
   blocks (the reference's XLA path).
 
 All take the per-dimension mapped nodes built by `ops._cluster_nodes`,
-so the exact-hit compare sees identical nodes.
+so the exact-hit compare sees identical nodes. The ranged functions also
+take a leading systems axis W on every input but the weights (an
+ensemble of systems of one shape): the kernel sweeps all W systems in
+one pair of launches, the plain version runs once per system.
 """
 from __future__ import annotations
 
@@ -42,7 +45,9 @@ CHUNK = 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
+# pts, q, nodes, w, chunks, chunk_ptr, partial, out; num_chunks,
+# num_nodes, n1, systems, num_points; the stream
+_SIG = (_P,) * 8 + (_I,) * 5 + (_P,)
 _SIGNATURES = {"mc_eval_f32": _SIG, "mc_eval_f64": _SIG, "mc_tile": (_I, _I)}
 
 MAX_DEGREE = 14  # n + 1 <= 15: the kernel's instantiations
@@ -91,8 +96,16 @@ def modified_charges_ranged_cuda(pts: torch.Tensor, q: torch.Tensor,
     pts (N, 3) and q (N,) tree-ordered particles; chunks (K, 3) and
     chunk_ptr (num_nodes + 1,) int32 from `chunk_table`; nodes
     (num_nodes, 3, n+1); w (n+1,): contiguous CUDA tensors on one device,
-    the floating ones float32 or float64 alike."""
+    the floating ones float32 or float64 alike. With a leading systems
+    axis W on all but w (each system's chunks naming its own nodes and
+    particles), (W, num_nodes, (n+1)^3) from the same two launches."""
     global LAUNCHES
+    if pts.dim() == 3:
+        single = False
+    else:
+        single = True
+        pts, q, chunks, chunk_ptr, nodes = (
+            t.unsqueeze(0) for t in (pts, q, chunks, chunk_ptr, nodes))
     dev, dtype = pts.device, pts.dtype
     what = "modified_charges_ranged_cuda"
     if dtype not in (torch.float32, torch.float64):
@@ -106,32 +119,38 @@ def modified_charges_ranged_cuda(pts: torch.Tensor, q: torch.Tensor,
             f"kernel's instantiations ({DEGREE_LATER}); backend='torch' "
             f"takes any degree")
     n1 = degree + 1
-    num_nodes = chunk_ptr.shape[0] - 1
-    k = chunks.shape[0]
-    if (pts.dim() != 2 or pts.shape[1] != 3 or tuple(q.shape) != (len(pts),)
-            or chunks.dim() != 2 or chunks.shape[1] != 3
-            or tuple(nodes.shape) != (num_nodes, 3, n1)
+    systems, n = pts.shape[:2]
+    num_nodes = chunk_ptr.shape[1] - 1
+    k = chunks.shape[1]
+    if (tuple(pts.shape) != (systems, n, 3) or tuple(q.shape) != (systems, n)
+            or tuple(chunks.shape) != (systems, k, 3)
+            or tuple(chunk_ptr.shape) != (systems, num_nodes + 1)
+            or tuple(nodes.shape) != (systems, num_nodes, 3, n1)
             or tuple(w.shape) != (n1,)):
         raise ValueError(
             f"{what}: shapes pts {tuple(pts.shape)}, q {tuple(q.shape)}, "
             f"chunks {tuple(chunks.shape)}, chunk_ptr "
             f"{tuple(chunk_ptr.shape)}, nodes {tuple(nodes.shape)}, w "
-            f"{tuple(w.shape)} do not match (N,3),(N,),(K,3),(M+1,),"
-            f"(M,3,n+1),(n+1,)")
+            f"{tuple(w.shape)} do not match (W,N,3),(W,N),(W,K,3),(W,M+1),"
+            f"(W,M,3,n+1),(n+1,)")
+    if systems > 65535:     # the chunk kernel's grid.y
+        raise ValueError(f"{what}: {systems} systems exceed the grid limit of "
+                         f"65535")
 
     lib = _build.load("modified_charges", _SIGNATURES)
     n3 = n1 ** 3
-    out = torch.empty((num_nodes, n3), dtype=dtype, device=dev)
-    partial = torch.empty((k, n3), dtype=dtype, device=dev)
+    out = torch.empty((systems, num_nodes, n3), dtype=dtype, device=dev)
+    partial = torch.empty((systems, k, n3), dtype=dtype, device=dev)
     fn = lib.mc_eval_f32 if dtype == torch.float32 else lib.mc_eval_f64
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(pts.data_ptr(), q.data_ptr(), nodes.data_ptr(), w.data_ptr(),
                 chunks.data_ptr(), chunk_ptr.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), k, num_nodes, n1, stream)
+                out.data_ptr(), k, num_nodes, n1, systems, n, stream)
     _build.check(rc, "modified_charges")
-    LAUNCHES += (k > 0) + (num_nodes > 0)   # what the C entry launched
-    return out
+    if systems > 0:                              # what the C entry launched
+        LAUNCHES += (k > 0) + (num_nodes > 0)
+    return out[0] if single else out
 
 
 def modified_charges_cuda(pts: torch.Tensor, q: torch.Tensor,
@@ -182,7 +201,13 @@ def modified_charges_ranged_plain(pts: torch.Tensor, q: torch.Tensor,
     """q_hat (num_nodes, (n+1)^3) in plain PyTorch: each chunk gathered to
     the longest chunk's width (padded slots repeat the chunk's first
     particle with charge 0), `modified_charges_plain` per chunk, and the
-    chunks added into their nodes."""
+    chunks added into their nodes. With a leading systems axis, once per
+    system."""
+    if pts.dim() == 3:
+        return torch.stack([
+            modified_charges_ranged_plain(pts[i], q[i], chunks[i],
+                                          chunk_ptr[i], nodes[i], w, degree)
+            for i in range(pts.shape[0])])
     n1 = degree + 1
     num_nodes = chunk_ptr.shape[0] - 1
     out = torch.zeros((num_nodes, n1 ** 3), dtype=pts.dtype,

@@ -10,6 +10,12 @@ A CUDA tensor under "auto" or "cuda" launches the kernel or raises:
 there is no silent fallback to the plain version. All entry points take
 the natural (..., P, 3) coordinate layout, which is also the kernels'.
 
+Every entry point also takes a leading systems axis W on every operand
+(an ensemble of systems of one shape, `repro_torch.serve`): idx
+(W, B, S), tgt (W, B, NB, 3) and so on, parameter leaves with a leading
+W. One call is then one launch per kernel over all W systems; `take`
+gathers per system the same way for the code around the kernels.
+
 `batch_boxes`, `mac_gate` (the Verlet-skin runtime MAC gate) and
 `refreshed_slacks` (the MD engine's drift budgets) are plain torch ops,
 as the reference runs them in XLA outside Pallas.
@@ -40,6 +46,17 @@ def resolve_backend(backend: str, like: torch.Tensor) -> str:
     return backend
 
 
+def take(x: torch.Tensor, idx: torch.Tensor, stacked: bool) -> torch.Tensor:
+    """x[idx] along x's leading axis (idx >= 0). With ``stacked`` both
+    carry a leading systems axis, x (W, N, ...) and idx (W, ...), and
+    system w's indices pick from x[w]: (W, *idx.shape[1:], ...)."""
+    if not stacked:
+        return x[idx]
+    w, n = x.shape[:2]
+    off = torch.arange(0, w * n, n, device=idx.device)
+    return x.flatten(0, 1)[idx + off.view((w,) + (1,) * (idx.dim() - 1))]
+
+
 # ---------------------------------------------------------------------------
 # Runtime MAC gate (Verlet-skin dual lists, DESIGN.md §4)
 # ---------------------------------------------------------------------------
@@ -51,15 +68,16 @@ def batch_boxes(tgt: torch.Tensor, mask: torch.Tensor):
     tgt (B, NB, 3) batch-packed targets, mask (B, NB) validity. Returns
     (center (B, 3), half_extent (B, 3), radius (B,), has (B,)); fully
     padded rows collapse to a point box at the origin, excluded by `has`.
+    A leading systems axis carries through.
     """
     big = torch.finfo(tgt.dtype).max
     m = mask[..., None]
-    lo = torch.where(m, tgt, torch.full_like(tgt, big)).amin(dim=1)
-    hi = torch.where(m, tgt, torch.full_like(tgt, -big)).amax(dim=1)
-    has = mask.any(dim=1)
+    lo = torch.where(m, tgt, torch.full_like(tgt, big)).amin(dim=-2)
+    hi = torch.where(m, tgt, torch.full_like(tgt, -big)).amax(dim=-2)
+    has = mask.any(dim=-1)
     zero = torch.zeros_like(lo)
-    lo = torch.where(has[:, None], lo, zero)
-    hi = torch.where(has[:, None], hi, zero)
+    lo = torch.where(has[..., None], lo, zero)
+    hi = torch.where(has[..., None], hi, zero)
     hw = 0.5 * (hi - lo)
     return 0.5 * (lo + hi), hw, torch.linalg.vector_norm(hw, dim=-1), has
 
@@ -71,22 +89,23 @@ def mac_gate(node_idx: torch.Tensor, bc, bhw, rb, has,
 
     Space-aware (minimum-image center distance and the fold-free
     condition under a `PeriodicBox`); -1 (sentinel) node ids gate to
-    False."""
+    False. Nodes (W, C, 3) mean a leading systems axis on every input."""
     safe = node_idx.clamp(min=0).long()
-    clo = node_lo[safe]                               # (B, S, 3)
-    chi = node_hi[safe]
+    stacked = node_lo.dim() == 3
+    clo = take(node_lo, safe, stacked)                # (B, S, 3)
+    chi = take(node_hi, safe, stacked)
     cc = 0.5 * (clo + chi)
     chw = 0.5 * (chi - clo)
     rc = torch.linalg.vector_norm(chw, dim=-1)
-    d = bc[:, None, :] - cc
+    d = bc[..., None, :] - cc
     dm = space.min_image(d)
     R = torch.sqrt((dm * dm).sum(-1))
-    ok = theta * R - (rb[:, None] + rc) > 0.0
-    fold = space.fold_margin(d, bhw[:, None, :] + chw)
+    ok = theta * R - (rb[..., None] + rc) > 0.0
+    fold = space.fold_margin(d, bhw[..., None, :] + chw)
     # free space gives a host scalar (+inf): a Python bool, no upload
     fold_ok = fold > 0.0 if isinstance(fold, torch.Tensor) \
         else bool(fold > 0.0)
-    return ok & fold_ok & has[:, None] & (node_idx >= 0)
+    return ok & fold_ok & has[..., None] & (node_idx >= 0)
 
 
 def refreshed_slacks(approx_idx: torch.Tensor, approx_skin: torch.Tensor,
@@ -124,6 +143,14 @@ def refreshed_slacks(approx_idx: torch.Tensor, approx_skin: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _packed(kernel: Kernel, params, idx, tgt) -> torch.Tensor:
+    """The launch's packed parameters: (P,), or (W, P) for stacked
+    operands (idx (W, B, S))."""
+    return pack_params(kernel.params if params is None else params,
+                       dtype=tgt.dtype, device=tgt.device,
+                       systems=idx.shape[0] if idx.dim() == 3 else None)
+
+
 def batch_cluster_eval(
     idx: torch.Tensor,      # (B, S) int, -1 = empty slot
     tgt: torch.Tensor,      # (B, NB, 3)
@@ -145,8 +172,7 @@ def batch_cluster_eval(
     summed and phi is 0 on target slots at or beyond `tgt_count[b]` (the
     count contract of `kernels/batch_cluster.py`)."""
     if resolve_backend(backend, tgt) == "cuda":
-        par = pack_params(kernel.params if params is None else params,
-                          dtype=tgt.dtype, device=tgt.device)
+        par = _packed(kernel, params, idx, tgt)
         counts = [None if c is None else c.to(torch.int32).contiguous()
                   for c in (tgt_count, src_count)]
         return _bc.batch_cluster_eval_cuda(
@@ -182,8 +208,7 @@ def batch_cluster_field(
     gradient needs the displacement); the plain version follows
     `r2_mode` like the potential, so the two differ by rounding only."""
     if resolve_backend(backend, tgt) == "cuda":
-        par = pack_params(kernel.params if params is None else params,
-                          dtype=tgt.dtype, device=tgt.device)
+        par = _packed(kernel, params, idx, tgt)
         counts = [None if c is None else c.to(torch.int32).contiguous()
                   for c in (tgt_count, src_count)]
         return _bc.batch_cluster_field_cuda(
@@ -216,8 +241,7 @@ def batch_cluster_field_grid(
     the forces. The difference form of r^2 on both backends; every grid
     point is real, so there are target counts only."""
     if resolve_backend(backend, tgt) == "cuda":
-        par = pack_params(kernel.params if params is None else params,
-                          dtype=tgt.dtype, device=tgt.device)
+        par = _packed(kernel, params, idx, tgt)
         count = (None if tgt_count is None
                  else tgt_count.to(torch.int32).contiguous())
         return _bc.batch_cluster_field_grid_cuda(
@@ -279,7 +303,9 @@ def modified_charges_ranged(
 
     Node i's particles are the rows chunk_ptr[i] to chunk_ptr[i+1] of
     `chunks` (`modified_charges.chunk_table`, which the plan holds as
-    `mc_chunks` / `mc_chunk_ptr`); a node without chunks gets q_hat 0."""
+    `mc_chunks` / `mc_chunk_ptr`); a node without chunks gets q_hat 0.
+    With a leading systems axis on every input, (W, num_nodes, (n+1)^3)
+    from one call (two launches on the card)."""
     nodes = _cluster_nodes(node_lo, node_hi, degree)
     w = cheby.bary_weights_1d(degree, src_sorted.dtype, src_sorted.device)
     if resolve_backend(backend, src_sorted) == "cuda":

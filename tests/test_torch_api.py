@@ -161,11 +161,15 @@ def test_config_validation_and_unported_options():
     phi, F = plan.potential_and_forces(q)
     assert phi.shape == (300,) and F.shape == (300, 3)
     assert plan.replan(x).capacities == plan.capacities
-    # still unported: point budgets (serving) and sharded capacities
+    # ported by the serving slice: point budgets; still unported: sharded
+    # capacities
     need = dict(_eval._plan_dims(plan.inner), num_targets=300,
                 num_sources=300)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _eval.Capacities.for_need(need)
+    caps = _eval.Capacities.for_need(need)
+    assert caps.points_budgeted and caps.num_sources >= 300
+    padded = _eval.pad_plan(plan.inner, caps)
+    assert padded.arrays["gather_index"].shape == (caps.num_targets,)
+    assert padded.arrays["src_perm"].shape == (caps.num_sources,)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         plan.replan(x, capacities=object())
     cfg = TreecodeConfig(kernel="yukawa", kernel_params={"kappa": 0.3})

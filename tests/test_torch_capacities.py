@@ -184,11 +184,18 @@ def test_point_budgets_and_unknown_capacities_raise(cloud):
     x, _ = cloud
     plan = _solver().plan(x)
     need = ev._plan_dims(plan.inner)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ev.Capacities.for_need(dict(need, num_targets=900, num_sources=900))
+    # point budgets (the serving setting) work: a needs dict with point
+    # keys enables them and reserves the scratch batch row
+    pts = ev.Capacities.for_need(dict(need, num_targets=900,
+                                      num_sources=900))
+    assert pts.points_budgeted and pts.num_targets >= 900
+    assert pts.scratch_batch == pts.num_batches - 1
+    assert pts.num_batches > ev.Capacities.for_need(need).num_batches
     caps = ev.Capacities.for_plan(plan.inner)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(caps, num_targets=1024)
+    assert not caps.points_budgeted
+    wide = dataclasses.replace(caps, num_targets=1024, num_sources=1024)
+    assert wide.points_budgeted and wide.grown_to_fit_need(
+        dict(need, num_targets=2000, num_sources=2000)).num_targets >= 2000
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         plan.replan(x, capacities=object())
     with pytest.raises(ValueError, match="capacities"):

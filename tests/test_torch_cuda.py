@@ -424,3 +424,100 @@ def test_sparse_device_build_on_the_card_equals_the_cpu_build(cuda_device):
         for k, v in gpu.arrays.items():
             if not isinstance(v, tuple):
                 assert torch.equal(p.arrays[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_systems_axis_kernels_match_plain(cuda_device, dtype):
+    """The four kernels on stacked operands (W = 3: ragged per-system
+    counts, per-system Yukawa kappas, a system of zero charges, a
+    scratch batch row of count 0) against their plain versions."""
+    rng = np.random.default_rng(9)
+    dev = cuda_device
+    W, B, S, NB, C, m, degree = 3, 5, 6, 150, 7, 200, 4
+    n1 = degree + 1
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32,  # noqa: E731
+                                    device=dev)
+    idx = i32(rng.integers(-1, C, (W, B, S)))
+    tgt, src = t(rng.uniform(-1, 1, (W, B, NB, 3))), t(rng.uniform(
+        -1, 1, (W, C, m, 3)))
+    q = t(rng.uniform(0 if dtype == torch.float64 else -1, 1, (W, C, m)))
+    q[1] = 0.0
+    tc, sc = i32(rng.integers(0, NB + 1, (W, B))), i32(
+        rng.integers(0, m + 1, (W, C)))
+    tc[:, -1] = 0
+    kappa = t([0.5, 1.1, 2.0])
+    lo, hi = t(rng.uniform(-1, -0.3, (W, C, 3))), t(rng.uniform(
+        0.3, 1, (W, C, 3)))
+    nodes = ops._cluster_nodes(lo, hi, degree)
+    qhat = t(rng.uniform(-1, 1, (W, C, n1 ** 3)))
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-12, 1e-12)
+    kern = yukawa()
+    for space in (FREE, PeriodicBox((2.0, 2.0, 2.0))):
+        kw = dict(kernel=kern, space=space, tgt_count=tc)
+        cases = {
+            "eval": (ops.batch_cluster_eval, (idx, tgt, src, q),
+                     dict(src_count=sc)),
+            "field": (ops.batch_cluster_field, (idx, tgt, src, q),
+                      dict(src_count=sc)),
+            "grid": (ops.batch_cluster_field_grid, (idx, tgt, nodes, qhat),
+                     {}),
+        }
+        for name, (fn, args, extra) in cases.items():
+            got = fn(*args, (kappa,), backend="cuda", **kw, **extra)
+            want = fn(*args, (kappa,), backend="torch", **kw, **extra)
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                       msg=name)
+            assert (got[:, -1] == 0).all(), name
+    chunks = np.zeros((W, 4, 3), np.int32)
+    ptr = np.zeros((W, C + 1), np.int32)
+    for w in range(W):     # system w: node w holds particles [0, 60 w + 9)
+        tab, p = mcm.chunk_table(np.zeros(C, np.int64),
+                                 np.where(np.arange(C) == w, 60 * w + 9, 0),
+                                 chunk=64)
+        chunks[w, :len(tab)], ptr[w] = tab, p
+        chunks[w, len(tab):] = (C - 1, 0, 0)
+    pts = t(rng.uniform(-1, 1, (W, m, 3)))
+    qq = t(rng.uniform(-1, 1, (W, m)))
+    lo1, hi1 = t(np.full((W, C, 3), -1.0)), t(np.full((W, C, 3), 1.0))
+    args = (pts, qq, i32(chunks), i32(ptr), lo1, hi1)
+    got = ops.modified_charges_ranged(*args, degree=degree, backend="cuda")
+    want = ops.modified_charges_ranged(*args, degree=degree, backend="torch")
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=3e-3 if dtype == torch.float32
+                               else 1e-10, atol=3e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_ensemble_runs_one_launch_per_lane(cuda_device):
+    """An EnsemblePlan of W = 4 systems on the card: each execute is two
+    batch-cluster and two modified-charge launches, each force call one
+    field and one grid field launch, whatever W is; results within f32
+    rounding of the plain versions on the card."""
+    from repro_torch.core.api import TreecodeConfig
+    from repro_torch.serve import EnsemblePlan
+
+    rng = np.random.default_rng(10)
+    xs = [rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+          for n in (3000, 5000, 4000, 2500)]
+    qs = [rng.uniform(-1, 1, len(x)).astype(np.float32) for x in xs]
+    out = {}
+    for backend in ("cuda", "torch"):
+        cfg = TreecodeConfig(theta=0.7, degree=5, leaf_size=200,
+                             kernel="yukawa", backend=backend)
+        plan = EnsemblePlan.build(cfg, xs)
+        params = [{"kappa": k} for k in (0.5, 1.0, 1.5, 2.0)]
+        before = (bcm.LAUNCHES, mcm.LAUNCHES, bcm.FIELD_LAUNCHES,
+                  bcm.GRID_FIELD_LAUNCHES)
+        phi = plan.execute(qs, kernel_params=params)
+        phi2, F = plan.potential_and_forces(qs, kernel_params=params)
+        launched = tuple(a - b for a, b in zip(
+            (bcm.LAUNCHES, mcm.LAUNCHES, bcm.FIELD_LAUNCHES,
+             bcm.GRID_FIELD_LAUNCHES), before))
+        assert launched == ((2, 4, 1, 1) if backend == "cuda"
+                            else (0, 0, 0, 0)), launched
+        out[backend] = (phi, F)
+    for a, b in zip(out["cuda"], out["torch"]):
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        assert err < 1e-4, err

@@ -13,7 +13,8 @@ MODULES = ["repro_torch.core.api", "repro_torch.core.direct",
            "repro_torch.kernels.ops", "repro_torch.kernels.ref",
            "repro_torch.dynamics", "repro_torch.checkpoint.store",
            "repro_torch.devtree", "repro_torch.devtree.morton",
-           "repro_torch.devtree.lists"]
+           "repro_torch.devtree.lists", "repro_torch.serve",
+           "repro_torch.launch.serve"]
 
 
 @pytest.mark.parametrize("module", MODULES)

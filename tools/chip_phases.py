@@ -7,10 +7,13 @@ Builds the kernels, makes the main phase's Fig. 4 points and charges
 (10^6, the same seed) and runs the named phases of `chip_smoke.py`
 (default: 10, 11, 8d and 8a: the device-built plan, the hierarchical
 precompute and the 10^6 MD with device rebuilds, synchronous and
-async), each with its own checks. A failing phase prints its traceback
+async), each with its own checks. Also: 4 and 4f (the Fig. 4 execute
+and forces at 10^6), w (the four kernels' systems-axis cases of phases
+2, 2f, 2g and 3) and 12a-12d (serving: the ensemble, the kappa scan,
+the service and the ensemble MD). A failing phase prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
 line compares the hierarchical q_hat with this run's direct one only
-(phase 4, which times the kernel alone, does not run here). Prints the
+(phase 4 runs here only when named). Prints the
 card's name and power limit first; needs a CUDA device.
 """
 import os
@@ -43,7 +46,29 @@ def main() -> int:
     x = rng.uniform(-1, 1, (c.MAIN_N, 3)).astype(np.float32)
     q = torch.as_tensor(rng.uniform(-1, 1, c.MAIN_N).astype(np.float32),
                         device=dev)
+    main = {}
+
+    def phase_main():
+        main["plan"], _, _, _ = c.phase_main(dev, smi)
+
+    def phase_forces():
+        if "plan" not in main:
+            phase_main()
+        c.phase_forces(dev, main["plan"], x, q, smi)
+
+    def systems_axis():
+        for kind in ("batch_cluster", "field", "grid_field",
+                     "modified_charges"):
+            c.print_systems_axis(f"[{kind}]", kind, dev)
+
     phases = {
+        "4": phase_main,
+        "4f": phase_forces,
+        "w": systems_axis,
+        "12a": lambda: c.phase_serve_ensemble(dev, smi),
+        "12b": lambda: c.phase_serve_kappa_scan(dev),
+        "12c": lambda: c.phase_serve_frontend(dev),
+        "12d": lambda: c.phase_serve_md(dev),
         "8": lambda: c.phase_md(dev),
         "8d": lambda: c.phase_md(dev, "[8d]", "device"),
         "8a": lambda: c.phase_md(dev, "[8a]", "device", async_replan=True),
