@@ -125,6 +125,23 @@ Phases (each asserts; any failure exits non-zero):
     its energy balance); 12b, 12c (each bucket's last flush) and 12d (the
     refitted, skin-gated stack) also hold every kernel against its plain
     version on their own stacked arrays (`stacked_rows_check`);
+ 13. the sharded treecode (`repro_torch.distributed`), P = SHARDED_P
+    ranks stacked on the one card: (13a) phase 4's 10^6 points and
+    charges at Fig. 4: the host build by phase (rcb, local plans, LET
+    traversal, pad, commit) and the budget; execute (median of 7) and
+    `potential_and_forces` (median of 3) beside the single plan's in the
+    same run, with every launch counter from 0 (4 batch-cluster and 2
+    modified-charge launches an execute; 2 field, 2 grid field and 2
+    modified-charge launches a force call); phi and forces against an
+    f64 direct sum on 1000 sampled targets (1e-5, FORCE_BAR); each of the
+    four lanes' kernels against its plain version on the first
+    SHARDED_ROWS batch rows of every rank and the modified charges on
+    every node (`sharded_rows_check`); the pairs each lane needs and
+    sweeps beside the single plan's two lanes, and each potential lane's
+    ms; (13b) a sharded MD on the lattice of SHARDED_MD_M^3 (free space,
+    skin 0.01, dt 1e-5, refit interval 10, 20 steps) with phase 8's
+    gates (one host sync per refit step, no growth and no kernel build
+    after step 1, the energy balance) and its refit and rebuild steps;
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -2672,6 +2689,351 @@ def phase_serve_md(dev):
           f"median of 7)", flush=True)
 
 
+# The sharded phases: ranks stacked on the one card, the batch rows of
+# each rank the kernels are held against their plain versions on, and the
+# lattice of the sharded MD (MD_M^3 = 10^6 as phase 8's; see 13b).
+SHARDED_P = 4
+SHARDED_ROWS = 16
+SHARDED_MD_M = MD_M
+
+
+def lane_pairs(idx, tgt_count, src_count, nb, m, clusters=0):
+    """(needed, swept) (target, source) pairs of one lane launch of the
+    batch-cluster kernel: needed counts real targets x real sources of
+    every valid slot, swept what its launch geometry runs
+    (`bcm.swept_pairs`). A stacked lane (3-D idx) counts as one flat
+    lane, system w's ids offset by w * clusters."""
+    import torch
+    from repro_torch.kernels import batch_cluster as bcm
+    if idx.dim() == 3:
+        off = (torch.arange(idx.shape[0], device=idx.device)
+               * clusters)[:, None, None]
+        idx = torch.where(idx >= 0, idx + off, idx).flatten(0, 1)
+        tgt_count = tgt_count.flatten()
+        src_count = None if src_count is None else src_count.flatten()
+    valid = idx >= 0
+    n = (torch.full(idx.shape, m, device=idx.device) if src_count is None
+         else src_count.long()[idx.clamp(min=0).long()])
+    needed = float((tgt_count.double()[:, None] * n * valid).sum())
+    return needed, bcm.swept_pairs(idx, nb, m, tgt_count, src_count)["pairs"]
+
+
+def sharded_rows_check(plan, q, what, rows=SHARDED_ROWS):
+    """Each kernel of a sharded plan's path against its plain version on
+    the tensors its sweeps feed them (`sharded_lane_inputs`, stacked on
+    the card): batch_cluster on the four potential lanes, the grid field
+    kernel on both approximation lanes and the field kernel on the local
+    direct and halo lanes, each on the first `rows` batch rows of every
+    rank (the remote lane's rows of each rank picked from its flattened
+    R*B rows), and the modified charges on every node of every rank. phi
+    per entry to PHI_K times its sum |G q|, gradients to GRAD_K times
+    their sum |terms|, padded slots exactly 0. Returns {kernel: max abs
+    err}; these launches are not counted."""
+    import torch
+    from repro_torch.distributed.bltc import LANE_OPS, sharded_lane_inputs
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import ops
+    a = plan.arrays
+    q_rank = plan.rank_charges(q)
+    opts = plan.exec_opts()
+    kern = opts.pop("kernel")
+    opts["backend"] = "cuda"
+    pot = sharded_lane_inputs(a, q_rank, **opts)
+    fld = sharded_lane_inputs(a, q_rank, grid_nodes=True, **opts)
+    r, b = a["tgt_batched"].shape[:2]
+    flat_rows = (torch.arange(r, device=q.device)[:, None] * b
+                 + torch.arange(rows, device=q.device)).flatten()
+    kw = dict(kernel=kern, space=plan.config.space)
+    params = plan.kernel_params
+    worst = {}
+
+    def pick(t, flat):
+        return t[flat_rows] if flat else t[:, :rows]
+
+    for lane in pot:
+        flat = lane == "remote_approx"
+        mask = a["tgt_mask"].flatten(0, 1) if flat else a["tgt_mask"]
+        real = pick(mask, flat)
+        idx, tgt, pts, qq, cnt = pot[lane]
+        sub = {k: (v if k == "src_count" else pick(v, flat))
+               for k, v in cnt.items()}
+        got, want = (ops.batch_cluster_eval(
+            pick(idx, flat), pick(tgt, flat), pts, qq, params, backend=bk,
+            **kw, **sub) for bk in ("cuda", "torch"))
+        fidx, ftgt, fpts, fqq, fcnt = fld[lane]
+        fsub = {k: (v if k == "src_count" else pick(v, flat))
+                for k, v in fcnt.items()}
+        op = LANE_OPS["field"][lane]
+        plain = (bcm.batch_cluster_field_grid_plain
+                 if op is ops.batch_cluster_field_grid
+                 else bcm.batch_cluster_field_plain)
+        fargs = (pick(fidx, flat), pick(ftgt, flat), fpts, fqq)
+        fgot, fwant = (op(*fargs, params, backend=bk, **kw, **fsub)
+                       for bk in ("cuda", "torch"))
+        mag = plain(*fargs, params, magnitude=True, **kw, **fsub)[real]
+        assert (got[~real] == 0).all(), f"{what}: batch_cluster {lane} pad"
+        assert (fgot[~real] == 0).all(), f"{what}: field {lane} padding"
+        e, _ = phi_close(got[real], want[real], mag[:, 0],
+                         f"{what}: batch_cluster {lane}")
+        worst["batch_cluster"] = max(worst.get("batch_cluster", 0.0), e)
+        fgot, fwant = fgot[real], fwant[real]
+        e, _ = phi_close(fgot[:, 0], fwant[:, 0], mag[:, 0],
+                         f"{what}: field {lane} phi")
+        ge, _ = grad_close(fgot[:, 1:], fwant[:, 1:], mag[:, 1:],
+                           f"{what}: field {lane}")
+        key = ("batch_cluster_field_grid" if op is ops.batch_cluster_field_grid
+               else "batch_cluster_field")
+        worst[key] = max(worst.get(key, 0.0), e, ge)
+    inp_q = ops.take(q_rank, a["charges_perm"], True)
+    mc_args = (a["src_sorted"], inp_q, a["mc_chunks"], a["mc_chunk_ptr"],
+               a["node_lo"], a["node_hi"])
+    qh, qh_plain = (ops.modified_charges_ranged(
+        *mc_args, degree=plan.config.degree, backend=bk)
+        for bk in ("cuda", "torch"))
+    worst["modified_charges"] = close(qh, qh_plain, 3e-3, 3e-4,
+                                      f"{what}: modified_charges",
+                                      scale="max")
+    assert (qh[:, plan.scratch_node] == 0).all(), "scratch node q_hat"
+    torch.cuda.synchronize()
+    return worst
+
+
+def phase_sharded(dev, smi, x, q, single=None):
+    """13a: a SHARDED_P-rank sharded plan stacked on the card at Fig. 4
+    on phase 4's points and charges (see the module docstring). `single`
+    is phase 4's plan (built here when None), timed in the same run."""
+    import numpy as np
+    import torch
+    from repro_torch.core import eval as ev
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.core.direct import direct_field, direct_sum
+    from repro_torch.distributed.bltc import LANE_OPS, sharded_lane_inputs
+
+    cfg = fig4_config()
+    solver = TreecodeSolver(cfg)
+    n, p = x.shape[0], SHARDED_P
+    if single is None:
+        single = solver.plan(x)
+    t0 = time.perf_counter()
+    plan = solver.plan(x, nranks=p)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    st = plan.stats()
+    caps, rc = st["capacities"], st["capacities"]["rank"]
+    print(f"[13a] sharded plan at Fig. 4, N={n}, P={p} ranks stacked on the "
+          f"card: host build {build_ms:.1f} ms, by phase "
+          f"{ {k: round(v, 1) for k, v in st['build_phases'].items()} }; "
+          f"rank counts {st['rank_counts']}; budget: slab width "
+          f"{caps['slab_width']}, per rank batches {rc['num_batches']} x "
+          f"{rc['batch_width']}, leaves {rc['num_leaves']} x "
+          f"{rc['leaf_width']}, nodes {rc['num_nodes']}, approx width "
+          f"{rc['approx_width']}, direct width {rc['direct_width']}, chunks "
+          f"{rc['num_chunks']}; remote approx width "
+          f"{caps['remote_approx_width']}, remote direct width "
+          f"{caps['remote_direct_width']}; halo rounds {st['halo_rounds']} "
+          f"(offsets {caps['halo_offsets']}, {st['halo_rounds_active']} "
+          f"active), halo width {caps['halo_width']} leaves a round",
+          flush=True)
+
+    # the sharded path: every launch counter from 0 just before, read
+    # just after
+    reps_ex, reps_pf = 7, 3
+    zero_launch_counts()
+    phi = plan.execute(q)
+    torch.cuda.synchronize()
+    ex_ms = event_ms(lambda: plan.execute(q), reps_ex)
+    ex_launches = launch_counts()
+    zero_launch_counts()
+    fphi, force = plan.potential_and_forces(q)
+    torch.cuda.synchronize()
+    pf_ms = event_ms(lambda: plan.potential_and_forces(q), reps_pf)
+    pf_launches = launch_counts()
+    calls_ex, calls_pf = 1 + reps_ex, 1 + reps_pf
+    assert ex_launches == (4 * calls_ex, 2 * calls_ex, 0, 0), ex_launches
+    assert pf_launches == (0, 2 * calls_pf, 2 * calls_pf,
+                           2 * calls_pf), pf_launches
+    single_ex = event_ms(lambda: single.execute(q), reps_ex)
+    single_pf = event_ms(lambda: single.potential_and_forces(q), reps_pf)
+
+    rng = np.random.default_rng(2020 + 13)
+    sample = torch.as_tensor(rng.choice(n, 1000, replace=False), device=dev)
+    x64 = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    q64 = q.double()
+    ref = direct_sum(x64[sample], x64, q64, kernel=solver.kernel,
+                     source_chunk=1 << 15)
+    _, grad = direct_field(x64[sample], x64, q64, kernel=solver.kernel,
+                           source_chunk=1 << 14)
+    assert phi.shape == (n,) and torch.isfinite(phi).all()
+    assert force.shape == (n, 3) and torch.isfinite(force).all()
+    err = rel2(phi[sample].double(), ref)
+    ferr = rel2(force[sample].double(), -q64[sample, None] * grad)
+    serr = rel2(single.execute(q)[sample].double(), ref)
+    assert err <= 1e-5, err
+    assert ferr <= FORCE_BAR, ferr
+    print(f"[13a] execute {ex_ms:.3f} ms (median of {reps_ex}, CUDA events) "
+          f"against the single plan's {single_ex:.3f} ms: "
+          f"{ex_ms / single_ex:.3f}x; potential_and_forces {pf_ms:.3f} ms "
+          f"(median of {reps_pf}) against {single_pf:.3f} ms: "
+          f"{pf_ms / single_pf:.3f}x ({smi}); launches over {calls_ex} "
+          f"executes (batch_cluster, modified_charges, field, grid field) "
+          f"{ex_launches}, over {calls_pf} force calls {pf_launches}; "
+          f"relative 2-norm error vs f64 direct sum on 1000 sampled targets:"
+          f" phi {err:.3e} (bar 1e-5; the single plan {serr:.3e}), forces "
+          f"{ferr:.3e} (bar {FORCE_BAR})", flush=True)
+
+    worst = sharded_rows_check(plan, q, "[13a]")
+    print(f"[13a] kernels vs plain on the first {SHARDED_ROWS} batch rows "
+          f"of each of the {p} ranks on all four lanes, the modified "
+          f"charges on every node of every rank (phi {PHI_K[4]} sum|G q|, "
+          f"gradient {GRAD_K[4]} sum|terms| per entry, q_hat rtol 3e-3 atol "
+          f"3e-4 max|q_hat|; the scratch node's q_hat 0): max abs err "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }",
+          flush=True)
+
+    # pairs per lane: the potential kernel's launches, against the single
+    # plan's two lanes; each sharded lane's ms
+    opts = plan.exec_opts()
+    kern = opts.pop("kernel")
+    q_rank = plan.rank_charges(q)
+    lanes = sharded_lane_inputs(plan.arrays, q_rank, **opts)
+    fields = sharded_lane_inputs(plan.arrays, q_rank, grid_nodes=True,
+                                 **opts)
+    nb = plan.arrays["tgt_batched"].shape[2]
+    kw = dict(kernel=kern, space=cfg.space, backend="cuda")
+    out, tot = [], [0.0, 0.0]
+    for lane, (idx, tgt, pts, qq, cnt) in lanes.items():
+        need, swept = lane_pairs(idx, cnt["tgt_count"], cnt.get("src_count"),
+                                 nb, pts.shape[-2], pts.shape[-3])
+        ms = event_ms(lambda: LANE_OPS["lane"][lane](
+            idx, tgt, pts, qq, plan.kernel_params, **kw, **cnt), 3)
+        fidx, ftgt, fpts, fqq, fcnt = fields[lane]
+        fms = event_ms(lambda: LANE_OPS["field"][lane](
+            fidx, ftgt, fpts, fqq, plan.kernel_params, **kw, **fcnt), 3)
+        tot[0] += need
+        tot[1] += swept
+        out.append(f"{lane} {need:.4e} needed, {swept:.4e} swept, "
+                   f"{ms:.3f} ms (its field lane "
+                   f"{LANE_OPS['field'][lane].__name__} {fms:.3f} ms)")
+    s_lanes = ev.lane_inputs(single.arrays, q, degree=cfg.degree,
+                             space=cfg.space, backend="cuda")
+    snb = single.arrays["tgt_batched"].shape[1]
+    s_out, s_tot = [], 0.0
+    for lane, (idx, pts, qq, cnt) in s_lanes.items():
+        need, swept = lane_pairs(idx, cnt["tgt_count"], cnt.get("src_count"),
+                                 snb, pts.shape[-2])
+        s_tot += need
+        s_out.append(f"{lane} {need:.4e} needed, {swept:.4e} swept")
+    print(f"[13a] pairs of the potential kernel's launches and each "
+          f"lane's ms (median of 3, CUDA events), sharded: "
+          + "; ".join(out) + f"; in all {tot[0]:.4e} needed, {tot[1]:.4e} "
+          f"swept; the single plan: " + "; ".join(s_out)
+          + f"; in all {s_tot:.4e} needed ({tot[0] / s_tot:.3f}x)",
+          flush=True)
+
+
+def phase_sharded_md(dev):
+    """13b: `Simulation` over a SHARDED_P-rank sharded plan stacked on the
+    card at the Fig. 4 settings with phase 8's MD (jittered
+    SHARDED_MD_M^3 lattice, +-1 charges, skin MD_SKIN, dt MD_DT, refit
+    interval MD_REFIT, MD_STEPS steps, host rebuilds into the
+    ShardedCapacities budget). Steps 2.. run with every launch counter
+    at 0 (2 field, 2 grid field and 2 modified-charge launches a step);
+    each refit step makes exactly one host sync; no capacity growth and
+    no kernel build after step 1; the energy balance in f64."""
+    import warnings
+    import torch
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.dynamics import Simulation
+    from repro_torch.obs import events, trace
+
+    m = SHARDED_MD_M
+    x, q = salt_lattice(m, -1.0, 2.0 / m, 31)
+    n = x.shape[0]
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(fig4_config(), skin=MD_SKIN)
+    plan = TreecodeSolver(cfg).plan(x, nranks=SHARDED_P)
+    sim = Simulation(plan, q, dt=MD_DT, refit_interval=MD_REFIT)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    sim.log.record(0, sim.diagnostics())
+    phi0, v0 = sim.state.phi.clone(), sim.state.v.clone()
+    sim.step()
+    torch.cuda.synchronize()
+    builds0 = events.build_count()
+    zero_launch_counts()
+    step_ms = {"refit": [], "rebuild": []}
+    syncs = []
+    for _ in range(MD_STEPS - 1):
+        refits0 = sim.refits
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sim.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        kind = "refit" if sim.refits > refits0 else "rebuild"
+        if kind == "refit":
+            syncs.append(sum("called a synchronizing CUDA operation"
+                             in str(w.message) for w in caught))
+        step_ms[kind].append(ms)
+    launches = launch_counts()
+    steps = MD_STEPS - 1
+    assert launches == (0, 2 * steps, 2 * steps, 2 * steps), launches
+    sim.log.record(sim.steps, sim.diagnostics())
+    st = sim.stats()
+    builds = events.build_count() - builds0
+    assert st["capacity_growths"] == 0 and st["retraces"] == 0, st
+    assert builds == 0, builds
+    assert syncs and all(k == 1 for k in syncs), syncs
+    assert st["rebuilds"] >= 1, st
+    assert torch.isfinite(sim.state.x).all() and torch.isfinite(
+        sim.state.f).all()
+    dke, dpe = energy_balance(sim, phi0, v0)
+    balance = abs(dke + dpe) / dke
+    assert dke > 0 and balance <= ENERGY_BAR, (dke, dpe)
+    worst = sharded_rows_check(sim.plan, sim.charges, "[13b]")
+    # span breakdown of two more refit steps, traced (tracing syncs
+    # inside each span): the engine's phases and the sweep's lanes
+    trace.clear()
+    trace.enable()
+    try:
+        for _ in range(2):
+            sim.step()
+    finally:
+        trace.disable()
+    spans = {k: v / 2 for k, v in trace.phase_totals().items()
+             if k.startswith(("md.", "eval.", "sharded."))}
+    med = {k: (statistics.median(v) if v else float("nan"))
+           for k, v in step_ms.items()}
+    pst = st["plan"]
+    print(f"[13b] sharded MD at Fig. 4, N={n} (jittered {m}^3 lattice, +-1 "
+          f"charges), P={SHARDED_P} stacked, host rebuilds, skin {MD_SKIN}, "
+          f"velocity Verlet, dt {MD_DT}, refit interval {MD_REFIT}: setup "
+          f"{setup_ms:.0f} ms (host build by phase "
+          f"{ {k: round(v, 1) for k, v in pst['build_phases'].items()} }); "
+          f"steps 2-{MD_STEPS}: {sum(map(sum, step_ms.values())):.1f} ms in "
+          f"all; {len(step_ms['refit'])} refit steps, median "
+          f"{med['refit']:.2f} ms, {len(step_ms['rebuild'])} rebuild steps, "
+          f"median {med['rebuild']:.1f} ms (host clock to a synchronize); "
+          f"refits {st['refits']}, rebuilds {st['rebuilds']} (drift "
+          f"{st['rebuilds_drift']}, interval {st['rebuilds_interval']}); "
+          f"over steps 0-{MD_STEPS} in f64 dKE {dke:.6e}, dPE {dpe:.6e}, "
+          f"|dKE + dPE| / dKE {balance:.3e} (bar {ENERGY_BAR}); capacity "
+          f"growths {st['capacity_growths']}, retraces {st['retraces']}, "
+          f"kernel builds after step 1 {builds}; host syncs per refit step "
+          f"{sorted(set(syncs))}; launches over steps 2-{MD_STEPS} "
+          f"(batch_cluster, modified_charges, field, grid field) "
+          f"{launches}; kernels vs plain on the MD's refitted plan "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }",
+          flush=True)
+    print(f"[13b] traced refit step, ms per step by span: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(spans.items())), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2741,6 +3103,7 @@ def main() -> int:
     plan, x, q, report = phase_main(dev, smi)
     report += phase_forces(dev, plan, x, q, smi)
     phase_yukawa(dev, plan, x, q)
+    phase_sharded(dev, smi, x, q, plan)
     del plan
     phase_periodic(dev)
     md_launches, *host_ref = phase_md(dev)
@@ -2759,6 +3122,7 @@ def main() -> int:
     phase_serve_kappa_scan(dev)
     phase_serve_frontend(dev)
     phase_serve_md(dev)
+    phase_sharded_md(dev)
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(smi)

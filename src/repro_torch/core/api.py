@@ -44,8 +44,14 @@ reference, it needs the host build.
 Point budgets (`core.eval.Capacities.num_targets` / `num_sources`) pad
 plans over different particle counts to one shape; `repro_torch.serve`
 stacks such plans into ensembles that run every kernel once for all
-systems. Not in this slice (raises NotImplementedError naming its
-ROADMAP item): sharded plans (nranks > 1).
+systems.
+
+`plan(points, nranks=P)` (P >= 2) builds a sharded plan
+(`repro_torch.distributed.bltc.ShardedPlan`: RCB slabs and locally
+essential trees) with all P ranks stacked on the solver's device;
+`plan(points, mesh=mesh)` runs one rank per process over a 1-D
+`torch.distributed` device mesh. Sharded plans are always padded into a
+`core.eval.ShardedCapacities` budget.
 """
 from __future__ import annotations
 
@@ -65,12 +71,6 @@ _BACKENDS = ("auto", "cuda", "torch")
 _PRECOMPUTES = ("direct", "hierarchical")
 _APPROX_R2 = ("diff", "matmul")
 _DTYPES = ("auto", "float32", "float64")
-
-_LATER = {
-    "nranks": "sharded plans (nranks > 1) are not ported yet "
-              "(ROADMAP queue A: sharded)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class TreecodeConfig:
@@ -460,9 +460,10 @@ def _plan_single(config: TreecodeConfig, kernel: Kernel, targets, sources,
         raise ValueError(f"capacities must be None, 'auto', 'keep' or a "
                          f"Capacities, got {capacities!r}")
     if not isinstance(capacities, (type(None), str, _eval.Capacities)):
-        raise NotImplementedError(
-            f"capacities of type {type(capacities).__name__} are not "
-            f"ported (ROADMAP queue A: sharded)")
+        raise TypeError(
+            f"single-device capacities must be None, 'auto', 'keep' or a "
+            f"core.eval.Capacities, got {type(capacities).__name__} (a "
+            f"ShardedCapacities budgets sharded plans: pass nranks=)")
     dtype = _resolve_dtype(config, targets)
     if config.build_backend == "device":
         # positions stay on the device, and the plan comes back padded
@@ -517,17 +518,65 @@ class TreecodeSolver:
     def space(self):
         return self.config.space
 
-    def plan(self, targets, sources=None, *, nranks: Optional[int] = None,
-             capacities=None) -> SingleDevicePlan:
+    def plan(self, targets, sources=None, *, mesh=None,
+             nranks: Optional[int] = None, capacities=None):
         """Build an execution plan for this geometry (sources default to
-        the targets, the N-body setting). `capacities`: None (no
-        padding), "auto" or a `core.eval.Capacities` (shape-stable
-        replans, the MD setting)."""
-        if nranks is not None and int(nranks) != 1:
-            raise NotImplementedError(_LATER["nranks"])
-        return _plan_single(self.config, self._kernel, targets,
-                            targets if sources is None else sources,
-                            self.device, capacities)
+        the targets, the N-body setting).
+
+        Strategy: an explicit `mesh` (a 1-D `torch.distributed` device
+        mesh, one rank per process) or `nranks` wins; otherwise P is the
+        world size when `torch.distributed` is initialised and the
+        targets are the sources, else 1, and it drops to 1 when there
+        are fewer points than ranks. P >= 2 builds a sharded plan, which
+        requires targets == sources; ``nranks=P`` stacks the P ranks on
+        the solver's device.
+
+        `capacities`: single-device plans take None (no padding), "auto"
+        or a `core.eval.Capacities` (shape-stable replans, the MD
+        setting); sharded plans are always padded, into a budget of
+        their own needs (None / "auto") or a
+        `core.eval.ShardedCapacities`."""
+        same = sources is None or sources is targets
+        if mesh is not None and nranks is not None:
+            raise ValueError("pass either mesh= or nranks=, not both")
+        if mesh is not None:
+            if mesh.ndim != 1:
+                raise ValueError(
+                    f"sharded plans shard over exactly one mesh dimension; "
+                    f"got {mesh.ndim}")
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"mesh of {mesh.device_type!r} devices for a solver on "
+                    f"{self.device}")
+            p = mesh.size()
+        elif nranks is not None:
+            p = int(nranks)
+            if p < 1:
+                raise ValueError(f"nranks must be >= 1, got {nranks}")
+        else:
+            # clamped to what the geometry can feed: RCB needs at least
+            # one particle per rank
+            dist = torch.distributed
+            p = (dist.get_world_size() if same and dist.is_available()
+                 and dist.is_initialized() else 1)
+            if len(targets) < p:
+                p = 1
+        if p == 1:
+            return _plan_single(self.config, self._kernel, targets,
+                                targets if sources is None else sources,
+                                self.device, capacities)
+        if not same:
+            raise ValueError(
+                "sharded planning (nranks >= 2) requires targets == sources; "
+                "pass nranks=1 for disjoint target/source sets")
+        from repro_torch.distributed.bltc import ShardedPlan
+        from repro_torch.distributed.exchange import GroupRanks, StackedRanks
+        ranks = GroupRanks(mesh) if mesh is not None else StackedRanks(p)
+        points = _host(targets, _resolve_dtype(self.config, targets))
+        return ShardedPlan.build(points, self.config, p, ranks=ranks,
+                                 device=self.device, kernel=self._kernel,
+                                 capacities=("auto" if capacities is None
+                                             else capacities))
 
     def execute(self, plan: SingleDevicePlan, charges) -> torch.Tensor:
         return plan.execute(charges)

@@ -835,6 +835,109 @@ class Capacities:
         return self.grown_to_fit(plan) == self
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedCapacities:
+    """Fixed budget for a sharded plan's stacked (P, ...) arrays
+    (`repro_torch.distributed.bltc.ShardedPlan`, DESIGN.md §7).
+
+    The per-rank dimensions reuse the single-device schema over the
+    element-wise max of the ranks' needs (`rank`, a `Capacities`, chunk
+    tables included); the cross-rank LET structures get their own:
+
+      slab_width           particle slab width per rank (`per_pad`)
+      remote_approx_width  gathered-cluster list width per batch
+      remote_direct_width  received-halo-leaf list width per batch
+      halo_offsets         the FIXED halo schedule: one round per rank
+                           offset over a symmetric contiguous range ±D,
+                           so RCB re-cuts keep the rounds; rounds a build
+                           does not need run fully masked
+      halo_width           leaf-slot budget per halo round
+
+    Two builds padded into equal budgets have equal array shapes and the
+    same rounds (`perm_rounds` derives from `halo_offsets` alone), with
+    the headroom and geometric growth of `Capacities`."""
+
+    rank: Capacities                  # per-rank budget (num_nodes incl.
+                                      # the scratch row, as single-device)
+    nranks: int
+    slab_width: int
+    remote_approx_width: int
+    remote_direct_width: int
+    halo_offsets: Tuple[int, ...]
+    halo_width: int
+    headroom: float = 1.15
+    growth: float = 1.5
+
+    @property
+    def scratch_node(self) -> int:
+        return self.rank.scratch_node
+
+    @property
+    def halo_rounds(self) -> int:
+        return len(self.halo_offsets)
+
+    @staticmethod
+    def _offset_range(offsets) -> Tuple[int, ...]:
+        """The symmetric round schedule covering `offsets`: every nonzero
+        offset in [-D, D], D = max |offset| (at least 1, so even a
+        halo-free build keeps a usable budget for later drift)."""
+        d = max([abs(int(o)) for o in offsets] + [1])
+        return tuple(o for o in range(-d, d + 1) if o != 0)
+
+    @classmethod
+    def for_need(cls, need: dict, headroom: float = 1.15,
+                 growth: float = 1.5) -> "ShardedCapacities":
+        """Initial budget: the build's own needs inflated by `headroom`."""
+
+        def h(x):
+            return _round_up(int(np.ceil(x * headroom)))
+
+        return cls(
+            rank=Capacities.for_need(need["rank"], headroom, growth),
+            nranks=int(need["nranks"]),
+            slab_width=h(need["slab_width"]),
+            remote_approx_width=h(need["remote_approx_width"]),
+            remote_direct_width=h(need["remote_direct_width"]),
+            halo_offsets=cls._offset_range(need["halo_offsets"]),
+            halo_width=h(need["halo_width"]),
+            headroom=headroom, growth=growth,
+        )
+
+    def grown_to_fit(self, need: dict) -> "ShardedCapacities":
+        """Smallest capacities >= self fitting `need`: an insufficient
+        width grows geometrically, and a rank offset outside the round
+        schedule widens the symmetric range (both counted growths in
+        `Simulation.stats`)."""
+        if int(need["nranks"]) != self.nranks:
+            raise ValueError(
+                f"sharded capacities are bound to nranks={self.nranks}; "
+                f"got a build over nranks={need['nranks']}")
+
+        def g(cap, n):
+            if n <= cap:
+                return cap
+            return _round_up(max(n, int(np.ceil(cap * self.growth))))
+
+        offsets = self.halo_offsets
+        if not set(need["halo_offsets"]) <= set(offsets):
+            offsets = self._offset_range(
+                tuple(offsets) + tuple(need["halo_offsets"]))
+        return dataclasses.replace(
+            self,
+            rank=self.rank.grown_to_fit_need(need["rank"]),
+            slab_width=g(self.slab_width, need["slab_width"]),
+            remote_approx_width=g(self.remote_approx_width,
+                                  need["remote_approx_width"]),
+            remote_direct_width=g(self.remote_direct_width,
+                                  need["remote_direct_width"]),
+            halo_offsets=offsets,
+            halo_width=g(self.halo_width, need["halo_width"]),
+        )
+
+    def fits(self, need: dict) -> bool:
+        return self.grown_to_fit(need) == self
+
+
 def _plan_dims(plan: Plan) -> dict:
     """The plan's padded dimensions (the needs a `Capacities` budgets)."""
     a = plan.arrays

@@ -28,14 +28,18 @@ from repro_torch.dynamics.integrators import (Integrator, MDState,
                                               langevin, leapfrog,
                                               registered_integrators,
                                               velocity_verlet)
-from repro_torch.dynamics.refit import (PlanAdapter, make_adapter, max_drift,
+from repro_torch.dynamics.refit import (PlanAdapter, ShardedAdapter,
+                                        make_adapter, max_drift,
+                                        refit_sharded_arrays,
                                         refit_single_arrays,
+                                        refresh_slacks_sharded,
                                         refresh_slacks_single)
 
 __all__ = [
-    "EnergyLog", "Integrator", "MDState", "PlanAdapter", "Simulation",
-    "get_integrator", "initial_state", "langevin", "leapfrog",
-    "make_adapter", "max_drift", "refit_single_arrays",
+    "EnergyLog", "Integrator", "MDState", "PlanAdapter", "ShardedAdapter",
+    "Simulation", "get_integrator", "initial_state", "langevin",
+    "leapfrog", "make_adapter", "max_drift", "refit_sharded_arrays",
+    "refit_single_arrays", "refresh_slacks_sharded",
     "refresh_slacks_single", "registered_integrators", "summarize",
     "velocity_verlet",
 ]

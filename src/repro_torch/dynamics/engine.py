@@ -1,8 +1,8 @@
 """Device-resident MD engine over treecode plans: refit when you can,
 rebuild when you must, keep every shape while the capacities hold.
 
-Port of `repro/dynamics/engine.py` (single device). One
-`Simulation.step()` is:
+Port of `repro/dynamics/engine.py`, over single-device and sharded plans.
+One `Simulation.step()` is:
 
     1. advance: integrator pre-step (positions move to the force
        point) and the max particle displacement since the LAST force
@@ -40,8 +40,11 @@ dispatches before them; the host's enqueueing then overlaps the card's
 force sweep), and keeps refitting on the live plan; the next step swaps
 it in (the `plan_swap` span).
 
-Not ported yet: sharded plans; the reference's ``REPRO_DEBUG_NANS`` hook
-waits for the checking tools (`debug_nans` is False).
+Sharded plans (`repro_torch.distributed`) rebuild on the host into their
+`ShardedCapacities`; a rebuild that grows the budget re-closes the step's
+force and slack functions over the new halo schedule. Not ported yet: the
+reference's ``REPRO_DEBUG_NANS`` hook waits for the checking tools
+(`debug_nans` is False).
 """
 from __future__ import annotations
 
@@ -238,7 +241,9 @@ class Simulation:
         integ, dt, inv_m, space = (self.integrator, self.dt, self._inv_m,
                                    self.space)
         adapter, q = self.adapter, self.charges
-        profile, theta, skin = self.profile, self._theta, self._skin
+        # skin-gate rates need the unstacked batch boxes: single device only
+        profile, theta = self.profile, self._theta
+        skin = self._skin if self.plan.nranks == 1 else 0.0
         # the config (kernel, options) is the same for every replan
         force, slack = adapter.force_fn(), adapter.slack_fn()
 
@@ -355,6 +360,8 @@ class Simulation:
         if invalidated:
             self.capacity_growths += 1
         self.plan = self.adapter.plan
+        if invalidated and self.adapter.recloses_on_rebuild:
+            self._make_closures()
         self._arrays = self.adapter.arrays
         self._sig = self.adapter.signature()
         self._theta_slack = float(self.adapter.theta_slack)

@@ -153,16 +153,17 @@ def test_config_validation_and_unported_options():
         TreecodeConfig(build_backend="device", precompute="hierarchical")
     x, q = _particles(6, 300)
     solver = TreecodeSolver(TreecodeConfig(leaf_size=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.plan(x, nranks=2)
+    # ported by the sharded slice: nranks > 1 and ShardedCapacities
+    sharded = solver.plan(x, nranks=2)
+    assert sharded.stats()["strategy"] == "sharded"
+    assert isinstance(sharded.capacities, _eval.ShardedCapacities)
     # ported by the forces and MD slice: capacities= and forces
     plan = solver.plan(x, capacities="auto")
     assert plan.capacities is not None
     phi, F = plan.potential_and_forces(q)
     assert phi.shape == (300,) and F.shape == (300, 3)
     assert plan.replan(x).capacities == plan.capacities
-    # ported by the serving slice: point budgets; still unported: sharded
-    # capacities
+    # ported by the serving slice: point budgets
     need = dict(_eval._plan_dims(plan.inner), num_targets=300,
                 num_sources=300)
     caps = _eval.Capacities.for_need(need)
@@ -170,8 +171,10 @@ def test_config_validation_and_unported_options():
     padded = _eval.pad_plan(plan.inner, caps)
     assert padded.arrays["gather_index"].shape == (caps.num_targets,)
     assert padded.arrays["src_perm"].shape == (caps.num_sources,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Capacities"):
         plan.replan(x, capacities=object())
+    with pytest.raises(TypeError, match="nranks"):
+        plan.replan(x, capacities=sharded.capacities)
     cfg = TreecodeConfig(kernel="yukawa", kernel_params={"kappa": 0.3})
     assert cfg.make_kernel().params == (0.3,)
     assert cfg == TreecodeConfig(kernel="yukawa",

@@ -3,6 +3,7 @@
 Inputs are made with numpy from a seed and handed to both packages; the
 comparisons are elementwise at float64 (the `x64` fixture on the JAX
 side, torch.float64 on the port's)."""
+import mpmath
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -88,7 +89,21 @@ def test_kernels_match_reference(x64, name, params):
     got = _np(tk(_t(r2)))
     want = np.asarray(jk(jnp.asarray(r2)))
     assert got[0] == 0.0                       # the r2 > 0 mask
-    np.testing.assert_allclose(got, want, rtol=1e-15)
+    # Each side against G(r2) at 200 bits, to the bound its conditioning
+    # allows: kappa*r is rounded before exp, which carries that error
+    # multiplied by |kappa r|, and sqrt, exp and the division add about
+    # one rounding each. Two correct f64 exps can differ by more than
+    # 1e-15 relative, so the sides meet at the sum of their bounds.
+    kappa = params[0] if params else 0.0
+    with mpmath.workprec(200):
+        exact = np.array([0.0] + [
+            float(mpmath.exp(-mpmath.mpf(kappa) * mpmath.sqrt(v))
+                  / mpmath.sqrt(v))
+            for v in (mpmath.mpf(float(s)) for s in r2[1:])])
+    bound = (kappa * np.sqrt(r2) + 2.0) * 2.0 ** -52 * np.abs(exact)
+    assert (np.abs(got - exact) <= bound).all()
+    assert (np.abs(want - exact) <= bound).all()
+    assert (np.abs(got - want) <= 2.0 * bound).all()
     x = rng.uniform(-1, 1, (2, 7, 3))
     y = rng.uniform(-1, 1, (2, 9, 3))
     y[0, 0] = x[0, 0]                          # coincident pair

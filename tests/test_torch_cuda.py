@@ -521,3 +521,36 @@ def test_ensemble_runs_one_launch_per_lane(cuda_device):
     for a, b in zip(out["cuda"], out["torch"]):
         err = (a - b).abs().max().item() / b.abs().max().item()
         assert err < 1e-4, err
+
+
+@pytest.mark.cuda
+def test_sharded_plan_on_the_card(cuda_device):
+    """A P = 4 sharded plan stacked on the card against the same plan on
+    the CPU (f64, the plain versions there): equal integer arrays, phi and
+    forces at rtol 1e-10 with an absolute floor of 1e-12 times the
+    largest |value|. Each execute makes four batch-cluster launches (the
+    local, remote and halo lanes) and two modified-charge launches, each
+    force call two field and two grid field launches."""
+    from repro_torch.core.api import TreecodeConfig, TreecodeSolver
+
+    rng = np.random.default_rng(18)
+    x = rng.uniform(-1, 1, (12000, 3))
+    q = rng.uniform(-1, 1, 12000)
+    cfg = TreecodeConfig(theta=0.7, degree=4, leaf_size=200, skin=0.01)
+    card = TreecodeSolver(cfg).plan(x, nranks=4)
+    host = TreecodeSolver(cfg, device="cpu").plan(x, nranks=4)
+    for k, v in host.arrays.items():
+        if not v.is_floating_point():
+            assert torch.equal(card.arrays[k].cpu(), v), k
+    before = (bcm.LAUNCHES, mcm.LAUNCHES, bcm.FIELD_LAUNCHES,
+              bcm.GRID_FIELD_LAUNCHES)
+    phi = card.execute(q)
+    fphi, F = card.potential_and_forces(q)
+    launched = tuple(a - b for a, b in zip(
+        (bcm.LAUNCHES, mcm.LAUNCHES, bcm.FIELD_LAUNCHES,
+         bcm.GRID_FIELD_LAUNCHES), before))
+    assert launched == (4, 4, 2, 2), launched
+    hphi, (hfphi, hF) = host.execute(q), host.potential_and_forces(q)
+    for got, want in ((phi, hphi), (fphi, hfphi), (F, hF)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-10,
+                                   atol=1e-12 * want.abs().max().item())

@@ -14,7 +14,9 @@ MODULES = ["repro_torch.core.api", "repro_torch.core.direct",
            "repro_torch.dynamics", "repro_torch.checkpoint.store",
            "repro_torch.devtree", "repro_torch.devtree.morton",
            "repro_torch.devtree.lists", "repro_torch.serve",
-           "repro_torch.launch.serve"]
+           "repro_torch.launch.serve", "repro_torch.distributed",
+           "repro_torch.distributed.rcb", "repro_torch.distributed.bltc",
+           "repro_torch.distributed.exchange"]
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -10,7 +10,9 @@ precompute and the 10^6 MD with device rebuilds, synchronous and
 async), each with its own checks. Also: 4 and 4f (the Fig. 4 execute
 and forces at 10^6), w (the four kernels' systems-axis cases of phases
 2, 2f, 2g and 3) and 12a-12d (serving: the ensemble, the kappa scan,
-the service and the ensemble MD). A failing phase prints its traceback
+the service and the ensemble MD), 13a and 13b (the sharded plan at
+Fig. 4 beside the single plan, built here unless 4 ran first, and the
+sharded MD). A failing phase prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
 line compares the hierarchical q_hat with this run's direct one only
 (phase 4 runs here only when named). Prints the
@@ -74,6 +76,8 @@ def main() -> int:
         "8a": lambda: c.phase_md(dev, "[8a]", "device", async_replan=True),
         "10": lambda: c.phase_device_plan(dev, smi, x, q),
         "11": lambda: c.phase_hierarchical(dev, x, q, float("nan")),
+        "13a": lambda: c.phase_sharded(dev, smi, x, q, main.get("plan")),
+        "13b": lambda: c.phase_sharded_md(dev),
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:
