@@ -142,6 +142,23 @@ Phases (each asserts; any failure exits non-zero):
     skin 0.01, dt 1e-5, refit interval 10, 20 steps) with phase 8's
     gates (one host sync per refit step, no growth and no kernel build
     after step 1, the energy balance) and its refit and rebuild steps;
+ 14. the differentiable executor (`core.eval.differentiable_execute`) on
+    phase 4's plan, points and charges with a seeded cotangent u: the
+    forward and the backward for the charges, the targets and both (CUDA
+    events, median of 3) with the launches of each from 0 (a backward:
+    batch_cluster 2 on the transposed lists, the transposed modified
+    charges 2, the field kernels 1 each and the modified charges 2 for
+    the targets); phi bitwise `execute`'s, the target cotangent bitwise
+    u g of `potential_and_gradient`, the adjoint identity |<u, phi> -
+    <qbar, q>| / (|u| |phi|) <= 1e-5; each transposed batch-cluster lane
+    (the clusters' grids and the leaves as rows, the batches as sources)
+    on its first DIFF_ROWS rows against the plain version (PHI_K times
+    sum |G u| per entry), its S_T, time and bound; the transposed
+    modified-charge kernel on the whole plan against its plain version
+    (MCT_K times its sum of magnitudes per entry), bitwise equal calls,
+    its time and bound; at DIFF_F64_N in f64 the adjoint identity
+    (1e-12) and the CUDA backward against the "torch" backend's (rtol
+    1e-10, atol 1e-12 max|want|);
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -1017,7 +1034,8 @@ def print_grid_usage(usage):
 
 
 def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_bytes, sm_mhz,
-             flops_per_pair=FLOPS_PER_PAIR, outputs=1, flops=None):
+             flops_per_pair=FLOPS_PER_PAIR, outputs=1, flops=None,
+             rows=None):
     """The bound of one batch-cluster (or field) launch, {"ms", "side",
     "pairs", "sides"}: the pairs the data needs (real targets x real
     sources of every valid slot), and the largest ("side") of three
@@ -1026,14 +1044,21 @@ def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_bytes, sm_mhz,
     operations over the SFU rate at `sm_mhz` (None: MAX_SM_MHZ), and the
     bytes over PEAK_BYTES (the lists, the targets, `src_bytes` of
     sources and `outputs` values written per target slot). side is
-    "FLOP", "SFU" or "bytes"."""
+    "FLOP", "SFU" or "bytes". The rows are the plan's batch rows, or
+    `rows` = (real targets per row (R,), the slab's slots a row) for a
+    launch with the roles swapped (the transposed pass: clusters' grids
+    or leaves as rows, the batches as sources)."""
     import torch
     a = plan.arrays
-    nt = a["tgt_mask"].sum(1).to(torch.float64)           # (B,)
+    if rows is None:
+        nt = a["tgt_mask"].sum(1).to(torch.float64)       # (B,)
+        b, nb = a["tgt_batched"].shape[:2]
+    else:
+        nt = rows[0].to(torch.float64)
+        b, nb = nt.shape[0], rows[1]
     valid = idx >= 0
     mc = m_of_cluster[idx.clamp(min=0).long()].to(torch.float64)
     pairs = float((nt[:, None] * mc * valid).sum())
-    b, nb = a["tgt_batched"].shape[:2]
     nbytes = (idx.numel() * 4 + b * nb * 3 * dtype_bytes + src_bytes
               + b * nb * outputs * dtype_bytes)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1075,6 +1100,25 @@ def mc_bound(plan, degree, dtype_bytes):
     flops = particles * (9 * n1 + 3 + n1 + n1 ** 2 + 2 * n1 ** 3)
     nbytes = (particles * 4 * dtype_bytes
               + nodes * (3 * n1 + n1 ** 3) * dtype_bytes)
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    side = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, side
+
+
+def mct_bound(plan, degree, dtype_bytes):
+    """(bound_ms, side) of one transposed modified-charge call (the
+    `mc_bound` twin): per real particle of every cluster the three rows
+    (sub, div, add per term), the denominator (2 mul), the contraction
+    in factored form ((n+1)^3 + (n+1)^2 + (n+1) FMAs, 2 operations each)
+    and the division by the denominator; bytes: xyz per real particle of
+    every cluster, the nodes and q_hat's cotangent, and qbar written once
+    per particle."""
+    tree = plan.inner.tree
+    n1 = degree + 1
+    particles = float(tree.count.sum())                    # over all nodes
+    flops = particles * (9 * n1 + 3 + 2 * (n1 ** 3 + n1 ** 2 + n1))
+    nbytes = ((particles * 3 + plan.num_sources) * dtype_bytes
+              + tree.num_nodes * (3 * n1 + n1 ** 3) * dtype_bytes)
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     side = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes) * 1e3, side
@@ -2079,6 +2123,263 @@ def phase_hierarchical(dev, x, q, mc_ms):
           f"{pre['direct']:.3f} ms direct (the kernel alone in this run's "
           f"phase 4: {mc_ms:.3f} ms; 0.598 ms in run 6 of PR 15)",
           flush=True)
+
+
+#: Rows of each transposed lane held against the plain version in phase 14.
+DIFF_ROWS = 64
+#: Particles of phase 14's f64 case (Fig. 4 statics otherwise).
+DIFF_F64_N = 100_000
+#: The transposed modified charges against their plain version: each
+#: particle's error within MCT_K times its own sum of the terms'
+#: magnitudes (the plain version's `magnitude=True` sweep), by itemsize.
+MCT_K = {4: 1e-5, 8: 1e-13}
+
+
+def timed(fn):
+    """(fn(), its milliseconds by CUDA events): one run."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def diff_vjp(plan, q, u, targets=True, charges=True, backend=None):
+    """(phi, tbar, qbar) of `differentiable_execute` on `plan` (None for a
+    cotangent not asked for), the backward's CUDA-event ms, and the
+    launch counters' increments over the backward alone."""
+    import torch
+    from repro_torch.core import eval as ev
+    a = dict(plan.arrays)
+    tgt = a["tgt_batched"].detach().clone().requires_grad_(targets)
+    a["tgt_batched"] = tgt
+    qt = q.detach().clone().requires_grad_(charges)
+    opts = plan.config.exec_opts(plan.kernel)
+    if backend:
+        opts["backend"] = backend
+    phi = ev.differentiable_execute(a, qt, plan.kernel_params, **opts)
+    torch.cuda.synchronize()
+    wrt = [t for t, on in ((tgt, targets), (qt, charges)) if on]
+    before = launch_counts_all()
+    grads, ms = timed(lambda: list(torch.autograd.grad(phi, wrt, u)))
+    counts = tuple(b - a for a, b in zip(before, launch_counts_all()))
+    tbar = grads.pop(0) if targets else None
+    qbar = grads.pop(0) if charges else None
+    return (phi.detach(), tbar, qbar), ms, counts
+
+
+def launch_counts_all():
+    """`launch_counts` and the transposed modified charges' launches."""
+    from repro_torch.kernels import modified_charges as mcm
+    return launch_counts() + (mcm.TRANSPOSE_LAUNCHES,)
+
+
+def adjoint_gap(u, phi, qbar, q):
+    """|<u, phi> - <qbar, q>| / (|u| |phi|), in f64."""
+    u, phi, qbar, q = (t.double() for t in (u, phi, qbar, q))
+    return abs(float(u @ phi - qbar @ q)) / float(u.norm() * phi.norm())
+
+
+def phase_differentiable(dev, smi, plan, x, q):
+    """Phase 14: the differentiable executor's backward at Fig. 4 on the
+    main phase's plan, points and charges, with a seeded cotangent u:
+    the forward and the three backwards (charges, targets, both) by CUDA
+    events (median of 3), each path's launches from 0; phi bitwise
+    `execute`'s, the target cotangent bitwise u g of
+    `potential_and_gradient`, the adjoint identity in f32 (1e-5 of
+    |u| |phi|); each transposed batch-cluster lane on its first DIFF_ROWS
+    rows against the plain version (PHI_K times sum |G u| per entry), the
+    transposed modified-charge kernel on the whole plan against its plain
+    version (MCT_K times its sum of magnitudes per entry), their times and
+    bounds; an f64 plan at DIFF_F64_N: the adjoint identity (1e-12) and
+    the CUDA backward against the "torch" backend's (rtol 1e-10, atol
+    1e-12 max|want|). Returns the transposed kernel's report entry."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cheby
+    from repro_torch.core import eval as ev
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.kernels import ops
+
+    a, cfg, kern = plan.arrays, plan.config, plan.kernel
+    degree, n1 = cfg.degree, cfg.degree + 1
+    u = torch.as_tensor(np.random.default_rng(2027).uniform(
+        -1, 1, plan.num_targets).astype(np.float32), device=dev)
+
+    # -- the slice's main path: forward and backward, counts from 0 ----
+    zero_launch_counts()
+    mcm.TRANSPOSE_LAUNCHES = 0
+    (phi, tbar, qbar), _, per_back = diff_vjp(plan, q, u)
+    path = dict(zip(("batch_cluster", "modified_charges", "field",
+                     "grid_field", "modified_charges_transpose"),
+                    launch_counts_all()))
+    assert all(v > 0 for v in path.values()), path
+    assert per_back == (2, 2, 1, 1, 2), per_back
+    charge_only = diff_vjp(plan, q, u, targets=False)
+    target_only = diff_vjp(plan, q, u, charges=False)
+    assert charge_only[2] == (2, 0, 0, 0, 2), charge_only[2]
+    assert target_only[2] == (0, 2, 1, 1, 0), target_only[2]
+
+    # -- checks ---------------------------------------------------------
+    assert torch.equal(phi, plan.execute(q)), "phi is not execute's"
+    _, g = ev.potential_and_gradient(a, q, plan.kernel_params,
+                                     **cfg.exec_opts(kern))
+    got_t = tbar.reshape(-1, 3)[a["gather_index"]]
+    assert torch.equal(got_t, u[:, None] * g), "target cotangent"
+    assert (tbar[~a["tgt_mask"]] == 0).all(), "padded target slots"
+    gap = adjoint_gap(u, phi, qbar, q)
+    assert torch.isfinite(qbar).all() and gap <= 1e-5, gap
+
+    # -- timings (median of 3) ------------------------------------------
+    opts = cfg.exec_opts(kern)
+
+    def forward():
+        ta = dict(a, tgt_batched=a["tgt_batched"].clone().requires_grad_())
+        return ev.differentiable_execute(
+            ta, q.clone().requires_grad_(), plan.kernel_params, **opts)
+
+    fwd_ms = event_ms(forward, 3)
+    back_ms = {name: statistics.median(
+        diff_vjp(plan, q, u, **kw)[1] for _ in range(3))
+        for name, kw in (("charges", dict(targets=False)),
+                         ("targets", dict(charges=False)),
+                         ("both", {}))}
+    print(f"[14] differentiable_execute at Fig. 4, N={plan.num_targets} "
+          f"(f32 Coulomb; CUDA events, median of 3): forward "
+          f"{fwd_ms:.3f} ms; backward charges {back_ms['charges']:.3f} ms, "
+          f"targets {back_ms['targets']:.3f} ms, both {back_ms['both']:.3f}"
+          f" ms ({smi}); launches (batch_cluster, modified_charges, field, "
+          f"grid field, transposed modified charges) of the forward and "
+          f"backward {path}, of a backward: both {per_back}, charges "
+          f"{charge_only[2]}, targets {target_only[2]}; phi bitwise "
+          f"execute's, the target cotangent bitwise u g of "
+          f"potential_and_gradient; adjoint identity |<u,phi> - <qbar,q>| "
+          f"/ (|u||phi|) = {gap:.3e} (bar 1e-5)", flush=True)
+
+    # -- the transposed lanes against the plain version, on the tensors
+    # the backward feeds them (eval.transposed_lane_inputs) -------------
+    lo, lg = a["node_lo"], a["leaf_gather"]
+    lists = (a["approx_idx"], a["direct_idx"])          # skin 0: unrouted
+    t_lists_ms = event_ms(lambda: (
+        ev.transposed_lists(lists[0], lo.shape[0]),
+        ev.transposed_lists(lists[1], lg.shape[0])), 3)
+    lanes = ev.transposed_lane_inputs(a, u, lists, degree=degree)
+    kw = dict(kernel=kern, space=cfg.space, kahan=cfg.kahan)
+    tgt, nb = a["tgt_batched"], a["tgt_batched"].shape[1]
+    lane_ms, bounds, bc_err, ratio, out = {}, {}, 0.0, 0.0, []
+    for lane, (rows_t, pts, u_slots, cnt) in lanes.items():
+        if lane == "approx":
+            cnt = dict(cnt, r2_mode=cfg.approx_r2)
+        sub = {k: (v[:DIFF_ROWS] if k == "tgt_count" else v)
+               for k, v in cnt.items()}
+        args = (rows_t[:DIFF_ROWS], pts[:DIFF_ROWS], tgt)
+        got = ops.batch_cluster_eval(*args, u_slots, backend="cuda", **kw,
+                                     **sub)
+        want = ops.batch_cluster_eval(*args, u_slots, backend="torch", **kw,
+                                      **sub)
+        mag = ops.batch_cluster_eval(*args, u_slots.abs(), backend="torch",
+                                     **kw, **sub)         # G > 0: sum |G u|
+        e, rt = phi_close(got, want, mag, f"[14] transposed {lane} lane rows")
+        bc_err, ratio = max(bc_err, e), max(ratio, rt)
+        lane_ms[lane] = event_ms(lambda: ops.batch_cluster_eval(
+            rows_t, pts, tgt, u_slots, backend="cuda", **kw, **cnt), 3)
+        real = cnt.get("tgt_count", torch.full(
+            (rows_t.shape[0],), n1 ** 3, device=dev))
+        bounds[lane] = bc_bound(plan, rows_t, cnt["src_count"], 4,
+                                tgt.numel() * 4 * 4 // 3, None,
+                                rows=(real, pts.shape[1]))
+        geo = bcm.swept_pairs(rows_t, pts.shape[1], nb,
+                              tgt_count=cnt.get("tgt_count"),
+                              src_count=cnt["src_count"])
+        out.append(f"{lane}: S_T {rows_t.shape[1]} ({tuple(rows_t.shape)} "
+                   f"slots, {int((rows_t >= 0).sum())} valid), "
+                   f"{lane_ms[lane]:.3f} ms, {bounds[lane]['pairs']:.4e} "
+                   f"pairs needed, geometry sweeps {geo['pairs']:.4e}, "
+                   f"{bound_text(bounds[lane], smi)}")
+    print(f"[14] transposed batch_cluster lanes: " + "; ".join(out)
+          + f"; against the plain version on the first {DIFF_ROWS} rows of "
+          f"each: max abs err {bc_err:.3e}, max err / sum|G u| {ratio:.3e} "
+          f"(bar {PHI_K[4]}); both list transposes {t_lists_ms:.3f} ms",
+          flush=True)
+
+    # -- the transposed modified charges on the whole plan --------------
+    rows_t, grids, u_slots, cnt = lanes["approx"]
+    qhat_bar = ops.batch_cluster_eval(rows_t, grids, tgt, u_slots,
+                                      backend="cuda", r2_mode=cfg.approx_r2,
+                                      **kw, **cnt)
+    level, levels = ev._chunk_levels(a, a["mc_chunks"])
+    mct_args = (a["src_sorted"], qhat_bar, a["mc_chunks"], level,
+                a["node_lo"], a["node_hi"])
+    got = ops.modified_charges_transpose_ranged(
+        *mct_args, num_levels=levels, degree=degree, backend="cuda")
+    assert torch.equal(got, ops.modified_charges_transpose_ranged(
+        *mct_args, num_levels=levels, degree=degree, backend="cuda")), \
+        "the transposed modified charges are not deterministic"
+    want, mct_plain_ms = timed(lambda: ops.modified_charges_transpose_ranged(
+        *mct_args, num_levels=levels, degree=degree, backend="torch"))
+    nodes = ops._cluster_nodes(a["node_lo"], a["node_hi"], degree)
+    w = cheby.bary_weights_1d(degree, torch.float32, dev)
+    mag = mcm.modified_charges_transpose_ranged_plain(
+        a["src_sorted"], qhat_bar, a["mc_chunks"], nodes, w, degree,
+        magnitude=True)
+    k = MCT_K[4]
+    err = (got - want).abs()
+    assert torch.isfinite(got).all() and not (err > k * mag).any(), (
+        f"[14] transposed modified charges: {int((err > k * mag).sum())} "
+        f"entries outside {k} * sum|terms| (max err {err.max().item():.3e})")
+    mct_err = err.max().item()
+    mct_ratio = (err / mag)[mag > 0].max().item()
+    mct_ms = event_ms(lambda: ops.modified_charges_transpose_ranged(
+        *mct_args, num_levels=levels, degree=degree, backend="cuda"), 20)
+    mct_bound_ms, mct_side = mct_bound(plan, degree, 4)
+    regs = [v for key, v in ptxas_usage(
+        _build.BUILD_LOG.get("modified_charges", "")).items()
+        if "mct_chunk_kernelIfLi9E" in key]
+    print(f"[14] transposed modified charges over {a['mc_chunks'].shape[0]} "
+          f"chunks and {levels} levels: {mct_ms:.3f} ms (plain "
+          f"{mct_plain_ms:.1f} ms), bound {mct_bound_ms:.4f} ms by "
+          f"{mct_side} ({smi}); against the plain version on all "
+          f"{got.numel()} particles max abs err {mct_err:.3e}, max err / "
+          f"sum|terms| {mct_ratio:.3e} (bar {k}); two calls bitwise equal; "
+          f"f32 n+1=9 kernel (registers, spill store bytes, spill load "
+          f"bytes) {regs[0] if regs else 'not in the build log'}",
+          flush=True)
+
+    # -- f64 at DIFF_F64_N: the identity, and CUDA against "torch" --------
+    r = np.random.default_rng(2028)
+    x5 = r.uniform(-1, 1, (DIFF_F64_N, 3))
+    q5, u5 = (torch.as_tensor(r.uniform(-1, 1, DIFF_F64_N), device=dev)
+              for _ in range(2))
+    p5 = TreecodeSolver(dataclasses.replace(cfg, dtype="float64"),
+                        device=dev).plan(x5)
+    got5, ms5, _ = diff_vjp(p5, q5, u5)
+    want5, plain5_ms, _ = diff_vjp(p5, q5, u5, backend="torch")
+    gap5 = adjoint_gap(u5, got5[0], got5[2], q5)
+    assert gap5 <= 1e-12, gap5
+    mask = p5.arrays["tgt_mask"]
+    e5 = [close(g, w, 1e-10, 1e-12, f"[14] f64 {what}", scale="max")
+          for what, g, w in (("phi", got5[0], want5[0]),
+                             ("target cotangent", got5[1][mask],
+                              want5[1][mask]),
+                             ("charge cotangent", got5[2], want5[2]))]
+    print(f"[14] f64 at N={DIFF_F64_N} (Fig. 4 statics): adjoint identity "
+          f"{gap5:.3e} (bar 1e-12); CUDA backward {ms5:.3f} ms against the "
+          f"torch backend's {plain5_ms:.1f} ms: max abs err phi {e5[0]:.3e}, "
+          f"target cotangent {e5[1]:.3e}, charge cotangent {e5[2]:.3e} "
+          f"(rtol 1e-10, atol 1e-12 max|want|)", flush=True)
+    return dict(name="modified_charges_transpose", route="cuda",
+                source="src/repro_torch/kernels/csrc/modified_charges.cu",
+                replaces="src/repro/core/eval.py:496 (jax.vjp of the XLA "
+                         "modified charges; no TPU kernel)",
+                launches=path["modified_charges_transpose"],
+                max_abs_err=mct_err, ms=mct_ms, plain_ms=mct_plain_ms,
+                bound_ms=mct_bound_ms, bound_by=mct_side, library_ms=None)
 
 
 def phase_yukawa(dev, plan, x, q):
@@ -3104,6 +3405,7 @@ def main() -> int:
     report += phase_forces(dev, plan, x, q, smi)
     phase_yukawa(dev, plan, x, q)
     phase_sharded(dev, smi, x, q, plan)
+    report.append(phase_differentiable(dev, smi, plan, x, q))
     del plan
     phase_periodic(dev)
     md_launches, *host_ref = phase_md(dev)

@@ -27,6 +27,11 @@ ensemble setting of `repro_torch.serve`, whose executors
 pipeline over stacked plan arrays with a leading systems axis, one
 launch per kernel for all systems.
 
+`differentiable_execute` is `execute` with a backward: the target
+cotangent from the field sweep, the charge cotangent from the transposed
+pass (the batch-cluster kernel with the roles swapped over the
+transposed lists, then the modified charges transposed).
+
 ``precompute="hierarchical"`` (`compute_qhat_hierarchical`) takes the
 leaves' modified charges from their particles and every internal
 cluster's from its children; `add_hierarchical_tables` adds the tables
@@ -41,6 +46,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core import cheby
 from repro_torch.core.interaction import build_interaction_lists
@@ -443,28 +449,10 @@ def compute_qhat_hierarchical(arrays, q_sorted, *, degree, backend):
         arrays["src_sorted"], q_sorted, chunks, ptr, lo, hi, degree=degree,
         backend=backend)
     n1 = degree + 1
-    dt, dev = q_sorted.dtype, q_sorted.device
-    w = cheby.bary_weights_1d(degree, dt, dev)
-    s01 = cheby.cheb_points_1d(degree, dt, dev)
-    eps = torch.finfo(dt).eps
     for pairs, kids in zip(arrays["upward_pairs"],
                            arrays["upward_children"]):  # deepest first
         parents, children = pairs[..., 0], pairs[..., 1]
-        p_lo, p_hi = _take(lo, parents, st), _take(hi, parents, st)
-        c_lo, c_hi = _take(lo, children, st), _take(hi, children, st)
-        rows = []
-        for ax in range(3):
-            child_nodes = cheby.map_points(
-                s01, c_lo[..., ax:ax + 1], c_hi[..., ax:ax + 1])
-            parent_nodes = cheby.map_points(
-                s01, p_lo[..., ax:ax + 1], p_hi[..., ax:ax + 1])
-            # child grids share corners with the parent box up to
-            # rounding: a hit within ~64 ulp of the span
-            tol = (64.0 * eps) * (p_hi[..., ax] - p_lo[..., ax])
-            t, den = cheby.bary_terms(child_nodes,
-                                      parent_nodes[..., None, :], w,
-                                      tol=tol[..., None, None])
-            rows.append(t / den[..., None])  # (P, n1 child, n1 parent)
+        rows = _restriction_rows(lo, hi, parents, children, degree, st)
         qc = _take(qhat, children, st).reshape(
             children.shape + (n1, n1, n1))
         contrib = torch.einsum("...pxa,...pyb,...pzc,...pxyz->...pabc",
@@ -485,6 +473,31 @@ def compute_qhat_hierarchical(arrays, q_sorted, *, degree, backend):
         qhat.view(-1, n1 ** 3).index_add_(
             0, (parents + off).flatten(), summed.reshape(-1, n1 ** 3))
     return qhat
+
+
+def _restriction_rows(lo, hi, parents, children, degree, st):
+    """Per axis, the restriction's rows L^parent_k(s^child_k') of every
+    (parent, child) pair, (P, n+1 child, n+1 parent): the upward pass's
+    matrices, and transposed its downward pass's."""
+    dt, dev = lo.dtype, lo.device
+    w = cheby.bary_weights_1d(degree, dt, dev)
+    s01 = cheby.cheb_points_1d(degree, dt, dev)
+    eps = torch.finfo(dt).eps
+    p_lo, p_hi = _take(lo, parents, st), _take(hi, parents, st)
+    c_lo, c_hi = _take(lo, children, st), _take(hi, children, st)
+    rows = []
+    for ax in range(3):
+        child_nodes = cheby.map_points(
+            s01, c_lo[..., ax:ax + 1], c_hi[..., ax:ax + 1])
+        parent_nodes = cheby.map_points(
+            s01, p_lo[..., ax:ax + 1], p_hi[..., ax:ax + 1])
+        # child grids share corners with the parent box up to
+        # rounding: a hit within ~64 ulp of the span
+        tol = (64.0 * eps) * (p_hi[..., ax] - p_lo[..., ax])
+        t, den = cheby.bary_terms(child_nodes, parent_nodes[..., None, :], w,
+                                  tol=tol[..., None, None])
+        rows.append(t / den[..., None])
+    return rows
 
 
 _QHAT = {"direct": compute_qhat_direct,
@@ -517,16 +530,27 @@ def _skin_routed_lists(arrays: dict, theta: float, space):
     return approx_idx, direct_idx
 
 
+def routed_lists(arrays: dict, *, theta: float = 0.7, space=_FREE,
+                 skin: float = 0.0):
+    """(approx_idx, direct_idx) the lanes sweep: the plan's lists, or with
+    ``skin > 0`` the Verlet-skin dual lists routed by the runtime MAC gate
+    on the current target slab (`_skin_routed_lists`)."""
+    if skin > 0.0:
+        return _skin_routed_lists(arrays, theta, space)
+    return arrays["approx_idx"], arrays["direct_idx"]
+
+
 def lane_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
                 space=_FREE, backend: str = "auto", theta: float = 0.7,
                 skin: float = 0.0, grid_nodes: bool = False,
-                precompute: str = "direct") -> dict:
+                precompute: str = "direct", lists=None) -> dict:
     """The two lanes' kernel inputs for `charges`, as the executor feeds
     them: ``{"approx": (idx, pts, q, counts), "direct": (...)}``.
 
     One modified-charge call (`precompute` "direct" or "hierarchical",
-    whose tables the plan must hold). With ``skin > 0`` the Verlet-skin
-    dual lists are routed by the runtime MAC gate. Both lanes pass the batch
+    whose tables the plan must hold). The lists are `lists` (routed
+    before, as the differentiable executor's backward passes the
+    forward's), else `routed_lists` of the plan. Both lanes pass the batch
     rows' target counts; the direct lane (skin-routed slots included,
     which are leaf ids too) also the leaves' particle counts, while every
     Chebyshev grid is all real points. With ``grid_nodes=True`` the
@@ -542,10 +566,9 @@ def lane_inputs(arrays: dict, charges: torch.Tensor, *, degree: int,
         qhat = _QHAT[precompute](arrays, inp.q_sorted, degree=degree,
                                  backend=backend)
         _trace.sync(charges.device)
-    if skin > 0.0:
-        approx_idx, direct_idx = _skin_routed_lists(arrays, theta, space)
-    else:
-        approx_idx, direct_idx = arrays["approx_idx"], arrays["direct_idx"]
+    if lists is None:
+        lists = routed_lists(arrays, theta=theta, space=space, skin=skin)
+    approx_idx, direct_idx = lists
     pts = (ops._cluster_nodes(arrays["node_lo"], arrays["node_hi"], degree)
            if grid_nodes else inp.grids)
     return {"approx": (approx_idx, pts, qhat, {"tgt_count": inp.tgt_count}),
@@ -569,13 +592,15 @@ _LANE_OPS = {
 def _sweep(span: str, arrays: dict, charges: torch.Tensor, params, *,
            degree: int, kernel: Kernel, space=_FREE, backend: str = "auto",
            kahan: bool = False, approx_r2: str = "diff", theta: float = 0.7,
-           skin: float = 0.0, precompute: str = "direct") -> torch.Tensor:
+           skin: float = 0.0, precompute: str = "direct",
+           lists=None) -> torch.Tensor:
     """The `_LANE_OPS[span]` entry points over both lanes, summed and
-    gathered back to the caller's input order."""
+    gathered back to the caller's input order (`lists`: the routed lists,
+    as `lane_inputs` takes them)."""
     field = span == "field"
     lanes = lane_inputs(arrays, charges, degree=degree, space=space,
                         backend=backend, theta=theta, skin=skin,
-                        grid_nodes=field, precompute=precompute)
+                        grid_nodes=field, precompute=precompute, lists=lists)
     out = None
     for lane, (idx, pts, q, counts) in lanes.items():
         if lane == "approx" and not field:
@@ -642,6 +667,252 @@ def potential_and_forces(arrays: dict, charges: torch.Tensor,
     `potential_and_gradient`."""
     phi, g = potential_and_gradient(arrays, charges, params, **opts)
     return phi, -weights[..., None] * g
+
+
+# ---------------------------------------------------------------------------
+# The differentiable executor: target and charge cotangents
+# ---------------------------------------------------------------------------
+#
+# `differentiable_execute` is `execute` as a `torch.autograd.Function` of
+# the target slab and the charges (the reference's `jax.custom_vjp`). Its
+# backward, for a cotangent u of phi (input order):
+#   - targets: phi_i depends on the slab only through target i's slot, so
+#     the cotangent is u_i g_i (g the field sweep of the forward's routed
+#     lists) scattered into target i's slot;
+#   - charges: phi = A q is linear, so qbar = A^T u, the treecode operator
+#     transposed stage by stage. Both lanes are sums of G(r^2(x, y)) with
+#     r^2 symmetric in x and y (in every fold: rint and round are odd), so
+#     the batch-cluster kernel computes each transposed lane with the roles
+#     swapped: the clusters' Chebyshev grids and the leaves' particles as
+#     the rows, the batch rows with u as the sources, over the transposed
+#     lists. The lanes give q_hat's cotangent and the direct part of qbar;
+#     the modified charges' transpose (and for the hierarchical precompute
+#     first the upward pass's, root first) takes q_hat's cotangent to the
+#     particles.
+# Sources and kernel parameters are constants (their cotangent is None),
+# as in the reference.
+
+
+def transposed_lists(idx: torch.Tensor, num_rows: int):
+    """The transpose of a (B, S) -1-padded list of row ids below
+    `num_rows`: ((num_rows, S_T) int32 batch ids per row, ascending and
+    -1-padded; (num_rows,) int32 counts). Pair (b, c) of `idx` is one slot
+    of row c (a pair listed twice, twice).
+
+    Tensor ops only: a stable sort of the flattened ids, a bincount and a
+    scatter to unique slots (no float atomics). S_T is the largest count,
+    at least 1: the one host read (a sync on the card)."""
+    s = idx.shape[1]
+    dev = idx.device
+    key = idx.reshape(-1).long()
+    key = torch.where(key >= 0, key, num_rows)           # sentinels last
+    order = torch.sort(key, stable=True).indices         # batches ascending
+    row = key[order]
+    counts = torch.bincount(key, minlength=num_rows + 1)[:num_rows + 1]
+    start = torch.cumsum(counts, 0) - counts
+    width = max(1, int(counts[:num_rows].max())) if num_rows else 1
+    rank = torch.arange(key.numel(), device=dev) - start[row]
+    dump = num_rows * width                              # sentinels' slot
+    pos = torch.where(row < num_rows, row * width + rank, dump)
+    out = torch.full((dump + 1,), -1, dtype=torch.int32, device=dev)
+    out[pos] = (order // s).to(torch.int32)
+    return (out[:dump].view(num_rows, width),
+            counts[:num_rows].to(torch.int32))
+
+
+def _to_slots(v: torch.Tensor, arrays: dict) -> torch.Tensor:
+    """(B, NB, ...) values of `v` (input order, (N, ...)) in their target
+    slots, 0 on every padded slot. Real targets own one slot each, so the
+    scatter writes unique slots; padded point-budget entries, which share
+    the scratch row's first slot, are masked to 0."""
+    mask = arrays["tgt_mask"]
+    flat = v.new_zeros((mask.numel(),) + v.shape[1:])
+    flat[arrays["gather_index"]] = v
+    keep = mask.reshape((-1,) + (1,) * (v.dim() - 1))
+    return torch.where(keep, flat, torch.zeros_like(flat)).view(
+        mask.shape + v.shape[1:])
+
+
+def _chunk_levels(arrays: dict, chunks: torch.Tensor):
+    """((K,) int32 tree level of each chunk's node, number of levels), from
+    the per-level buckets: the nodes of one level hold disjoint particles,
+    which the transposed modified-charge kernel's level partials need."""
+    nodes = arrays["bucket_nodes"]
+    level = torch.zeros(arrays["node_lo"].shape[0], dtype=torch.int32,
+                        device=chunks.device)
+    for lvl, ids in enumerate(nodes):    # the scratch row may repeat: no chunk
+        level[ids.long()] = lvl
+    return level[chunks[:, 0].long()], len(nodes)
+
+
+def _qhat_bar_direct(arrays, qhat_bar, *, degree, backend):
+    """The transpose of `compute_qhat_direct`: (N,) in tree order."""
+    chunks = arrays["mc_chunks"]
+    level, num_levels = _chunk_levels(arrays, chunks)
+    return ops.modified_charges_transpose_ranged(
+        arrays["src_sorted"], qhat_bar, chunks, level, arrays["node_lo"],
+        arrays["node_hi"], num_levels=num_levels, degree=degree,
+        backend=backend)
+
+
+def _qhat_bar_hierarchical(arrays, qhat_bar, *, degree, backend):
+    """The transpose of `compute_qhat_hierarchical`: (N,) in tree order.
+
+    The downward pass, root first: each child's cotangent takes the
+    restriction's transpose of its parent's (final by then). Children are
+    unique within a level, so each row is written once (padded pairs name
+    the scratch node, whose cotangent is 0). Then the leaves' modified
+    charges transposed over the leaf chunk table, whose nodes (leaves) are
+    disjoint: one level."""
+    lo, hi = arrays["node_lo"], arrays["node_hi"]
+    n1 = degree + 1
+    qb = qhat_bar.clone()
+    for pairs in reversed(arrays["upward_pairs"]):         # root first
+        parents, children = pairs[:, 0], pairs[:, 1]
+        rows = _restriction_rows(lo, hi, parents, children, degree, False)
+        pb = qb[parents].reshape(-1, n1, n1, n1)
+        down = torch.einsum("pxa,pyb,pzc,pabc->pxyz", rows[0], rows[1],
+                            rows[2], pb)
+        qb[children] = qb[children] + down.reshape(-1, n1 ** 3)
+    chunks = arrays["mc_leaf_chunks"]
+    return ops.modified_charges_transpose_ranged(
+        arrays["src_sorted"], qb, chunks, torch.zeros_like(chunks[:, 0]),
+        lo, hi, num_levels=1, degree=degree, backend=backend)
+
+
+_QHAT_BAR = {"direct": _qhat_bar_direct,
+             "hierarchical": _qhat_bar_hierarchical}
+
+
+def transposed_lane_inputs(arrays: dict, u: torch.Tensor, lists, *,
+                           degree: int) -> dict:
+    """The transposed pass's batch-cluster inputs for the cotangent u
+    (input order) over the routed `lists` (approx_idx, direct_idx) the
+    forward swept: ``{"approx": (rows, pts, u_slots, counts), "direct":
+    (...)}`` with the roles swapped. The rows are the clusters' Chebyshev
+    grids (every point real), then the leaves' particles with their
+    counts; the sources are the batch rows with u in their slots (0 on
+    padded ones) and the batches' target counts; each lane's list is its
+    `transposed_lists`. `chip_smoke.py` holds the kernel against its
+    plain version on these very tensors."""
+    approx_idx, direct_idx = lists
+    lo, hi, lg = arrays["node_lo"], arrays["node_hi"], arrays["leaf_gather"]
+    src_count = arrays["tgt_mask"].sum(-1, dtype=torch.int32)
+    u_slots = _to_slots(u, arrays)
+    valid = lg >= 0
+    leaf_pts = torch.where(valid[..., None],
+                           arrays["src_sorted"][lg.clamp(min=0)],
+                           torch.zeros((), dtype=u.dtype, device=u.device))
+    return {"approx": (transposed_lists(approx_idx, lo.shape[0])[0],
+                       cheby.cluster_grid(lo, hi, degree), u_slots,
+                       {"src_count": src_count}),
+            "direct": (transposed_lists(direct_idx, lg.shape[0])[0],
+                       leaf_pts, u_slots,
+                       {"tgt_count": valid.sum(-1, dtype=torch.int32),
+                        "src_count": src_count})}
+
+
+def _charge_cotangent(arrays: dict, u: torch.Tensor, params, lists, *,
+                      degree: int, kernel: Kernel, space=_FREE,
+                      backend: str = "auto", kahan: bool = False,
+                      approx_r2: str = "diff", precompute: str = "direct",
+                      **_) -> torch.Tensor:
+    """qbar = A^T u (charges' shape): the adjoint sweep of `execute` over
+    the routed `lists` it swept.
+
+    One batch-cluster call per lane of `transposed_lane_inputs`, the
+    approximation lane's giving q_hat's cotangent, the direct lane's the
+    leaves' particles' share; the precompute's transpose on the former;
+    the two parts added in tree order and scattered to input order
+    through `src_perm` (unique)."""
+    lg, tgt = arrays["leaf_gather"], arrays["tgt_batched"]
+    n = arrays["src_sorted"].shape[0]
+    out = {}
+    for lane, (rows, pts, u_slots, counts) in transposed_lane_inputs(
+            arrays, u, lists, degree=degree).items():
+        if lane == "approx":
+            counts = dict(counts, r2_mode=approx_r2)
+        with _trace.span(f"eval.{lane}_transpose"):
+            out[lane] = ops.batch_cluster_eval(
+                rows, pts, tgt, u_slots, params, kernel=kernel, space=space,
+                backend=backend, kahan=kahan, **counts)
+            _trace.sync(u.device)
+    # every particle owns one leaf slot; padded slots (0 by the count
+    # contract) go to a dropped slot n
+    direct = out["direct"].new_zeros((n + 1,))
+    direct[torch.where(lg >= 0, lg, n)] = out["direct"]
+    with _trace.span("eval.modified_charges_transpose"):
+        q_sorted_bar = direct[:n] + _QHAT_BAR[precompute](
+            arrays, out["approx"], degree=degree, backend=backend)
+        _trace.sync(u.device)
+    qbar = torch.empty_like(q_sorted_bar)
+    qbar[arrays["src_perm"]] = q_sorted_bar
+    return qbar
+
+
+class _PhiFromTargets(torch.autograd.Function):
+    """phi of `_execute_impl` as a function of (target slab, charges);
+    the plan's other arrays, the kernel parameters and the options are
+    constants. The forward saves the lists it routed, so the backward
+    sweeps the same pairs without routing again."""
+
+    @staticmethod
+    def forward(ctx, tgt, charges, arrays, params, opts):
+        a = dict(arrays, tgt_batched=tgt)
+        lists = routed_lists(a, theta=opts["theta"], space=opts["space"],
+                             skin=opts["skin"])
+        phi = _sweep("lane", a, charges, params, lists=lists, **opts)
+        ctx.save_for_backward(tgt, charges)
+        ctx.arrays = {k: v for k, v in arrays.items() if k != "tgt_batched"}
+        ctx.params, ctx.opts, ctx.lists = params, opts, lists
+        return phi
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, u):
+        tgt, charges = ctx.saved_tensors
+        a = dict(ctx.arrays, tgt_batched=tgt)
+        u = u.contiguous()
+        tbar = qbar = None
+        if ctx.needs_input_grad[0]:
+            with _trace.span("eval.target_cotangent"):
+                g = _sweep("field", a, charges, ctx.params, lists=ctx.lists,
+                           **ctx.opts)[:, 1:]
+                tbar = _to_slots(u[:, None] * g, a)
+        if ctx.needs_input_grad[1]:
+            with _trace.span("eval.charge_cotangent"):
+                qbar = _charge_cotangent(a, u, ctx.params, ctx.lists,
+                                         **ctx.opts)
+        return tbar, qbar, None, None, None
+
+
+def differentiable_execute(arrays: dict, charges: torch.Tensor, params=None,
+                           *, degree: int, kernel: Kernel, space=_FREE,
+                           backend: str = "auto", kahan: bool = False,
+                           precompute: str = "direct",
+                           approx_r2: str = "diff", theta: float = 0.7,
+                           skin: float = 0.0) -> torch.Tensor:
+    """`execute` with a backward with respect to the target coordinates
+    and the charges.
+
+    Differentiable in ``arrays["tgt_batched"]`` (forces, target-position
+    optimization) and in `charges` (inverse problems, adjoint solves);
+    source geometry is treated as fixed, matching the treecode convention
+    that the tree is rebuilt, not differentiated, when sources move, and
+    the kernel parameters' cotangent is None. The backward computes only
+    the cotangents autograd asks for: the target one from one field sweep
+    of the forward's routed lists (u_i g_i in target i's slot, 0 in padded
+    slots), the charge one from the transposed pass (`_charge_cotangent`).
+    Once differentiable. One plan only: stacked (ensemble) arrays raise
+    ValueError, as the reference has no stacked differentiable executor."""
+    if stacked(arrays):
+        raise ValueError("differentiable_execute takes one plan's arrays, "
+                         "not an ensemble's stacked ones")
+    opts = dict(degree=degree, kernel=kernel, space=space, backend=backend,
+                kahan=kahan, precompute=precompute, approx_r2=approx_r2,
+                theta=theta, skin=skin)
+    return _PhiFromTargets.apply(arrays["tgt_batched"], charges, arrays,
+                                 params, opts)
 
 
 # ---------------------------------------------------------------------------

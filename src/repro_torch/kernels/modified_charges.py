@@ -19,6 +19,14 @@ tree-ordered sources, cut into chunks of at most `CHUNK` particles by
   yardstick on the card.
 - `modified_charges_plain` is the per-cluster form on padded (C, m)
   blocks (the reference's XLA path).
+- `modified_charges_transpose_ranged_cuda` launches the transpose in the
+  same source, the charge cotangent of the differentiable executor:
+  qbar_j = sum over the chunks holding particle j of its rows contracted
+  with the node's q_hat cotangent, over (n+1)^3. One block per chunk, then
+  a sum of per-level partials in level order (bitwise deterministic, no
+  atomics). No TPU kernel computes it (the reference transposes its XLA
+  modified charges with `jax.vjp`). `modified_charges_transpose_ranged_plain`
+  is its plain version.
 
 All take the per-dimension mapped nodes built by `ops._cluster_nodes`,
 so the exact-hit compare sees identical nodes. The ranged functions also
@@ -39,6 +47,9 @@ from repro_torch.kernels import _build
 #: Kernel launches since import (or the last reset by a caller): one for
 #: `mc_chunk_kernel` and one for `mc_reduce` per call.
 LAUNCHES = 0
+#: Launches of the transpose (`modified_charges_transpose_ranged_cuda`):
+#: one for `mct_chunk_kernel` and one for `mct_level_sum` per call.
+TRANSPOSE_LAUNCHES = 0
 
 #: Particles per chunk at most (one CUDA block each).
 CHUNK = 2048
@@ -48,7 +59,11 @@ _I = ctypes.c_int
 # pts, q, nodes, w, chunks, chunk_ptr, partial, out; num_chunks,
 # num_nodes, n1, systems, num_points; the stream
 _SIG = (_P,) * 8 + (_I,) * 5 + (_P,)
-_SIGNATURES = {"mc_eval_f32": _SIG, "mc_eval_f64": _SIG, "mc_tile": (_I, _I)}
+# pts, qhat_bar, nodes, w, chunks, chunk_level, partial, out; num_chunks,
+# num_levels, n1, num_points; the stream
+_T_SIG = (_P,) * 8 + (_I,) * 4 + (_P,)
+_SIGNATURES = {"mc_eval_f32": _SIG, "mc_eval_f64": _SIG, "mc_tile": (_I, _I),
+               "mct_eval_f32": _T_SIG, "mct_eval_f64": _T_SIG}
 
 MAX_DEGREE = 14  # n + 1 <= 15: the kernel's instantiations
 #: The ROADMAP item that higher degrees on CUDA wait for.
@@ -227,4 +242,118 @@ def modified_charges_ranged_plain(pts: torch.Tensor, q: torch.Tensor,
         part = modified_charges_plain(
             pts[idx], torch.where(valid, q[idx], zero), nodes[nd], w, degree)
         out.index_add_(0, nd, part)
+    return out
+
+
+def modified_charges_transpose_ranged_cuda(pts: torch.Tensor,
+                                           qhat_bar: torch.Tensor,
+                                           chunks: torch.Tensor,
+                                           chunk_level: torch.Tensor,
+                                           num_levels: int,
+                                           nodes: torch.Tensor,
+                                           w: torch.Tensor,
+                                           degree: int) -> torch.Tensor:
+    """qbar (N,) = the transpose of `modified_charges_ranged_cuda` applied
+    to qhat_bar (num_nodes, (n+1)^3), by the CUDA kernel (one system).
+
+    pts (N, 3) tree-ordered particles; chunks (K, 3) int32 rows (node,
+    begin, end) from `chunk_table`; chunk_level (K,) int32 in
+    [0, num_levels): chunks of one level must cover disjoint particles
+    (each chunk's tree level does); nodes (num_nodes, 3, n+1); w (n+1,):
+    contiguous CUDA tensors on one device, the floating ones float32 or
+    float64 alike. A particle in no chunk gets 0. Two launches, the chunk
+    kernel and the sum over levels, into a (num_levels, N) scratch."""
+    global TRANSPOSE_LAUNCHES
+    dev, dtype = pts.device, pts.dtype
+    what = "modified_charges_transpose_ranged_cuda"
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: dtype {dtype} (float32 or float64)")
+    _check(what, {"pts": pts, "qhat_bar": qhat_bar, "nodes": nodes, "w": w},
+           dtype, dev)
+    _check(what, {"chunks": chunks, "chunk_level": chunk_level}, torch.int32,
+           dev)
+    if not 1 <= degree <= MAX_DEGREE:
+        raise NotImplementedError(
+            f"{what}: degree {degree} outside 1..{MAX_DEGREE}, the "
+            f"kernel's instantiations ({DEGREE_LATER}); backend='torch' "
+            f"takes any degree")
+    n1 = degree + 1
+    n = pts.shape[0]
+    num_nodes, k = nodes.shape[0], chunks.shape[0]
+    if (tuple(pts.shape) != (n, 3)
+            or tuple(qhat_bar.shape) != (num_nodes, n1 ** 3)
+            or tuple(chunks.shape) != (k, 3)
+            or tuple(chunk_level.shape) != (k,)
+            or tuple(nodes.shape) != (num_nodes, 3, n1)
+            or tuple(w.shape) != (n1,)):
+        raise ValueError(
+            f"{what}: shapes pts {tuple(pts.shape)}, qhat_bar "
+            f"{tuple(qhat_bar.shape)}, chunks {tuple(chunks.shape)}, "
+            f"chunk_level {tuple(chunk_level.shape)}, nodes "
+            f"{tuple(nodes.shape)}, w {tuple(w.shape)} do not match "
+            f"(N,3),(M,(n+1)^3),(K,3),(K,),(M,3,n+1),(n+1,)")
+    if num_levels < 1:
+        raise ValueError(f"{what}: num_levels {num_levels} (at least 1)")
+
+    lib = _build.load("modified_charges", _SIGNATURES)
+    out = torch.empty((n,), dtype=dtype, device=dev)
+    partial = torch.empty((num_levels, n), dtype=dtype, device=dev)
+    fn = lib.mct_eval_f32 if dtype == torch.float32 else lib.mct_eval_f64
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(pts.data_ptr(), qhat_bar.data_ptr(), nodes.data_ptr(),
+                w.data_ptr(), chunks.data_ptr(), chunk_level.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), k, num_levels, n1, n,
+                stream)
+    _build.check(rc, "modified_charges transpose")
+    if n > 0:                                    # what the C entry launched
+        TRANSPOSE_LAUNCHES += (k > 0) + 1
+    return out
+
+
+def modified_charges_transpose_ranged_plain(pts: torch.Tensor,
+                                            qhat_bar: torch.Tensor,
+                                            chunks: torch.Tensor,
+                                            nodes: torch.Tensor,
+                                            w: torch.Tensor,
+                                            degree: int,
+                                            magnitude: bool = False
+                                            ) -> torch.Tensor:
+    """qbar (N,), the transpose in plain PyTorch: the chunked form of
+    `modified_charges_ranged_plain` with each chunk's rows contracted
+    against its node's q_hat cotangent, and the chunks' values added into
+    their particles (`index_add_`). With ``magnitude=True`` the same sums
+    of the terms' magnitudes, |t1 t2 t3 qhat_bar / den|: per particle the
+    scale of the rounding in its sum, against which the kernel is held."""
+    n1 = degree + 1
+    out = torch.zeros((pts.shape[0],), dtype=pts.dtype, device=pts.device)
+    if chunks.shape[0] == 0:
+        return out
+    node, begin, end = chunks.long().unbind(1)
+    width = max(1, int((end - begin).max()))    # a host read
+    step = max(1, _PLAIN_BUDGET // (width * n1 * n1))
+    ar = torch.arange(width, device=pts.device)
+    qg = qhat_bar.reshape(-1, n1, n1, n1)
+    for s in range(0, chunks.shape[0], step):
+        b, e, nd = begin[s:s + step], end[s:s + step], node[s:s + step]
+        idx = b[:, None] + ar
+        valid = idx < e[:, None]
+        idx = torch.where(valid, idx, b[:, None])
+        y = pts[idx]                                     # (c, width, 3)
+        nds = nodes[nd][:, None]                         # (c, 1, 3, n1)
+        t1, d1 = cheby.bary_terms(y[..., 0], nds[..., 0, :], w)
+        t2, d2 = cheby.bary_terms(y[..., 1], nds[..., 1, :], w)
+        t3, d3 = cheby.bary_terms(y[..., 2], nds[..., 2, :], w)
+        den = d1 * d2 * d3
+        nz = den != 0.0
+        qn = qg[nd]
+        if magnitude:
+            t1, t2, t3, den, qn = (t.abs() for t in (t1, t2, t3, den, qn))
+        r3 = torch.einsum("cmz,cxyz->cmxy", t3, qn)
+        r2 = torch.einsum("cmy,cmxy->cmx", t2, r3)
+        s1 = torch.einsum("cmx,cmx->cm", t1, r2)
+        val = torch.where(nz & valid, s1 / torch.where(nz, den,
+                                                      torch.ones_like(den)),
+                          torch.zeros_like(den))
+        out.index_add_(0, idx.flatten(), val.flatten())
     return out

@@ -8,7 +8,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
-MODULES = ["repro_torch.core.api", "repro_torch.core.direct",
+MODULES = ["repro_torch.core.api", "repro_torch.core.eval",
+           "repro_torch.core.direct",
            "repro_torch.configs.bltc", "repro_torch.obs",
            "repro_torch.kernels.ops", "repro_torch.kernels.ref",
            "repro_torch.dynamics", "repro_torch.checkpoint.store",

@@ -12,7 +12,8 @@ and forces at 10^6), w (the four kernels' systems-axis cases of phases
 2, 2f, 2g and 3) and 12a-12d (serving: the ensemble, the kappa scan,
 the service and the ensemble MD), 13a and 13b (the sharded plan at
 Fig. 4 beside the single plan, built here unless 4 ran first, and the
-sharded MD). A failing phase prints its traceback
+sharded MD), 14 (the differentiable executor's backward on the Fig. 4
+plan, built here unless 4 ran first). A failing phase prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
 line compares the hierarchical q_hat with this run's direct one only
 (phase 4 runs here only when named). Prints the
@@ -58,6 +59,12 @@ def main() -> int:
             phase_main()
         c.phase_forces(dev, main["plan"], x, q, smi)
 
+    def phase_differentiable():
+        if "plan" not in main:      # phase 4's plan, without its checks
+            from repro_torch.core.api import TreecodeSolver
+            main["plan"] = TreecodeSolver(c.fig4_config()).plan(x)
+        c.phase_differentiable(dev, smi, main["plan"], x, q)
+
     def systems_axis():
         for kind in ("batch_cluster", "field", "grid_field",
                      "modified_charges"):
@@ -78,6 +85,7 @@ def main() -> int:
         "11": lambda: c.phase_hierarchical(dev, x, q, float("nan")),
         "13a": lambda: c.phase_sharded(dev, smi, x, q, main.get("plan")),
         "13b": lambda: c.phase_sharded_md(dev),
+        "14": phase_differentiable,
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:
