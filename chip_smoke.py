@@ -79,7 +79,9 @@ Phases (each asserts; any failure exits non-zero):
     the launch counters at 0 (the field and the grid field kernel one
     launch a step each, the modified charges 2), exactly
     one host sync per refit step (torch.cuda.set_sync_debug_mode
-    "warn"), no capacity growth and no kernel build after step 1; ms per
+    "warn", and since PR 20 one explicit pull, the drift, under
+    `lint.runtime.no_implicit_syncs()`), no capacity growth and no
+    kernel build after step 1; ms per
     refit and rebuild step, span times of two traced refit steps,
     refit/rebuild counts by cause, energy and momentum drift; the energy
     balance |dKE + dPE| / dKE in f64 (<= ENERGY_BAR), and the field
@@ -102,7 +104,7 @@ Phases (each asserts; any failure exits non-zero):
     sampled targets (1e-5, FORCE_BAR); batch_cluster and both field
     kernels against their plain versions on its first 64 batch rows,
     the modified charges on every node row; `replan_async` dispatched
-    under torch.cuda.set_sync_debug_mode("error") and bitwise the
+    under `lint.runtime.no_implicit_syncs()` and bitwise the
     synchronous replan; at 10^5, every (target, source) pair covered
     exactly once by the device plan's lists, as by the host plan's;
  11. the hierarchical precompute at Fig. 4: q_hat against the direct
@@ -159,6 +161,25 @@ Phases (each asserts; any failure exits non-zero):
     its time and bound; at DIFF_F64_N in f64 the adjoint identity
     (1e-12) and the CUDA backward against the "torch" backend's (rtol
     1e-10, atol 1e-12 max|want|);
+ 15. the checking tools: (15a) `python -m repro_torch.lint
+    src/repro_torch` exits 0 (hot functions, findings, reasoned
+    suppressions); (15b) under `lint.runtime.no_implicit_syncs()`
+    (set_sync_debug_mode("error"), with "warn" outside it so each
+    explicit pull also warns as the ad hoc switches of earlier PRs
+    counted) 7 warm executes and 3 warm force calls on phase 4's plan
+    make no pull, 5 refit steps of phase 8's MD exactly one (the drift),
+    taken in turn with 5 unguarded refit steps (the default path's
+    median), a warm 12c resubmission only its plan builds, uploads and
+    results,
+    and a 10^6 `replan_async` dispatch none; phases 8, 8d, 8a and 10
+    run their steps and dispatch under the same guard; (15c)
+    `obs.transfers.count_transfers` of a warm execute (DtoH 0, HtoD 0)
+    and a refit step (DtoH 1); (15d) REPRO_DEBUG_NANS=1: 3 clean steps of
+    a 46^3 MD, a NaN charge raising FloatingPointError at the modified
+    charges, the execute's ms with the mode on and off; (15e) the meta
+    dry run of the sharded plan's execute and potential_and_forces for
+    one rank of 256 and 2 x 256 ranks of 262,144 points; and phase 4's
+    execute and the unguarded refit step medians beside PR 18's;
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -1174,6 +1195,7 @@ def phase_main(dev, smi):
     calls = 1 + reps
     assert launches["batch_cluster"] >= 2 * calls, launches
     assert launches["modified_charges"] == 2 * calls, launches
+    READINGS["[4] execute_ms"] = warm_ms
     print(f"[4] execute: cold {cold_ms:.2f} ms, warm median {warm_ms:.3f} ms "
           f"over {reps} (CUDA events); launches over {calls} executes "
           f"{launches}", flush=True)
@@ -1597,6 +1619,38 @@ def energy_balance(sim, phi0, v0):
     return dke.item(), dpe.item()
 
 
+#: Readings of this run that phase 15 prints beside earlier PRs'.
+READINGS = {}
+
+
+def guarded(fn, *args, out=False):
+    """`fn(*args)` under `lint.runtime.no_implicit_syncs()` (the card's
+    set_sync_debug_mode("error")) with the mode "warn" outside it: an
+    implicit sync raises, and each explicit pull both counts in
+    `sync_counts()` and warns as the ad hoc switch of earlier PRs did.
+    Returns (explicit pulls by reason, synchronizing warnings), and with
+    ``out`` also fn's result."""
+    import warnings
+    import torch
+    from repro_torch.lint import runtime as rt
+
+    before = rt.sync_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with rt.no_implicit_syncs():
+                res = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    after = rt.sync_counts()
+    pulls = {k: after[k] - before.get(k, 0) for k in after
+             if after[k] != before.get(k, 0)}
+    warned = sum("called a synchronizing CUDA operation" in str(w.message)
+                 for w in caught)
+    return ((pulls, warned), res) if out else (pulls, warned)
+
+
 def salt_lattice(m, lo, spacing, seed):
     """m^3 alternating +-1 charges on a cubic lattice jittered by
     MD_JITTER of the spacing (zero net charge for even m)."""
@@ -1626,9 +1680,11 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
     window's total, the refit steps that dispatch a shadow build apart
     from the others, and (`host_ref`: the host-rebuild run's median
     rebuild step and total) the host's numbers beside the device's.
+    Every step 2.. runs under `lint.runtime.no_implicit_syncs()` with the
+    mode "warn" outside it, so a refit step's explicit pulls are counted
+    both ways: by `sync_counts()` and by the debug mode's warnings.
     Returns the launches of each kernel in that run, the median rebuild
-    step and the window's total (ms)."""
-    import warnings
+    step, the window's total (ms) and the simulation."""
     import torch
     from repro_torch.configs.bltc import fig4
     from repro_torch.core.api import TreecodeSolver
@@ -1656,24 +1712,18 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
     bcm.LAUNCHES = bcm.FIELD_LAUNCHES = bcm.GRID_FIELD_LAUNCHES = 0
     mcm.LAUNCHES = 0
     step_ms = {"refit": [], "dispatch": [], "rebuild": []}
-    syncs, dispatch_ms, wait_ms = [], [], []
+    syncs, explicit, dispatch_ms, wait_ms = [], [], [], []
     for _ in range(MD_STEPS - 1):
         refits0, pending0 = sim.refits, sim._pending
         swaps0, wait0 = sim.plan_swaps, sim.rebuild_wait_ms
         t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                sim.step()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        pulls, caught = guarded(sim.step)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         kind = "refit" if sim.refits > refits0 else "rebuild"
         if kind == "refit":
-            syncs.append(sum("called a synchronizing CUDA operation"
-                             in str(w.message) for w in caught))
+            syncs.append(caught)
+            explicit.append(pulls)
         if pending0 is None and sim._pending is not None:
             dispatch_ms.append(sim._pending_dispatch_ms)
             kind = "dispatch"
@@ -1694,6 +1744,7 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
     assert st["capacity_growths"] == 0 and st["retraces"] == 0, st
     assert builds == 0, builds
     assert syncs and all(k == 1 for k in syncs), syncs
+    assert all(e == {"drift": 1} for e in explicit), explicit
     assert st["rebuilds"] >= 1, st
     if build_backend == "device":
         assert st["devtree_rebuilds"] == st["rebuilds"], st
@@ -1744,8 +1795,11 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
           f"capacity growths "
           f"{st['capacity_growths']}, retraces {st['retraces']}, kernel "
           f"builds after step 1 {builds}; host syncs per refit step "
-          f"{sorted(set(syncs))}; launches over steps 2-{MD_STEPS} "
-          f"{launches}", flush=True)
+          f"{sorted(set(syncs))} (warnings of set_sync_debug_mode('warn')), "
+          f"beside explicit_sync per refit step "
+          f"{sorted(set(map(str, explicit)))} under no_implicit_syncs() "
+          f"(steps 2-{MD_STEPS} all guarded); launches over steps "
+          f"2-{MD_STEPS} {launches}", flush=True)
     if build_backend == "device":
         ref = ("" if host_ref is None else
                f", {host_ref[0]:.1f} ms in this run's host-rebuild "
@@ -1760,7 +1814,8 @@ def phase_md(dev, tag="[8]", build_backend="host", async_replan=False,
                  if async_replan else ""), flush=True)
     print(f"{tag} traced refit step, ms per step by span: " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(spans.items())), flush=True)
-    return launches, med["rebuild"], window_ms
+    READINGS[f"{tag} refit_ms"] = med["refit"]
+    return launches, med["rebuild"], window_ms, sim
 
 
 def phase_md_periodic(dev):
@@ -1997,22 +2052,21 @@ def phase_device_plan(dev, smi, x, q):
 
     # the double-buffered replan: no host sync until finalize
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        t0 = time.perf_counter()
-        pending = plan.replan_async(xd)
-        dispatch_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    t0 = time.perf_counter()
+    (pulls, caught), pending = guarded(plan.replan_async, xd, out=True)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    assert pulls == {} and caught == 0, (pulls, caught)
     p3, wait_ms, grew = pending.finalize()
     assert not grew
     for k, v in plan.arrays.items():
         if not isinstance(v, tuple):
             assert torch.equal(v, p3.arrays[k]), f"async replan: {k}"
     assert torch.equal(p3.execute(q), phi)
-    print(f"[10] replan_async under set_sync_debug_mode('error'): dispatch "
-          f"{dispatch_ms:.2f} ms (host), finalize waited {wait_ms:.2f} ms; "
-          f"the swapped plan is bitwise the synchronous one", flush=True)
+    print(f"[10] replan_async under no_implicit_syncs() "
+          f"(set_sync_debug_mode('error')): dispatch {dispatch_ms:.2f} ms "
+          f"(host), explicit pulls {pulls}, debug-mode warnings {caught}; "
+          f"finalize waited {wait_ms:.2f} ms; the swapped plan is bitwise "
+          f"the synchronous one", flush=True)
 
     # pair coverage at 10^5 on both builds
     x5 = torch.as_tensor(np.random.default_rng(2024).uniform(
@@ -2029,6 +2083,7 @@ def phase_device_plan(dev, smi, x, q):
           f"covered exactly once on both builds (real batch rows, direct "
           f"leaf slots): host {covered['host']}, device "
           f"{covered['device']}", flush=True)
+    return plan
 
 
 def phase_hierarchical(dev, x, q, mc_ms):
@@ -2895,6 +2950,7 @@ def phase_serve_frontend(dev):
           f"(first {rows} batch rows of every slot; the modified charges on "
           f"every node; {STACKED_ROWS_RULE}), by bucket: max abs err "
           f"{worst}", flush=True)
+    return fe, reqs
 
 
 def phase_serve_md(dev):
@@ -3335,6 +3391,247 @@ def phase_sharded_md(dev):
         f"{k} {v:.2f}" for k, v in sorted(spans.items())), flush=True)
 
 
+#: PR 18's run-2 readings (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+#: section 5): phase 4's warm execute and phase 8's refit step medians,
+#: printed beside this run's (the default path must not move).
+PR18_EXECUTE_MS, PR18_REFIT_MS = 66.233, 80.15
+#: Lattice side of phase 15d's NaN-mode MD (46^3 = 97,336 particles).
+NAN_MD_M = 46
+
+
+def phase_checking_tools(dev, smi, plan, x, q, md_sim=None, dplan=None,
+                         serve=None):
+    """15: the checking tools (`repro_torch.lint`, `obs.transfers`,
+    `launch.dryrun_bltc`) on the card. (15a) the lint over
+    src/repro_torch exits 0; (15b) under `no_implicit_syncs()` 7 warm
+    executes and 3 warm force calls on phase 4's plan with no pull, 5 MD
+    refit steps of phase 8's simulation with exactly one (the drift),
+    taken in turn with 5 unguarded ones (both timed), a
+    warm 12c resubmission whose only pulls are its uploads, host builds
+    and results, and a 10^6 `replan_async` dispatch with none; (15c)
+    transfer counts of a warm execute (no DtoH, no HtoD) and of a refit
+    step (one DtoH); (15d) REPRO_DEBUG_NANS=1: a 10^5 MD of 3 clean
+    steps, a NaN charge raising at the first kernel entry that sees it,
+    and the execute's ms with the mode on and off; (15e) the meta dry run
+    of the sharded plan for one rank of 256 and 512. `md_sim`, `dplan` and `serve` (phases 8, 10
+    and 12c's) are built here when None."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.bltc import fig4
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.dynamics import Simulation
+    from repro_torch.launch import dryrun_bltc
+    from repro_torch.lint import runtime as rt
+    from repro_torch.obs.transfers import count_transfers
+    from repro_torch.serve import ServeFrontend
+
+    t_phase = time.perf_counter()
+    # -- 15a: the lint --------------------------------------------------
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-m", "repro_torch.lint",
+                          "src/repro_torch", "--summary"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    lint = json.loads(res.stdout.strip().splitlines()[-1])
+    assert lint["findings"] == 0, lint
+    print(f"[15a] python -m repro_torch.lint src/repro_torch: exit 0, "
+          f"{lint['hot_functions']} hot functions, {lint['findings']} "
+          f"findings, {lint['suppressions']} reasoned suppressions "
+          f"{lint['suppressions_by_rule']} ({time.perf_counter() - t0:.1f}"
+          f" s)", flush=True)
+
+    # -- 15b: the sync guard ----------------------------------------------
+    plan.execute(q)
+    plan.potential_and_forces(q)
+    torch.cuda.synchronize()
+
+    def warm_calls():
+        for _ in range(7):
+            plan.execute(q)
+        for _ in range(3):
+            plan.potential_and_forces(q)
+
+    ex = guarded(warm_calls)
+    assert ex == ({}, 0), ex
+    if md_sim is None:
+        xl, ql = salt_lattice(MD_M, -1.0, 2.0 / MD_M, 31)
+        cfg = dataclasses.replace(fig4(theta=0.7, degree=8), skin=MD_SKIN)
+        md_sim = Simulation(TreecodeSolver(cfg).plan(xl, capacities="auto"),
+                            ql, dt=MD_DT, refit_interval=MD_REFIT)
+        md_sim.step()
+    # refit steps taken in turn under the guard and on the default path
+    # (no guard, the debug mode "default"), each timed as phase 8 times
+    # its steps: host clock to a synchronize
+    refit_pulls, refit_ms, steps = [], {"guarded": [], "default": []}, 0
+    while min(len(v) for v in refit_ms.values()) < 5 and steps < 24:
+        refits = md_sim.refits
+        guard = len(refit_ms["guarded"]) <= len(refit_ms["default"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pulls = guarded(md_sim.step) if guard else md_sim.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps += 1
+        if md_sim.refits > refits:
+            refit_ms["guarded" if guard else "default"].append(ms)
+            if guard:
+                refit_pulls.append(pulls)
+    assert len(refit_pulls) == 5 and all(
+        p == ({"drift": 1}, 1) for p in refit_pulls), refit_pulls
+    assert len(refit_ms["default"]) == 5, refit_ms
+    READINGS.update({f"[15b] refit_ms {k}": statistics.median(v)
+                     for k, v in refit_ms.items()})
+    if serve is None:
+        serve = (ServeFrontend(serve_config(), max_batch=8), [
+            (np.random.default_rng(i).uniform(-1, 1, (n, 3)).astype(
+                np.float32), np.random.default_rng(i).uniform(
+                    -1, 1, n).astype(np.float32),
+             {"kappa": SERVE_KAPPAS[i % 3]}, i % 3 == 0)
+            for i, n in enumerate(SERVE_REQUEST_SIZES * 8)])
+    fe, reqs = serve
+
+    def resubmit():
+        futs = [fe.submit(xr, qr, kernel_params=pr, forces=fr)
+                for xr, qr, pr, fr in reqs]
+        fe.flush()
+        return [f.result() for f in futs]
+
+    resubmit()                                   # warm (when built here)
+    s0 = fe.stats()
+    serve_pulls = guarded(resubmit)
+    s1 = fe.stats()
+    assert set(serve_pulls[0]) <= {"serve_plan_build", "host_build",
+                                   "upload", "serve_result"}, serve_pulls
+    assert s1["retraces"] == s0["retraces"], (s0, s1)
+    if dplan is None:
+        dcfg = dataclasses.replace(fig4(theta=0.7, degree=8),
+                                   build_backend="device")
+        dplan = TreecodeSolver(dcfg).plan(x, capacities="auto")
+    xd = torch.as_tensor(x, device=dev)
+    torch.cuda.synchronize()
+    (disp, pending) = guarded(dplan.replan_async, xd, out=True)
+    _, wait_ms, grew = pending.finalize()
+    assert disp == ({}, 0) and not grew, disp
+    print(f"[15b] under no_implicit_syncs() (set_sync_debug_mode('error'); "
+          f"the mode 'warn' outside it for the old count): 7 warm executes "
+          f"and 3 warm potential_and_forces at Fig. 4, 10^6: explicit pulls "
+          f"{ex[0]}, debug-mode warnings {ex[1]}; 5 MD refit steps of "
+          f"phase 8's lattice ({steps} steps run, 5 more refit steps among "
+          f"them unguarded): explicit pulls per refit "
+          f"step {sorted({str(p[0]) for p in refit_pulls})}, warnings per "
+          f"refit step {sorted({p[1] for p in refit_pulls})}; refit step ms "
+          f"guarded {[round(v, 2) for v in refit_ms['guarded']]}, unguarded "
+          f"{[round(v, 2) for v in refit_ms['default']]}; warm 12c "
+          f"resubmission of {len(reqs)} requests: explicit pulls "
+          f"{serve_pulls[0]}, warnings {serve_pulls[1]}, retraces "
+          f"{s1['retraces'] - s0['retraces']}; replan_async dispatch at "
+          f"10^6: explicit pulls {disp[0]}, warnings {disp[1]} (finalize "
+          f"waited {wait_ms:.2f} ms)", flush=True)
+
+    # -- 15c: transfer counts --------------------------------------------
+    def brief(c):
+        return (f"DtoH {c['DtoH']['count']} ({c['DtoH']['bytes']} B), HtoD "
+                f"{c['HtoD']['count']} ({c['HtoD']['bytes']} B), DtoD "
+                f"{c['DtoD']['count']}, syncs "
+                f"{ {k: v for k, v in c['syncs'].items() if v} }, kernels "
+                f"{c['kernels']}")
+
+    _, cx = count_transfers(plan.execute, q)
+    cs = None
+    for _ in range(4):
+        refits = md_sim.refits
+        _, c = count_transfers(md_sim.step)
+        if md_sim.refits > refits:
+            cs = c
+            break
+    assert cs is not None, "no refit step in 4 tries"
+    assert cx["kernels"] > 0 and cs["kernels"] > 0, \
+        ("the profiler saw no kernel", cx, cs)
+    assert cx["DtoH"]["count"] == 0 and cx["HtoD"]["count"] == 0, cx
+    assert cs["DtoH"]["count"] == 1, cs
+    print(f"[15c] obs.transfers.count_transfers: warm execute {brief(cx)}; "
+          f"MD refit step {brief(cs)}", flush=True)
+
+    # -- 15d: REPRO_DEBUG_NANS=1 ------------------------------------------
+    off_ms = event_ms(lambda: plan.execute(q), 7)
+    prev_env = os.environ.get("REPRO_DEBUG_NANS")
+    os.environ["REPRO_DEBUG_NANS"] = "1"
+    prev_mode = rt.DEBUG_NANS
+    try:
+        xs, qs = salt_lattice(NAN_MD_M, -1.0, 2.0 / NAN_MD_M, 5)
+        cfg = dataclasses.replace(fig4(theta=0.7, degree=8), skin=MD_SKIN)
+        sim = Simulation(TreecodeSolver(cfg).plan(xs, capacities="auto"),
+                         qs, dt=MD_DT, refit_interval=MD_REFIT)
+        assert sim.debug_nans is True and rt.DEBUG_NANS is True
+        n0 = rt.sync_counts().get("debug_nans", 0)
+        sim.run(3)
+        checks = rt.sync_counts().get("debug_nans", 0) - n0
+        assert checks > 0 and torch.isfinite(sim.state.f).all()
+        on_ms = event_ms(lambda: plan.execute(q), 7)
+        q_nan = q.clone()
+        q_nan[q.shape[0] // 8] = float("nan")
+        try:
+            plan.execute(q_nan)
+            raise AssertionError("REPRO_DEBUG_NANS missed a NaN charge")
+        except FloatingPointError as e:
+            caught = str(e)
+        assert "modified_charges_ranged" in caught, caught
+        del sim
+    finally:
+        rt.set_debug_nans(prev_mode)
+        if prev_env is None:
+            os.environ.pop("REPRO_DEBUG_NANS", None)
+        else:
+            os.environ["REPRO_DEBUG_NANS"] = prev_env
+    print(f"[15d] REPRO_DEBUG_NANS=1: a {NAN_MD_M}^3 = {NAN_MD_M ** 3} "
+          f"particle MD took 3 clean steps ({checks} output checks, no "
+          f"false positive); a NaN charge at Fig. 4 raised "
+          f"FloatingPointError: {caught!r}; warm execute median "
+          f"{on_ms:.3f} ms with the mode on against {off_ms:.3f} ms off "
+          f"(CUDA events, 7 each, same plan; {smi})", flush=True)
+
+    # -- 15e: the dry run ---------------------------------------------------
+    for nranks, multi in ((256, False), (512, True)):
+        r = dryrun_bltc.dry_run(nranks, 262_144, multi)
+        assert r["phi_shape"] == [nranks * 262_144], r
+        f = r["forces"]
+        print(f"[15e] dry run of the sharded plan's execute and "
+              f"potential_and_forces, one rank of mesh {r['mesh']} x "
+              f"262,144 points per rank (meta tensors, {r['dry_run_s']:.2f} "
+              f"s host): per rank argument bytes "
+              f"{r['per_rank']['argument_bytes']} (of them "
+              f"{r['per_rank']['replicated_input_bytes']} the input-order "
+              f"charges and slot table every rank holds); execute: peak live "
+              f"output bytes {r['per_rank']['peak_live_output_bytes']}, "
+              f"bytes read and written {r['bytes_per_rank']}, collective "
+              f"bytes received {r['collective_bytes_per_rank']} "
+              f"{r['collectives']}; potential_and_forces: peak live output "
+              f"bytes {f['peak_live_output_bytes']}, bytes read and written "
+              f"{f['bytes']}, collective bytes received "
+              f"{f['collective_bytes']}; model interactions "
+              f"{r['model_interactions_per_rank']}, FLOP term "
+              f"{r['roofline']['compute_s'] * 1e3:.3f} ms and the execute's "
+              f"bytes term {r['roofline']['memory_s'] * 1e3:.3f} ms at the "
+              f"H100 SXM data-sheet peaks", flush=True)
+    ex_ms = READINGS.get("[4] execute_ms")
+
+    def r2(v):
+        return v if v is None else round(v, 2)
+
+    print(f"[15] default path (no guard, debug mode 'default', "
+          f"REPRO_DEBUG_NANS off): phase 4 warm execute median "
+          f"{ex_ms if ex_ms is None else round(ex_ms, 3)} ms against "
+          f"{PR18_EXECUTE_MS} ms; 15b's unguarded refit step median "
+          f"{r2(READINGS['[15b] refit_ms default'])} ms beside its guarded "
+          f"one {r2(READINGS['[15b] refit_ms guarded'])} ms (taken in turn "
+          f"on one simulation) and phase 8's (every step guarded) "
+          f"{r2(READINGS.get('[8] refit_ms'))} ms, against {PR18_REFIT_MS} "
+          f"ms (PR 18 run 2, NVIDIA H100 80GB HBM3, 700.00 W, its steps "
+          f"under the debug mode 'warn'); this run on {smi}; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3406,9 +3703,8 @@ def main() -> int:
     phase_yukawa(dev, plan, x, q)
     phase_sharded(dev, smi, x, q, plan)
     report.append(phase_differentiable(dev, smi, plan, x, q))
-    del plan
     phase_periodic(dev)
-    md_launches, *host_ref = phase_md(dev)
+    md_launches, *host_ref, md_sim = phase_md(dev)
     for entry in report:     # the field kernels' launches are the MD run's
         if entry["name"].startswith("batch_cluster_field"):
             entry["launches"] = md_launches[entry["name"]]
@@ -3416,15 +3712,16 @@ def main() -> int:
     phase_md(dev, "[8a]", "device", async_replan=True,
              host_ref=host_ref)
     phase_md_periodic(dev)
-    phase_device_plan(dev, smi, x, q)
+    dplan = phase_device_plan(dev, smi, x, q)
     phase_hierarchical(dev, x, q, next(e["ms"] for e in report
                                        if e["name"] == "modified_charges"))
-    del x, q
     phase_serve_ensemble(dev, smi)
     phase_serve_kappa_scan(dev)
-    phase_serve_frontend(dev)
+    serve = phase_serve_frontend(dev)
     phase_serve_md(dev)
     phase_sharded_md(dev)
+    phase_checking_tools(dev, smi, plan, x, q, md_sim, dplan, serve)
+    del plan, md_sim, dplan, serve, x, q
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(smi)

@@ -64,6 +64,7 @@ import torch
 from repro_torch.core import eval as _eval
 from repro_torch.core.potentials import Kernel, builtin_id, resolve_kernel
 from repro_torch.core.space import FreeSpace, PeriodicBox, resolve_space
+from repro_torch.lint import runtime as _rt
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.occupancy import static_occupancy as _static_occupancy
 
@@ -478,17 +479,22 @@ def _plan_single(config: TreecodeConfig, kernel: Kernel, targets, sources,
             capacities=None if capacities == "auto" else capacities,
             pair_caps=pair_caps, depth=depth, batch_depth=batch_depth)
         return SingleDevicePlan(config, kernel, inner, dtype)
-    inner = _eval.prepare_plan(
-        _host(targets, dtype), _host(sources, dtype),
-        theta=config.theta, degree=config.degree,
-        leaf_size=config.leaf_size, batch_size=config.resolved_batch_size(),
-        space=config.space, skin=config.skin, device=device)
-    if config.precompute == "hierarchical":
-        inner = _eval.add_hierarchical_tables(inner)
-    if capacities is not None:
-        capacities = (_eval.Capacities.for_plan(inner) if capacities == "auto"
-                      else capacities.grown_to_fit(inner))
-        inner = _eval.pad_plan(inner, capacities)
+    # the host planner pulls the points and uploads the plan: a
+    # sanctioned transfer inside a caller's no_implicit_syncs()
+    with _rt.explicit_sync("host_build"):
+        inner = _eval.prepare_plan(
+            _host(targets, dtype), _host(sources, dtype),
+            theta=config.theta, degree=config.degree,
+            leaf_size=config.leaf_size,
+            batch_size=config.resolved_batch_size(), space=config.space,
+            skin=config.skin, device=device)
+        if config.precompute == "hierarchical":
+            inner = _eval.add_hierarchical_tables(inner)
+        if capacities is not None:
+            capacities = (_eval.Capacities.for_plan(inner)
+                          if capacities == "auto"
+                          else capacities.grown_to_fit(inner))
+            inner = _eval.pad_plan(inner, capacities)
     return SingleDevicePlan(config, kernel, inner, dtype)
 
 

@@ -56,6 +56,7 @@ from repro_torch.core.tree import Batches, Tree, build_batches, build_tree
 from repro_torch.kernels import ops
 from repro_torch.kernels.modified_charges import chunk_table
 from repro_torch.kernels.ops import take as _take
+from repro_torch.lint import runtime as _rt
 from repro_torch.obs import events as _events
 from repro_torch.obs import trace as _trace
 
@@ -606,9 +607,13 @@ def _sweep(span: str, arrays: dict, charges: torch.Tensor, params, *,
         if lane == "approx" and not field:
             counts = dict(counts, r2_mode=approx_r2)
         with _trace.span(f"eval.{lane}_{span}"):
-            y = _LANE_OPS[span][lane](
-                idx, arrays["tgt_batched"], pts, q, params, kernel=kernel,
-                space=space, backend=backend, kahan=kahan, **counts)
+            try:
+                y = _LANE_OPS[span][lane](
+                    idx, arrays["tgt_batched"], pts, q, params,
+                    kernel=kernel, space=space, backend=backend,
+                    kahan=kahan, **counts)
+            except FloatingPointError as e:   # REPRO_DEBUG_NANS
+                raise FloatingPointError(f"{e} ({lane} lane)") from None
             _trace.sync(charges.device)
         out = y if out is None else out + y
     st = stacked(arrays)
@@ -710,7 +715,8 @@ def transposed_lists(idx: torch.Tensor, num_rows: int):
     row = key[order]
     counts = torch.bincount(key, minlength=num_rows + 1)[:num_rows + 1]
     start = torch.cumsum(counts, 0) - counts
-    width = max(1, int(counts[:num_rows].max())) if num_rows else 1
+    with _rt.explicit_sync("transpose_width"):
+        width = max(1, int(counts[:num_rows].max())) if num_rows else 1
     rank = torch.arange(key.numel(), device=dev) - start[row]
     dump = num_rows * width                              # sentinels' slot
     pos = torch.where(row < num_rows, row * width + rank, dump)
@@ -883,6 +889,11 @@ class _PhiFromTargets(torch.autograd.Function):
             with _trace.span("eval.charge_cotangent"):
                 qbar = _charge_cotangent(a, u, ctx.params, ctx.lists,
                                          **ctx.opts)
+        if _rt.DEBUG_NANS:
+            for what, v in (("target", tbar), ("charge", qbar)):
+                if v is not None:
+                    _rt.check_finite(v, f"differentiable_execute backward "
+                                        f"({what} cotangent)")
         return tbar, qbar, None, None, None
 
 

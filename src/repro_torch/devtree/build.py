@@ -62,6 +62,7 @@ from repro_torch.core.tree import Batches, Tree
 from repro_torch.devtree import lists as _lists
 from repro_torch.devtree import morton as _morton
 from repro_torch.kernels.modified_charges import CHUNK
+from repro_torch.lint import runtime as _rt
 from repro_torch.obs import events as _events
 from repro_torch.obs import trace as _trace
 
@@ -600,8 +601,9 @@ def _read(tree, *floats):
     Python floats, in ONE device-to-host transfer (the rebuild's only
     read-back). f64 holds every count exactly."""
     leaves = _flatten(tree)
-    vals = torch.stack([v.to(torch.float64) for v in leaves + list(floats)]
-                       ).tolist()
+    with _rt.explicit_sync("devtree_needs"):
+        vals = torch.stack([v.to(torch.float64)
+                            for v in leaves + list(floats)]).tolist()
     ints = _unflatten(tree, iter(int(v) for v in vals[:len(leaves)]))
     return (ints,) + tuple(vals[len(leaves):])
 
@@ -609,6 +611,8 @@ def _read(tree, *floats):
 def _block(device: torch.device) -> None:
     """Wait for the device (the synchronous path's phase timing)."""
     if device.type == "cuda":
+        # lint: disable=OB001 — the synchronous build blocks by contract:
+        # its per-phase ms (build_ms) are the wait's product
         torch.cuda.synchronize(device)
 
 
@@ -682,6 +686,8 @@ def _materialize_tree(dev, node_lo, node_hi) -> Tree:
         par = parent[base:base + no]
         slot = code[base:base + no] & 7
         link = active[gid] & active[par] & ~leafm[par]
+        # lint: disable=DV002 — host numpy: the diagnostics tree the lazy
+        # struct materializes, never the device build
         children[par[link], slot[link]] = gid[link]
     n_leaves = int(dev["n_leaves"])
     leaf_ids = _np(dev["leaf_ids"])[:n_leaves].astype(np.int64)
@@ -1127,7 +1133,8 @@ class PendingDevicePlan:
         under the current stream's reads) and read the needs there."""
         b = self._b
         if self._event is not None:
-            self._event.synchronize()
+            with _rt.explicit_sync("replan_wait"):
+                self._event.synchronize()
             cur = torch.cuda.current_stream(b.device)
             cur.wait_event(self._event)
             own = [b.xs_sorted, b.codes_s, b.order_s, b.xt_sorted,

@@ -55,6 +55,7 @@ from repro_torch.core.tree import Tree
 from repro_torch.distributed.exchange import StackedRanks
 from repro_torch.distributed.rcb import RCB, rcb_partition
 from repro_torch.kernels import ops
+from repro_torch.lint import runtime as _rt
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.occupancy import static_occupancy as _static_occ
 
@@ -597,13 +598,16 @@ class ShardedPlan:
             raise ValueError("sharded plans require targets == sources")
         if capacities == "keep":
             capacities = self.capacities
-        if isinstance(targets, torch.Tensor):
-            targets = targets.detach().cpu().numpy()
         np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
-        return ShardedPlan.build(np.asarray(targets, np_dtype), self.config,
-                                 self.nranks, ranks=self.ranks,
-                                 device=self.device, kernel=self.kernel,
-                                 capacities=capacities)
+        # the host build pulls the points and uploads the plan: a
+        # sanctioned transfer inside a caller's no_implicit_syncs()
+        with _rt.explicit_sync("host_build"):
+            if isinstance(targets, torch.Tensor):
+                targets = targets.detach().cpu().numpy()
+            return ShardedPlan.build(
+                np.asarray(targets, np_dtype), self.config, self.nranks,
+                ranks=self.ranks, device=self.device, kernel=self.kernel,
+                capacities=capacities)
 
 
 def stage_ranks(rank_gather: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

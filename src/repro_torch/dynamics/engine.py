@@ -42,9 +42,13 @@ it in (the `plan_swap` span).
 
 Sharded plans (`repro_torch.distributed`) rebuild on the host into their
 `ShardedCapacities`; a rebuild that grows the budget re-closes the step's
-force and slack functions over the new halo schedule. Not ported yet: the
-reference's ``REPRO_DEBUG_NANS`` hook waits for the checking tools
-(`debug_nans` is False).
+force and slack functions over the new halo schedule.
+
+The step's host reads go through `repro_torch.lint.runtime.explicit_sync`
+(the drift, "drift"; unread slacks, "budgets"), so a refit step under
+`no_implicit_syncs()` counts exactly one. ``REPRO_DEBUG_NANS=1`` turns
+on the runtime's NaN mode in ``__init__`` (`debug_nans`): every kernel
+entry of the step then checks its output.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ from repro_torch.dynamics import diagnostics as diag
 from repro_torch.dynamics.integrators import (MDState, get_integrator,
                                               initial_state)
 from repro_torch.dynamics.refit import make_adapter, max_drift
+from repro_torch.lint import runtime as _rt
 from repro_torch.obs import events as _events
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.occupancy import occupancy_counters as _occ_counters
@@ -123,7 +128,7 @@ class Simulation:
             raise ValueError(f"rebuild must be one of {_REBUILD_POLICIES}")
         if refit_interval < 1:
             raise ValueError("refit_interval must be >= 1")
-        self.debug_nans = False
+        self.debug_nans = _rt.enable_debug_nans_if_requested()
         self.dt = float(dt)
         self.refit_interval = int(refit_interval)
         self.drift_safety = float(drift_safety)
@@ -315,9 +320,11 @@ class Simulation:
     def _read_drift(self, drift_dev: torch.Tensor) -> float:
         """The step's one host sync: the drift, and in the same transfer
         the slacks of the last finish if they are still unread."""
-        if self._slack_dev is None:
-            return drift_dev.item()
-        drift, ts, fs = torch.stack([drift_dev, *self._slack_dev]).tolist()
+        with _rt.explicit_sync("drift"):
+            if self._slack_dev is None:
+                return drift_dev.item()
+            drift, ts, fs = torch.stack([drift_dev,
+                                         *self._slack_dev]).tolist()
         self._theta_slack, self._fold_slack = ts, fs
         self._slack_dev = None
         return drift
@@ -325,7 +332,8 @@ class Simulation:
     def _refresh_budgets(self) -> None:
         """Pull unread slacks onto the host (one transfer)."""
         if self._slack_dev is not None:
-            ts, fs = torch.stack(list(self._slack_dev)).tolist()
+            with _rt.explicit_sync("budgets"):
+                ts, fs = torch.stack(list(self._slack_dev)).tolist()
             self._theta_slack, self._fold_slack = ts, fs
             self._slack_dev = None
 
@@ -411,9 +419,12 @@ class Simulation:
         positions (a separate tensor: the live trajectory keeps its
         unwrapped coordinates until the swap). Nothing here waits."""
         with _trace.span("md.rebuild_dispatch"):
+            # lint: disable=ND001 — the dispatch's host ms for stats(),
+            # never an input to the step
             t0 = time.perf_counter()
             self._pending = self.adapter.rebuild_dispatch(
                 self.space.wrap(s1.x))
+            # lint: disable=ND001 — as above
             self._pending_dispatch_ms = (time.perf_counter() - t0) * 1e3
         self._pending_cause = cause
 

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import cheby
 from repro_torch.kernels import _build
+from repro_torch.lint import runtime as _rt
 
 #: Kernel launches since import (or the last reset by a caller): one for
 #: `mc_chunk_kernel` and one for `mc_reduce` per call.
@@ -230,7 +231,8 @@ def modified_charges_ranged_plain(pts: torch.Tensor, q: torch.Tensor,
     if chunks.shape[0] == 0:
         return out
     node, begin, end = chunks.long().unbind(1)
-    width = max(1, int((end - begin).max()))    # a host read
+    with _rt.explicit_sync("plain_width"):      # the plain version's read
+        width = max(1, int((end - begin).max()))
     step = max(1, _PLAIN_BUDGET // (width * n1 * n1))
     ar = torch.arange(width, device=pts.device)
     zero = torch.zeros((), dtype=q.dtype, device=q.device)
@@ -330,7 +332,8 @@ def modified_charges_transpose_ranged_plain(pts: torch.Tensor,
     if chunks.shape[0] == 0:
         return out
     node, begin, end = chunks.long().unbind(1)
-    width = max(1, int((end - begin).max()))    # a host read
+    with _rt.explicit_sync("plain_width"):      # the plain version's read
+        width = max(1, int((end - begin).max()))
     step = max(1, _PLAIN_BUDGET // (width * n1 * n1))
     ar = torch.arange(width, device=pts.device)
     qg = qhat_bar.reshape(-1, n1, n1, n1)

@@ -5,6 +5,13 @@ Backends:
   - "torch": plain PyTorch on any device (the CPU path, and the
              yardstick the kernels are held against on the card).
   - "auto":  "cuda" for CUDA tensors, "torch" for CPU tensors.
+  - "meta":  shapes only, for tensors on the meta device (the dry run
+             of the sharded plan, `launch/dryrun_bltc.py`): each entry
+             the sharded executor reaches (the three batch-cluster
+             entries and `modified_charges_ranged`) returns an empty
+             meta tensor of its output's shape, as the kernel would
+             allocate it, and computes nothing. A meta tensor takes this
+             branch under any backend but "cuda", which raises.
 
 A CUDA tensor under "auto" or "cuda" launches the kernel or raises:
 there is no silent fallback to the plain version. All entry points take
@@ -19,6 +26,9 @@ gathers per system the same way for the code around the kernels.
 `batch_boxes`, `mac_gate` (the Verlet-skin runtime MAC gate) and
 `refreshed_slacks` (the MD engine's drift budgets) are plain torch ops,
 as the reference runs them in XLA outside Pallas.
+
+Under ``REPRO_DEBUG_NANS=1`` (`repro_torch.lint.runtime`) every kernel
+entry checks its output and raises `FloatingPointError` naming itself.
 """
 from __future__ import annotations
 
@@ -29,15 +39,21 @@ from repro_torch.core.potentials import Kernel, pack_params
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.kernels import batch_cluster as _bc
 from repro_torch.kernels import modified_charges as _mc
+from repro_torch.lint import runtime as _rt
 
 BACKENDS = ("auto", "cuda", "torch")
 
 
 def resolve_backend(backend: str, like: torch.Tensor) -> str:
-    """The concrete backend ("cuda" | "torch") for tensors like `like`."""
+    """The concrete backend ("cuda" | "torch" | "meta") for tensors like
+    `like`."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from "
                          f"{BACKENDS}")
+    if like.is_meta:
+        if backend == "cuda":
+            raise ValueError("backend='cuda' needs CUDA tensors, got meta")
+        return "meta"
     if backend == "auto":
         return "cuda" if like.is_cuda else "torch"
     if backend == "cuda" and not like.is_cuda:
@@ -101,10 +117,8 @@ def mac_gate(node_idx: torch.Tensor, bc, bhw, rb, has,
     dm = space.min_image(d)
     R = torch.sqrt((dm * dm).sum(-1))
     ok = theta * R - (rb[..., None] + rc) > 0.0
-    fold = space.fold_margin(d, bhw[..., None, :] + chw)
     # free space gives a host scalar (+inf): a Python bool, no upload
-    fold_ok = fold > 0.0 if isinstance(fold, torch.Tensor) \
-        else bool(fold > 0.0)
+    fold_ok = space.fold_margin(d, bhw[..., None, :] + chw) > 0.0
     return ok & fold_ok & has[..., None] & (node_idx >= 0)
 
 
@@ -134,13 +148,25 @@ def refreshed_slacks(approx_idx: torch.Tensor, approx_skin: torch.Tensor,
     theta_slack = torch.where(valid, t_margin, inf).amin()
     fold = space.fold_margin(d, bhw[..., None, :] + chw)
     if not isinstance(fold, torch.Tensor):   # free space: +inf, no upload
-        fold = torch.full_like(t_margin, float(fold))
+        fold = torch.full_like(t_margin, fold)
     return theta_slack, torch.where(valid, fold, inf).amin()
 
 
 # ---------------------------------------------------------------------------
 # batch-cluster evaluation (Eq. 9 / Eq. 11)
 # ---------------------------------------------------------------------------
+
+
+def _empty(shape, like: torch.Tensor) -> torch.Tensor:
+    """The meta backend's output: `shape` on the meta device."""
+    return torch.empty(shape, dtype=like.dtype, device="meta")
+
+
+def _checked(out: torch.Tensor, op: str) -> torch.Tensor:
+    """`out`, checked for NaN and infinity under REPRO_DEBUG_NANS."""
+    if _rt.DEBUG_NANS:
+        _rt.check_finite(out, op)
+    return out
 
 
 def _packed(kernel: Kernel, params, idx, tgt) -> torch.Tensor:
@@ -171,19 +197,24 @@ def batch_cluster_eval(
     With counts, only the first `src_count[c]` points of a cluster are
     summed and phi is 0 on target slots at or beyond `tgt_count[b]` (the
     count contract of `kernels/batch_cluster.py`)."""
-    if resolve_backend(backend, tgt) == "cuda":
+    be = resolve_backend(backend, tgt)
+    if be == "meta":
+        return _empty(tgt.shape[:-1], tgt)
+    if be == "cuda":
         par = _packed(kernel, params, idx, tgt)
         counts = [None if c is None else c.to(torch.int32).contiguous()
                   for c in (tgt_count, src_count)]
-        return _bc.batch_cluster_eval_cuda(
+        out = _bc.batch_cluster_eval_cuda(
             idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
             src_pts.contiguous(), src_q.contiguous(), kernel=kernel,
             space=space, kahan=kahan, r2_mode=r2_mode, tgt_count=counts[0],
             src_count=counts[1])
-    return _bc.batch_cluster_eval_plain(
-        idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
-        kahan=kahan, r2_mode=r2_mode, tgt_count=tgt_count,
-        src_count=src_count)
+    else:
+        out = _bc.batch_cluster_eval_plain(
+            idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
+            kahan=kahan, r2_mode=r2_mode, tgt_count=tgt_count,
+            src_count=src_count)
+    return _checked(out, "batch_cluster_eval")
 
 
 def batch_cluster_field(
@@ -207,19 +238,24 @@ def batch_cluster_field(
     The CUDA field kernel always takes the difference form of r^2 (the
     gradient needs the displacement); the plain version follows
     `r2_mode` like the potential, so the two differ by rounding only."""
-    if resolve_backend(backend, tgt) == "cuda":
+    be = resolve_backend(backend, tgt)
+    if be == "meta":
+        return _empty(tgt.shape[:-1] + (4,), tgt)
+    if be == "cuda":
         par = _packed(kernel, params, idx, tgt)
         counts = [None if c is None else c.to(torch.int32).contiguous()
                   for c in (tgt_count, src_count)]
-        return _bc.batch_cluster_field_cuda(
+        out = _bc.batch_cluster_field_cuda(
             idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
             src_pts.contiguous(), src_q.contiguous(), kernel=kernel,
             space=space, kahan=kahan, tgt_count=counts[0],
             src_count=counts[1])
-    return _bc.batch_cluster_field_plain(
-        idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
-        kahan=kahan, r2_mode=r2_mode, tgt_count=tgt_count,
-        src_count=src_count)
+    else:
+        out = _bc.batch_cluster_field_plain(
+            idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
+            kahan=kahan, r2_mode=r2_mode, tgt_count=tgt_count,
+            src_count=src_count)
+    return _checked(out, "batch_cluster_field")
 
 
 def batch_cluster_field_grid(
@@ -240,17 +276,22 @@ def batch_cluster_field_grid(
     `_cluster_nodes`), taken in factored form: the approximation lane of
     the forces. The difference form of r^2 on both backends; every grid
     point is real, so there are target counts only."""
-    if resolve_backend(backend, tgt) == "cuda":
+    be = resolve_backend(backend, tgt)
+    if be == "meta":
+        return _empty(tgt.shape[:-1] + (4,), tgt)
+    if be == "cuda":
         par = _packed(kernel, params, idx, tgt)
         count = (None if tgt_count is None
                  else tgt_count.to(torch.int32).contiguous())
-        return _bc.batch_cluster_field_grid_cuda(
+        out = _bc.batch_cluster_field_grid_cuda(
             idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
             nodes.contiguous(), q_hat.contiguous(), kernel=kernel,
             space=space, kahan=kahan, tgt_count=count)
-    return _bc.batch_cluster_field_grid_plain(
-        idx, tgt, nodes, q_hat, params, kernel=kernel, space=space,
-        kahan=kahan, tgt_count=tgt_count)
+    else:
+        out = _bc.batch_cluster_field_grid_plain(
+            idx, tgt, nodes, q_hat, params, kernel=kernel, space=space,
+            kahan=kahan, tgt_count=tgt_count)
+    return _checked(out, "batch_cluster_field_grid")
 
 
 # ---------------------------------------------------------------------------
@@ -283,9 +324,11 @@ def modified_charges(
     nodes = _cluster_nodes(lo, hi, degree)
     w = cheby.bary_weights_1d(degree, pts.dtype, pts.device)
     if resolve_backend(backend, pts) == "cuda":
-        return _mc.modified_charges_cuda(
+        out = _mc.modified_charges_cuda(
             pts.contiguous(), q.contiguous(), nodes.contiguous(), w, degree)
-    return _mc.modified_charges_plain(pts, q, nodes, w, degree)
+    else:
+        out = _mc.modified_charges_plain(pts, q, nodes, w, degree)
+    return _checked(out, "modified_charges")
 
 
 def modified_charges_ranged(
@@ -306,16 +349,21 @@ def modified_charges_ranged(
     `mc_chunks` / `mc_chunk_ptr`); a node without chunks gets q_hat 0.
     With a leading systems axis on every input, (W, num_nodes, (n+1)^3)
     from one call (two launches on the card)."""
+    be = resolve_backend(backend, src_sorted)
+    if be == "meta":
+        return _empty(node_lo.shape[:-1] + ((degree + 1) ** 3,), src_sorted)
     nodes = _cluster_nodes(node_lo, node_hi, degree)
     w = cheby.bary_weights_1d(degree, src_sorted.dtype, src_sorted.device)
-    if resolve_backend(backend, src_sorted) == "cuda":
-        return _mc.modified_charges_ranged_cuda(
+    if be == "cuda":
+        out = _mc.modified_charges_ranged_cuda(
             src_sorted.contiguous(), q_sorted.contiguous(),
             chunks.to(torch.int32).contiguous(),
             chunk_ptr.to(torch.int32).contiguous(), nodes.contiguous(), w,
             degree)
-    return _mc.modified_charges_ranged_plain(
-        src_sorted, q_sorted, chunks, chunk_ptr, nodes, w, degree)
+    else:
+        out = _mc.modified_charges_ranged_plain(
+            src_sorted, q_sorted, chunks, chunk_ptr, nodes, w, degree)
+    return _checked(out, "modified_charges_ranged")
 
 
 def modified_charges_transpose_ranged(
@@ -340,10 +388,12 @@ def modified_charges_transpose_ranged(
     nodes = _cluster_nodes(node_lo, node_hi, degree)
     w = cheby.bary_weights_1d(degree, src_sorted.dtype, src_sorted.device)
     if resolve_backend(backend, src_sorted) == "cuda":
-        return _mc.modified_charges_transpose_ranged_cuda(
+        out = _mc.modified_charges_transpose_ranged_cuda(
             src_sorted.contiguous(), qhat_bar.contiguous(),
             chunks.to(torch.int32).contiguous(),
             chunk_level.to(torch.int32).contiguous(), num_levels,
             nodes.contiguous(), w, degree)
-    return _mc.modified_charges_transpose_ranged_plain(
-        src_sorted, qhat_bar, chunks, nodes, w, degree)
+    else:
+        out = _mc.modified_charges_transpose_ranged_plain(
+            src_sorted, qhat_bar, chunks, nodes, w, degree)
+    return _checked(out, "modified_charges_transpose_ranged")

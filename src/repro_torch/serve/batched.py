@@ -44,6 +44,7 @@ from repro_torch.core.potentials import Kernel
 from repro_torch.dynamics.integrators import (MDState, get_integrator,
                                               initial_state)
 from repro_torch.dynamics.refit import refit_single_arrays
+from repro_torch.lint import runtime as _rt
 
 
 def _member_need(inner: _eval.Plan) -> dict:
@@ -276,10 +277,12 @@ class EnsemblePlan:
             np_dtype = np.float64 if self.dtype == torch.float64 \
                 else np.float32
             slab = np.zeros((self.ensemble_width, ns), np_dtype)
-            for i, q in enumerate(charges):
-                slab[i, :len(q)] = _host(q, self.dtype) if isinstance(
-                    q, torch.Tensor) else np.asarray(q, np_dtype)
-            return torch.as_tensor(slab, device=self.device)
+            # host payloads go up as one sanctioned transfer
+            with _rt.explicit_sync("upload"):
+                for i, q in enumerate(charges):
+                    slab[i, :len(q)] = _host(q, self.dtype) if isinstance(
+                        q, torch.Tensor) else np.asarray(q, np_dtype)
+                return torch.as_tensor(slab, device=self.device)
         q = torch.as_tensor(charges, dtype=self.dtype, device=self.device)
         expect = (self.ensemble_width, ns)
         if tuple(q.shape) != expect:
@@ -301,9 +304,12 @@ class EnsemblePlan:
                     f"got {len(kernel_params)}")
             norm = [self.kernel.normalize_params(p) for p in kernel_params]
             norm += [norm[-1]] * (self.ensemble_width - len(norm))
-            return _stack_leaves(norm, self.dtype, self.device)
-        return _broadcast_leaves(self.kernel.normalize_params(kernel_params),
-                                 self.ensemble_width, self.dtype, self.device)
+            with _rt.explicit_sync("upload"):   # host values go up
+                return _stack_leaves(norm, self.dtype, self.device)
+        with _rt.explicit_sync("upload"):
+            return _broadcast_leaves(
+                self.kernel.normalize_params(kernel_params),
+                self.ensemble_width, self.dtype, self.device)
 
     def split(self, stacked: torch.Tensor) -> List[torch.Tensor]:
         """A stacked output (phi (width, nt) or forces (width, nt, 3))

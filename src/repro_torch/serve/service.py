@@ -41,6 +41,7 @@ import numpy as np
 
 from repro_torch.core import eval as _eval
 from repro_torch.core.api import TreecodeConfig, resolve_device
+from repro_torch.lint import runtime as _rt
 from repro_torch.obs import events as _events
 from repro_torch.obs import trace as _trace
 from repro_torch.serve.batched import EnsemblePlan
@@ -147,8 +148,7 @@ class ServeFrontend:
                  clock=time.monotonic, device=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        # NaN checking waits for the checking tools (ROADMAP queue A)
-        self.debug_nans = False
+        self.debug_nans = _rt.enable_debug_nans_if_requested()
         self.config = config
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
@@ -233,8 +233,10 @@ class ServeFrontend:
                            else self.clock() + self.flush_deadline)
 
         # the host tree build packs this batch's geometry and index
-        # tables and uploads them: the flush's upload site
-        with _trace.span("serve.plan_build"):
+        # tables and uploads them: the flush's upload site, a sanctioned
+        # transfer inside a caller's no_implicit_syncs()
+        with _trace.span("serve.plan_build"), \
+                _rt.explicit_sync("serve_plan_build"):
             plan = EnsemblePlan.build(
                 bucket.config, [r.points for r in batch],
                 capacities=bucket.capacities, ensemble_width=self.max_batch,
@@ -262,13 +264,14 @@ class ServeFrontend:
             if want_forces:
                 phi, F = plan.potential_and_forces(charges,
                                                    kernel_params=params)
-                F = F.cpu()
             else:
                 phi, F = plan.execute(charges, kernel_params=params), None
             # the flush's one wait for the device: the results go to the
             # waiting futures, and the latency recorded below includes
             # the device time
-            phi = phi.cpu()
+            with _rt.explicit_sync("serve_result"):
+                phi = phi.cpu()
+                F = F.cpu() if F is not None else None
         delta = _eval.ensemble_compile_count() - before
 
         self.flushes += 1

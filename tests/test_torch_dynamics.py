@@ -273,7 +273,7 @@ def test_langevin_thermalizes_toward_target():
     assert not torch.equal(other.state.x, first.state.x)
 
 
-def test_integrator_registry_and_bad_args():
+def test_integrator_registry_and_bad_args(monkeypatch):
     assert set(registered_integrators()) >= {
         "velocity_verlet", "leapfrog", "langevin"}
     assert "3.0" in get_integrator("langevin", friction=3.0).name
@@ -290,6 +290,7 @@ def test_integrator_registry_and_bad_args():
         _sim(x, q, async_replan=True)
     with pytest.raises(TypeError):
         make_adapter(object())
+    monkeypatch.delenv("REPRO_DEBUG_NANS", raising=False)
     sim = _sim(x, q)
     assert sim.debug_nans is False
     with pytest.raises(ValueError, match="checkpointer"):

@@ -17,7 +17,9 @@ MODULES = ["repro_torch.core.api", "repro_torch.core.eval",
            "repro_torch.devtree.lists", "repro_torch.serve",
            "repro_torch.launch.serve", "repro_torch.distributed",
            "repro_torch.distributed.rcb", "repro_torch.distributed.bltc",
-           "repro_torch.distributed.exchange"]
+           "repro_torch.distributed.exchange", "repro_torch.lint",
+           "repro_torch.lint.runtime", "repro_torch.lint.cli",
+           "repro_torch.obs.transfers", "repro_torch.launch.dryrun_bltc"]
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -13,7 +13,11 @@ and forces at 10^6), w (the four kernels' systems-axis cases of phases
 the service and the ensemble MD), 13a and 13b (the sharded plan at
 Fig. 4 beside the single plan, built here unless 4 ran first, and the
 sharded MD), 14 (the differentiable executor's backward on the Fig. 4
-plan, built here unless 4 ran first). A failing phase prints its traceback
+plan, built here unless 4 ran first), 15 (the checking tools: the lint,
+the sync guard, transfer counts, REPRO_DEBUG_NANS and the meta dry run;
+it reuses the plan, the MD, the device plan and the frontend of 4, 8, 10
+and 12c when they ran first, and builds them otherwise). A failing phase
+prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
 line compares the hierarchical q_hat with this run's direct one only
 (phase 4 runs here only when named). Prints the
@@ -60,10 +64,17 @@ def main() -> int:
         c.phase_forces(dev, main["plan"], x, q, smi)
 
     def phase_differentiable():
+        c.phase_differentiable(dev, smi, fig4_plan(), x, q)
+
+    def fig4_plan():
         if "plan" not in main:      # phase 4's plan, without its checks
             from repro_torch.core.api import TreecodeSolver
             main["plan"] = TreecodeSolver(c.fig4_config()).plan(x)
-        c.phase_differentiable(dev, smi, main["plan"], x, q)
+        return main["plan"]
+
+    def checking_tools():
+        c.phase_checking_tools(dev, smi, fig4_plan(), x, q, main.get("md"),
+                               main.get("dplan"), main.get("serve"))
 
     def systems_axis():
         for kind in ("batch_cluster", "field", "grid_field",
@@ -76,16 +87,17 @@ def main() -> int:
         "w": systems_axis,
         "12a": lambda: c.phase_serve_ensemble(dev, smi),
         "12b": lambda: c.phase_serve_kappa_scan(dev),
-        "12c": lambda: c.phase_serve_frontend(dev),
+        "12c": lambda: main.update(serve=c.phase_serve_frontend(dev)),
         "12d": lambda: c.phase_serve_md(dev),
-        "8": lambda: c.phase_md(dev),
+        "8": lambda: main.update(md=c.phase_md(dev)[3]),
         "8d": lambda: c.phase_md(dev, "[8d]", "device"),
         "8a": lambda: c.phase_md(dev, "[8a]", "device", async_replan=True),
-        "10": lambda: c.phase_device_plan(dev, smi, x, q),
+        "10": lambda: main.update(dplan=c.phase_device_plan(dev, smi, x, q)),
         "11": lambda: c.phase_hierarchical(dev, x, q, float("nan")),
         "13a": lambda: c.phase_sharded(dev, smi, x, q, main.get("plan")),
         "13b": lambda: c.phase_sharded_md(dev),
         "14": phase_differentiable,
+        "15": checking_tools,
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:
