@@ -149,7 +149,7 @@ Phases (each asserts; any failure exits non-zero):
     forward and the backward for the charges, the targets and both (CUDA
     events, median of 3) with the launches of each from 0 (a backward:
     batch_cluster 2 on the transposed lists, the transposed modified
-    charges 2, the field kernels 1 each and the modified charges 2 for
+    charges 1, the field kernels 1 each and the modified charges 2 for
     the targets); phi bitwise `execute`'s, the target cotangent bitwise
     u g of `potential_and_gradient`, the adjoint identity |<u, phi> -
     <qbar, q>| / (|u| |phi|) <= 1e-5; each transposed batch-cluster lane
@@ -158,9 +158,10 @@ Phases (each asserts; any failure exits non-zero):
     sum |G u| per entry), its S_T, time and bound; the transposed
     modified-charge kernel on the whole plan against its plain version
     (MCT_K times its sum of magnitudes per entry), bitwise equal calls,
-    its time and bound; at DIFF_F64_N in f64 the adjoint identity
-    (1e-12) and the CUDA backward against the "torch" backend's (rtol
-    1e-10, atol 1e-12 max|want|);
+    its time and bound, the profiler split of one call and of the tile
+    table's build, the kernel's registers and spills; at DIFF_F64_N in
+    f64 the adjoint identity (1e-12) and the CUDA backward against the
+    "torch" backend's (rtol 1e-10, atol 1e-12 max|want|);
  15. the checking tools: (15a) `python -m repro_torch.lint
     src/repro_torch` exits 0 (hot functions, findings, reasoned
     suppressions); (15b) under `lint.runtime.no_implicit_syncs()`
@@ -283,6 +284,83 @@ def event_ms(fn, reps: int):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profile_split(fn, reps, classify):
+    """Where one call of `fn()` spends its time, from a `torch.profiler`
+    trace of `reps` calls (each drained before the next; medians over
+    the calls, in ms): ``host`` the call's span on the host (enqueue of
+    every launch), ``first_op`` from the call's start on the host to its
+    first device operation, ``span`` from there to its last device
+    operation's end, ``busy`` the device operations' summed time,
+    ``gap`` span - busy (the device idle inside the call, waiting for the
+    host), ``total`` the call's start on the host to its last device
+    end, and ``ops`` {category: ms, launches}, where `classify(name,
+    cat)` names each device operation's category (kernels, memsets,
+    copies). Raises if the trace holds no device operation."""
+    import json
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    tag = "profile_split_call"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            with record_function(f"{tag}_{i}"):
+                fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    calls = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if str(e.get("name", "")).startswith(tag)
+                   and not str(e.get("cat", "")).startswith("gpu"))
+    dev_ops = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+               ("kernel", "gpu_memset", "gpu_memcpy")]
+    rows = []
+    for i, (s, e) in enumerate(calls):
+        nxt = calls[i + 1][0] if i + 1 < len(calls) else float("inf")
+        mine = [o for o in dev_ops if s <= o["ts"] < nxt]
+        if not mine:
+            continue
+        first = min(o["ts"] for o in mine)
+        last = max(o["ts"] + o.get("dur", 0) for o in mine)
+        ops = {}
+        for o in mine:
+            key = classify(o.get("name", ""), o.get("cat", ""))
+            if key is not None:
+                ms, n = ops.get(key, (0.0, 0))
+                ops[key] = (ms + o.get("dur", 0) / 1e3, n + 1)
+        busy = sum(o.get("dur", 0) for o in mine) / 1e3
+        rows.append(dict(host=(e - s) / 1e3, first_op=(first - s) / 1e3,
+                         span=(last - first) / 1e3, busy=busy,
+                         gap=(last - first) / 1e3 - busy,
+                         total=(last - s) / 1e3, ops=ops))
+    assert rows, "the profiler saw no device operation"
+    out = {k: statistics.median(r[k] for r in rows)
+           for k in ("host", "first_op", "span", "busy", "gap", "total")}
+    keys = sorted({k for r in rows for k in r["ops"]})
+    out["ops"] = {k: (statistics.median(r["ops"].get(k, (0.0, 0))[0]
+                                        for r in rows),
+                      max(r["ops"].get(k, (0.0, 0))[1] for r in rows))
+                  for k in keys}
+    out["calls"] = len(rows)
+    return out
+
+
+def split_text(sp):
+    """One line of `profile_split`'s result."""
+    ops = "; ".join(f"{k} {ms:.4f} ms ({n} op{'s' if n != 1 else ''})"
+                    for k, (ms, n) in sp["ops"].items())
+    return (f"host enqueue {sp['host']:.4f} ms, host start to first device "
+            f"op {sp['first_op']:.4f} ms, device span {sp['span']:.4f} ms "
+            f"= busy {sp['busy']:.4f} ms [{ops}] + idle gaps "
+            f"{sp['gap']:.4f} ms; host start to device end "
+            f"{sp['total']:.4f} ms (median of {sp['calls']} calls)")
 
 
 def close(got, want, rtol, atol, what, scale=None):
@@ -2254,7 +2332,6 @@ def phase_differentiable(dev, smi, plan, x, q):
     1e-12 max|want|). Returns the transposed kernel's report entry."""
     import numpy as np
     import torch
-    from repro_torch.core import cheby
     from repro_torch.core import eval as ev
     from repro_torch.core.api import TreecodeSolver
     from repro_torch.kernels import _build
@@ -2275,10 +2352,10 @@ def phase_differentiable(dev, smi, plan, x, q):
                      "grid_field", "modified_charges_transpose"),
                     launch_counts_all()))
     assert all(v > 0 for v in path.values()), path
-    assert per_back == (2, 2, 1, 1, 2), per_back
+    assert per_back == (2, 2, 1, 1, 1), per_back
     charge_only = diff_vjp(plan, q, u, targets=False)
     target_only = diff_vjp(plan, q, u, charges=False)
-    assert charge_only[2] == (2, 0, 0, 0, 2), charge_only[2]
+    assert charge_only[2] == (2, 0, 0, 0, 1), charge_only[2]
     assert target_only[2] == (0, 2, 1, 1, 0), target_only[2]
 
     # -- checks ---------------------------------------------------------
@@ -2368,21 +2445,23 @@ def phase_differentiable(dev, smi, plan, x, q):
     qhat_bar = ops.batch_cluster_eval(rows_t, grids, tgt, u_slots,
                                       backend="cuda", r2_mode=cfg.approx_r2,
                                       **kw, **cnt)
-    level, levels = ev._chunk_levels(a, a["mc_chunks"])
-    mct_args = (a["src_sorted"], qhat_bar, a["mc_chunks"], level,
-                a["node_lo"], a["node_hi"])
+    levels, n_src = len(a["bucket_nodes"]), a["src_sorted"].shape[0]
+
+    def table():
+        return mcm.tile_table(a["mc_chunks"], a["parent_of"], levels, n_src)
+
+    tiles, chain = table()
+    mct_args = (a["src_sorted"], qhat_bar, tiles, chain, a["node_lo"],
+                a["node_hi"])
     got = ops.modified_charges_transpose_ranged(
-        *mct_args, num_levels=levels, degree=degree, backend="cuda")
+        *mct_args, degree=degree, backend="cuda")
     assert torch.equal(got, ops.modified_charges_transpose_ranged(
-        *mct_args, num_levels=levels, degree=degree, backend="cuda")), \
+        *mct_args, degree=degree, backend="cuda")), \
         "the transposed modified charges are not deterministic"
     want, mct_plain_ms = timed(lambda: ops.modified_charges_transpose_ranged(
-        *mct_args, num_levels=levels, degree=degree, backend="torch"))
-    nodes = ops._cluster_nodes(a["node_lo"], a["node_hi"], degree)
-    w = cheby.bary_weights_1d(degree, torch.float32, dev)
+        *mct_args, degree=degree, backend="torch"))
     mag = mcm.modified_charges_transpose_ranged_plain(
-        a["src_sorted"], qhat_bar, a["mc_chunks"], nodes, w, degree,
-        magnitude=True)
+        *mct_args, degree, magnitude=True)
     k = MCT_K[4]
     err = (got - want).abs()
     assert torch.isfinite(got).all() and not (err > k * mag).any(), (
@@ -2391,19 +2470,50 @@ def phase_differentiable(dev, smi, plan, x, q):
     mct_err = err.max().item()
     mct_ratio = (err / mag)[mag > 0].max().item()
     mct_ms = event_ms(lambda: ops.modified_charges_transpose_ranged(
-        *mct_args, num_levels=levels, degree=degree, backend="cuda"), 20)
+        *mct_args, degree=degree, backend="cuda"), 20)
     mct_bound_ms, mct_side = mct_bound(plan, degree, 4)
+    table_ms = event_ms(table, 20)
+    kern_args = (*mct_args, degree)
+    burst = 20
+    _, burst_ms = timed(lambda: [
+        mcm.modified_charges_transpose_ranged_cuda(*kern_args)
+        for _ in range(burst)])
+    span = tiles[:, 1] - tiles[:, 0]
+    depth = (chain >= 0).sum(1)
+    real = int(((span > 0) & (depth > 0)).sum())
+    swept = int((span * depth).sum())
+
+    def mct_kind(name, cat):
+        if cat == "gpu_memset":
+            return "memset"
+        if "mct_tile_kernel" in name:
+            return "mct_tile_kernel"
+        return "node mapping" if cat == "kernel" else cat
+
+    split = profile_split(lambda: ops.modified_charges_transpose_ranged(
+        *mct_args, degree=degree, backend="cuda"), 10, mct_kind)
+    table_split = profile_split(
+        table, 10, lambda name, cat: "tile table" if cat == "kernel"
+        else cat)
+    print(f"[14] profiler split of one transposed modified-charge call: "
+          f"{split_text(split)}; of the tile table's build: "
+          f"{split_text(table_split)}", flush=True)
     regs = [v for key, v in ptxas_usage(
         _build.BUILD_LOG.get("modified_charges", "")).items()
-        if "mct_chunk_kernelIfLi9E" in key]
-    print(f"[14] transposed modified charges over {a['mc_chunks'].shape[0]} "
-          f"chunks and {levels} levels: {mct_ms:.3f} ms (plain "
-          f"{mct_plain_ms:.1f} ms), bound {mct_bound_ms:.4f} ms by "
-          f"{mct_side} ({smi}); against the plain version on all "
-          f"{got.numel()} particles max abs err {mct_err:.3e}, max err / "
-          f"sum|terms| {mct_ratio:.3e} (bar {k}); two calls bitwise equal; "
-          f"f32 n+1=9 kernel (registers, spill store bytes, spill load "
-          f"bytes) {regs[0] if regs else 'not in the build log'}",
+        if "mct_tile_kernelIfLi9E" in key]
+    print(f"[14] transposed modified charges over {tiles.shape[0]} tiles "
+          f"({real} with particles and nodes; {mcm.TILE} particles at most) "
+          f"and {levels} levels, {swept} particle-levels swept: "
+          f"{mct_ms:.3f} ms a call (CUDA events, median of 20), the kernel "
+          f"alone {burst_ms / burst:.4f} ms a launch ({burst} launches back "
+          f"to back), the plain version {mct_plain_ms:.1f} ms, bound "
+          f"{mct_bound_ms:.4f} ms by {mct_side} ({smi}); the tile table's "
+          f"build (once per plan) {table_ms:.3f} ms; the charge "
+          f"backward {back_ms['charges']:.3f} ms; against the plain version "
+          f"on all {got.numel()} particles max abs err {mct_err:.3e}, max "
+          f"err / sum|terms| {mct_ratio:.3e} (bar {k}); two calls bitwise "
+          f"equal; f32 n+1=9 kernel (registers, spill store bytes, spill "
+          f"load bytes) {regs[0] if regs else 'not in the build log'}",
           flush=True)
 
     # -- f64 at DIFF_F64_N: the identity, and CUDA against "torch" --------

@@ -54,7 +54,7 @@ from repro_torch.core.potentials import Kernel
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.core.tree import Batches, Tree, build_batches, build_tree
 from repro_torch.kernels import ops
-from repro_torch.kernels.modified_charges import chunk_table
+from repro_torch.kernels.modified_charges import chunk_table, tile_table
 from repro_torch.kernels.ops import take as _take
 from repro_torch.lint import runtime as _rt
 from repro_torch.obs import events as _events
@@ -739,26 +739,16 @@ def _to_slots(v: torch.Tensor, arrays: dict) -> torch.Tensor:
         mask.shape + v.shape[1:])
 
 
-def _chunk_levels(arrays: dict, chunks: torch.Tensor):
-    """((K,) int32 tree level of each chunk's node, number of levels), from
-    the per-level buckets: the nodes of one level hold disjoint particles,
-    which the transposed modified-charge kernel's level partials need."""
-    nodes = arrays["bucket_nodes"]
-    level = torch.zeros(arrays["node_lo"].shape[0], dtype=torch.int32,
-                        device=chunks.device)
-    for lvl, ids in enumerate(nodes):    # the scratch row may repeat: no chunk
-        level[ids.long()] = lvl
-    return level[chunks[:, 0].long()], len(nodes)
-
-
 def _qhat_bar_direct(arrays, qhat_bar, *, degree, backend):
-    """The transpose of `compute_qhat_direct`: (N,) in tree order."""
-    chunks = arrays["mc_chunks"]
-    level, num_levels = _chunk_levels(arrays, chunks)
+    """The transpose of `compute_qhat_direct`: (N,) in tree order. The
+    tiles of the leaves' chunks, each with its chain of nodes over the
+    plan's levels (`tile_table`, built on the device)."""
+    src = arrays["src_sorted"]
+    tiles, chain = tile_table(arrays["mc_chunks"], arrays["parent_of"],
+                              len(arrays["bucket_nodes"]), src.shape[0])
     return ops.modified_charges_transpose_ranged(
-        arrays["src_sorted"], qhat_bar, chunks, level, arrays["node_lo"],
-        arrays["node_hi"], num_levels=num_levels, degree=degree,
-        backend=backend)
+        src, qhat_bar, tiles, chain, arrays["node_lo"], arrays["node_hi"],
+        degree=degree, backend=backend)
 
 
 def _qhat_bar_hierarchical(arrays, qhat_bar, *, degree, backend):
@@ -768,8 +758,8 @@ def _qhat_bar_hierarchical(arrays, qhat_bar, *, degree, backend):
     restriction's transpose of its parent's (final by then). Children are
     unique within a level, so each row is written once (padded pairs name
     the scratch node, whose cotangent is 0). Then the leaves' modified
-    charges transposed over the leaf chunk table, whose nodes (leaves) are
-    disjoint: one level."""
+    charges transposed over the tiles of the leaf chunk table, each with
+    a chain of one node (its leaf)."""
     lo, hi = arrays["node_lo"], arrays["node_hi"]
     n1 = degree + 1
     qb = qhat_bar.clone()
@@ -780,10 +770,11 @@ def _qhat_bar_hierarchical(arrays, qhat_bar, *, degree, backend):
         down = torch.einsum("pxa,pyb,pzc,pabc->pxyz", rows[0], rows[1],
                             rows[2], pb)
         qb[children] = qb[children] + down.reshape(-1, n1 ** 3)
-    chunks = arrays["mc_leaf_chunks"]
+    src = arrays["src_sorted"]
+    tiles, chain = tile_table(arrays["mc_leaf_chunks"], arrays["parent_of"],
+                              1, src.shape[0])
     return ops.modified_charges_transpose_ranged(
-        arrays["src_sorted"], qb, chunks, torch.zeros_like(chunks[:, 0]),
-        lo, hi, num_levels=1, degree=degree, backend=backend)
+        src, qb, tiles, chain, lo, hi, degree=degree, backend=backend)
 
 
 _QHAT_BAR = {"direct": _qhat_bar_direct,

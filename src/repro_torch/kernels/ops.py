@@ -369,31 +369,27 @@ def modified_charges_ranged(
 def modified_charges_transpose_ranged(
     src_sorted: torch.Tensor,  # (N, 3) tree-ordered particles
     qhat_bar: torch.Tensor,    # (num_nodes, (n+1)^3) cotangent of q_hat
-    chunks: torch.Tensor,      # (K, 3) int32 rows (node, begin, end)
-    chunk_level: torch.Tensor,  # (K,) int32, disjoint chunks per level
+    tiles: torch.Tensor,       # (S, 2) int32 particle ranges [begin, end)
+    chain: torch.Tensor,       # (S, L) int32 nodes per tile, root first
     node_lo: torch.Tensor,     # (num_nodes, 3)
     node_hi: torch.Tensor,     # (num_nodes, 3)
     *,
-    num_levels: int,
     degree: int,
     backend: str = "auto",
 ) -> torch.Tensor:
-    """qbar (N,): the transpose of `modified_charges_ranged` over the same
-    chunk table (without its pointer), applied to `qhat_bar`. One system.
-
-    The CUDA kernel adds a particle's chunks through per-level partials,
-    so it takes each chunk's level (`chunk_level`, below `num_levels`;
-    chunks of one level must hold disjoint particles); the plain version
-    adds them directly and ignores the levels."""
-    nodes = _cluster_nodes(node_lo, node_hi, degree)
-    w = cheby.bary_weights_1d(degree, src_sorted.dtype, src_sorted.device)
+    """qbar (N,): the transpose of `modified_charges_ranged` applied to
+    `qhat_bar`, over the work table of `modified_charges.tile_table`
+    (each tile's particles take the contraction with every node of its
+    chain, in chain order), on the nodes `_cluster_nodes` maps from the
+    boxes (the kernel maps them itself, bitwise the same). One system;
+    one launch on the card."""
     if resolve_backend(backend, src_sorted) == "cuda":
         out = _mc.modified_charges_transpose_ranged_cuda(
             src_sorted.contiguous(), qhat_bar.contiguous(),
-            chunks.to(torch.int32).contiguous(),
-            chunk_level.to(torch.int32).contiguous(), num_levels,
-            nodes.contiguous(), w, degree)
+            tiles.to(torch.int32).contiguous(),
+            chain.to(torch.int32).contiguous(), node_lo.contiguous(),
+            node_hi.contiguous(), degree)
     else:
         out = _mc.modified_charges_transpose_ranged_plain(
-            src_sorted, qhat_bar, chunks, nodes, w, degree)
+            src_sorted, qhat_bar, tiles, chain, node_lo, node_hi, degree)
     return _checked(out, "modified_charges_transpose_ranged")
