@@ -26,7 +26,10 @@ Phases (each asserts; any failure exits non-zero):
     the others), two launches a call and bitwise equal calls; f32 rtol
     3e-3 / atol 3e-4, f64 rtol 1e-10 / atol 1e-12 times max|q_hat|
     (signed sums over up to 4096 particles; the ranged atol is relative
-    to max|q_hat| in f32 too: its sums run over 12,000 particles);
+    to max|q_hat| in f32 too: its sums run over 12,000 particles); and
+    nodes flat in one, two and three dimensions (lo == hi: every particle
+    hits all n+1 coincident nodes), each node's q_hat summing to its
+    charge (1e-4 f32, 1e-11 f64 of sum|q|);
  4. the main path: the paper's Fig. 4 setting (theta 0.7, degree 8,
     N_L = N_B = 2000, Coulomb, f32) at N = 10^6 uniform in [-1,1]^3
     with charges uniform in [-1,1]. Plan, one cold and 7 warm
@@ -42,6 +45,11 @@ Phases (each asserts; any failure exits non-zero):
     batch-cluster lane, the pairs its launch geometry sweeps beside the
     pairs the data needs, the tiles it launches beside those with a
     target, and the SM clock and power nvidia-smi reads while it runs;
+ 4s. the Fig. 4 setting on a sheet: SHEET_N points uniform in [-1,1]^2 at
+    z = 0, every node flat in z: execute (1e-5) and forces (FORCE_BAR)
+    against an f64 direct sum on 1000 sampled targets, through the host
+    and the device build and the hierarchical precompute; the modified
+    charges against their plain version on every node;
  5. a Yukawa sweep (kappa 0.5, then 1.0) on the same geometry with
     the kappas as device tensors: no rebuild, and no host sync
     (torch.cuda.set_sync_debug_mode("error") around the calls);
@@ -181,12 +189,32 @@ Phases (each asserts; any failure exits non-zero):
     dry run of the sharded plan's execute and potential_and_forces for
     one rank of 256 and 2 x 256 ranks of 262,144 points; and phase 4's
     execute and the unguarded refit step medians beside PR 18's;
+ 16. LM serving (`repro_torch.models`, plain PyTorch: no kernel): (16a)
+    every arch of `configs.registry` at its SMOKE config in f32, its
+    parameters materialized on the CPU and carried to the card, prefill
+    of 16 tokens and 4 decode steps on the card against the same port on
+    the CPU (relative 2-norm <= 1e-4), the MoE archs choosing the same
+    experts; (16b) gemma-7b at its FULL config in bf16, materialized on
+    the card: 4 requests of 512 prompt tokens and 32 greedy decode steps
+    under `lint.runtime.no_implicit_syncs()` (0 implicit syncs), each
+    step's logits against one full forward over the prompt and the
+    generated tokens (relative 2-norm <= 3e-2, greedy tokens equal in
+    >= 90% of the 128 steps); prefill ms, decode ms a token, tokens a
+    second and peak memory beside the card's name and power limit;
+    (16c) granite-moe-1b, mamba2-1.3b, zamba2-1.2b, whisper-small and
+    llava-next-mistral-7b at FULL in bf16 the same way (FULL_SERVE), and
+    in f32 on one request: the f32 decode against its full forward
+    (F32_REL), the bf16 one within max(3e-2, twice the bf16 forward's
+    error against f32), the greedy share printed; the MoE experts and its capacity dispatch at
+    real sizes; llava's 8448-position prefill through the KV-chunked
+    attention against the dense one;
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -1031,7 +1059,82 @@ def phase_modified_charges(dev):
           f"max abs err f32 {worst[torch.float32]:.3e} (rtol 3e-3 atol 3e-4"
           f"; ranged: times max|q_hat|), f64 {worst[torch.float64]:.3e} "
           f"(rtol 1e-10, atol 1e-12 max|q_hat|)", flush=True)
+    # nodes flat in 1, 2 and 3 dimensions (lo == hi there: every particle
+    # hits all n+1 coincident nodes, whose count is the denominator)
+    n, worst, sum_err = 0, {torch.float32: 0.0, torch.float64: 0.0}, 0.0
+    for dtype in (torch.float32, torch.float64):
+        rtol, atol = (3e-3, 3e-4) if dtype == torch.float32 else (1e-10, 1e-12)
+        for degree in (1, 4, 8, 14):
+            for flat in FLAT_DIMS:
+                *args, charges = flat_node_case(rng, dtype, degree, flat, dev)
+                got = ops.modified_charges_ranged(*args, degree=degree,
+                                                  backend="cuda")
+                want = ops.modified_charges_ranged(*args, degree=degree,
+                                                   backend="torch")
+                worst[dtype] = max(worst[dtype], close(
+                    got, want, rtol, atol, f"modified_charges flat {flat} "
+                    f"{dtype} degree={degree}", scale="max"))
+                scale = args[1].abs().sum().item()
+                e = (got.sum(1) - charges).abs().max().item() / scale
+                tol = 1e-4 if dtype == torch.float32 else 1e-11
+                assert e <= tol, (f"flat {flat} {dtype} degree={degree}: "
+                                  f"q_hat sums off the node charges by {e}")
+                sum_err = max(sum_err, e)
+                n += 1
+    torch.cuda.synchronize()
+    print(f"[3] modified_charges on flat nodes (flat in {FLAT_DIMS}, counts "
+          f"1, 37, 300, {mcm.CHUNK + 3} and their parent): {n} cases ok "
+          f"against the plain version, max abs err f32 "
+          f"{worst[torch.float32]:.3e}, f64 {worst[torch.float64]:.3e} (the "
+          f"tolerances above, times max|q_hat|); each node's q_hat sums to "
+          f"its charge within {sum_err:.3e} of sum|q| (bars 1e-4 f32, 1e-11 "
+          f"f64)", flush=True)
     print_systems_axis("[3]", "modified_charges", dev)
+
+
+#: A node's flat dimensions in phase 3's flat cases: a sheet, a line, a
+#: point (the tests' `tests/test_torch_flat_nodes.py` cases).
+FLAT_DIMS = ((2,), (1, 2), (0, 1, 2))
+
+
+def flat_node_case(rng, dtype, degree, flat, dev):
+    """Nodes whose particles share their coordinates in the dimensions
+    `flat` (all on one plane, line or point there, so their parent, the
+    last node, is flat too): counts 1, 37, 300 and past a chunk, some
+    particles ON a Chebyshev node in the other dimensions. Returns the
+    arguments of `ops.modified_charges_ranged` and each node's charge."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cheby
+    from repro_torch.kernels import modified_charges as mcm
+
+    def dev_t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    counts = [1, 37, 300, mcm.CHUNK + 3]
+    plane = dev_t(rng.uniform(-1, 1, 3))
+    parts = []
+    for c in counts:
+        x = dev_t(rng.uniform(-1, 0, 3)) + dev_t(rng.uniform(0, 1, (c, 3)))
+        for d in flat:
+            x[:, d] = plane[d]
+        grid = cheby.cluster_grid(x.amin(0, keepdim=True),
+                                  x.amax(0, keepdim=True), degree)[0]
+        k = min(c // 3, grid.shape[0])
+        x[:k] = grid[:k]                          # exact hits
+        parts.append(x)
+    pts = torch.cat(parts)
+    n = pts.shape[0]
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    bounds = [(int(b), int(b) + c) for b, c in zip(start, counts)] + [(0, n)]
+    lo = torch.stack([pts[b:e].amin(0) for b, e in bounds])
+    hi = torch.stack([pts[b:e].amax(0) for b, e in bounds])
+    assert all(bool((lo[:, d] == hi[:, d]).all()) for d in flat)
+    q = dev_t(rng.uniform(-1, 1, n))
+    chunks, ptr = mcm.chunk_table(np.append(start, 0), counts + [n])
+    charges = torch.stack([q[b:e].sum() for b, e in bounds])
+    return (pts, q, torch.as_tensor(chunks, device=dev),
+            torch.as_tensor(ptr, device=dev), lo, hi, charges)
 
 
 def print_systems_axis(tag, kind, dev):
@@ -1635,6 +1738,83 @@ def field_rows_close(got, want, mag, real, what):
     atol = GRAD_K[got.element_size()] * mag[:, 1:]
     return err, ratio, (f"median {atol.median().item():.3e}, max "
                         f"{atol.max().item():.3e}")
+
+
+SHEET_N = 200_000
+
+
+def phase_sheet(dev, smi):
+    """Phase 4's Fig. 4 setting on a sheet: SHEET_N points uniform in
+    [-1,1]^2 at z = 0 (a flat plate), charges uniform in [-1,1], uncut.
+    Every node is flat in z, so all n+1 Chebyshev nodes of z coincide and
+    each particle hits them all. `execute` within 1e-5 and forces within
+    FORCE_BAR of an f64 direct sum on 1000 sampled targets, through the
+    host-built and the device-built plan and the hierarchical precompute
+    (host build); the modified-charge kernel against its plain version on
+    every node. (`tools/mc_parent_check.py` runs the kernel as it was
+    before the repair on this sheet.)"""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.core import eval as ev
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.core.direct import direct_field, direct_sum
+    from repro_torch.kernels import ops
+
+    n = SHEET_N
+    cfg = fig4_config()
+    rng = np.random.default_rng(2022)
+    x = np.zeros((n, 3), np.float32)
+    x[:, :2] = rng.uniform(-1, 1, (n, 2))
+    q = torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32), device=dev)
+    sample = torch.as_tensor(rng.choice(n, 1000, replace=False), device=dev)
+    x64 = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    out, ref, fref = [], None, None
+    for build, pre in (("host", "direct"), ("device", "direct"),
+                       ("host", "hierarchical")):
+        solver = TreecodeSolver(dc.replace(cfg, build_backend=build,
+                                           precompute=pre))
+        plan = solver.plan(x)
+        a = plan.arrays
+        phi = plan.execute(q)
+        ms = event_ms(lambda: plan.execute(q), 5)
+        phi_f, force = plan.potential_and_forces(q)
+        if ref is None:
+            ref = direct_sum(x64[sample], x64, q.double(),
+                             kernel=solver.kernel, source_chunk=1 << 15)
+            _, grad = direct_field(x64[sample], x64, q.double(),
+                                   kernel=solver.kernel, source_chunk=1 << 14)
+            fref = -q.double()[sample, None] * grad
+        err, ferr = rel2(phi[sample].double(), ref), rel2(
+            force[sample].double(), fref)
+        assert torch.isfinite(phi).all() and torch.isfinite(force).all()
+        assert err <= 1e-5, (build, pre, err)
+        assert ferr <= FORCE_BAR, (build, pre, ferr)
+        approx = a["approx_idx"]
+        swept = torch.unique(approx[approx >= 0])
+        lo, hi = a["node_lo"], a["node_hi"]
+        flat = (lo == hi).sum(1)                      # flat dimensions
+        assert swept.numel() > 0 and bool((flat[swept] >= 1).all())
+        inp = ev.kernel_inputs(a, q, degree=cfg.degree)
+        mc_args = (a["src_sorted"], inp.q_sorted, a["mc_chunks"],
+                   a["mc_chunk_ptr"], lo, hi)
+        mc_err = close(ops.modified_charges_ranged(
+            *mc_args, degree=cfg.degree, backend="cuda"),
+            ops.modified_charges_ranged(
+                *mc_args, degree=cfg.degree, backend="torch"), 3e-3, 3e-4,
+            f"[4s] {build}: modified_charges on every node", scale="max")
+        torch.cuda.synchronize()
+        out.append(f"{build} build, {pre} precompute: execute {ms:.3f} ms "
+                   f"(median of 5), phi error {err:.3e} (bar 1e-5), forces "
+                   f"{ferr:.3e} (bar {FORCE_BAR}); {swept.numel()} "
+                   f"approximation-lane nodes of {lo.shape[0]}, flat in "
+                   f"{int(flat[swept].min())}-{int(flat[swept].max())} "
+                   f"dimensions; modified_charges vs plain max abs err "
+                   f"{mc_err:.3e}")
+        del plan, phi, phi_f, force
+    print(f"[4s] sheet N={n} at z = 0, theta {cfg.theta}, degree "
+          f"{cfg.degree}, N_L = N_B = {cfg.leaf_size} ({smi}): "
+          + "; ".join(out), flush=True)
 
 
 def plan_lanes(plan, q):
@@ -3742,6 +3922,487 @@ def phase_checking_tools(dev, smi, plan, x, q, md_sim=None, dplan=None,
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+LM_PROMPT, LM_STEPS = 16, 4          # 16a: each arch at its SMOKE config
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_STEPS = 4, 512, 32   # 16b
+FULL_REL, FULL_AGREE = 3e-2, 0.9
+F32_REL = 1e-3           # 16c: decode against full forward in f32
+
+
+class _Forward:
+    """A module whose named attributes are replaced."""
+
+    def __init__(self, real, **over):
+        self._real = real
+        self.__dict__.update(over)
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """The (expert indices (G, Sg, K), dispatch (G, Sg, E, C)) of every
+    `moe.moe_apply` call in the block, in call order, into the list
+    yielded: its `top_k` and dispatch einsum wrapped for the block."""
+    import torch
+    from repro_torch.models import moe
+    routes, last = [], []
+    real_top_k = moe.top_k
+
+    def top_k(probs, k):
+        out = real_top_k(probs, k)
+        last[:] = [out[1]]
+        return out
+
+    def einsum(spec, *ops):
+        if spec == "gsec,gsd->egcd":
+            routes.append((last[0], ops[0]))
+        return torch.einsum(spec, *ops)
+
+    moe.top_k, moe.torch = top_k, _Forward(torch, einsum=einsum)
+    try:
+        yield routes
+    finally:
+        moe.top_k, moe.torch = real_top_k, torch
+
+
+def lm_batch(cfg, rng, n_tokens, dev):
+    """Random tokens (int32) and the stub frames / patches of a family."""
+    import torch
+    b = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (2, n_tokens)).astype("int32"), device=dev)}
+    if cfg.family == "encdec":
+        b["frames"] = torch.as_tensor(rng.standard_normal(
+            (2, cfg.src_seq, cfg.d_model)).astype("float32"), device=dev)
+    if cfg.family == "vlm":
+        b["patches"] = torch.as_tensor(rng.standard_normal(
+            (2, cfg.n_patches, cfg.vision_dim)).astype("float32"), device=dev)
+    return b
+
+
+def lm_serve(model, params, batch, dev):
+    """Prefill LM_PROMPT tokens into a cache of LM_PROMPT + LM_STEPS (+
+    n_patches), then LM_STEPS decode steps: [prefill logits, step
+    logits...] and the MoE routes of every call."""
+    cfg = model.cfg
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
+    with moe_routes() as routes:
+        logits, cache = model.prefill(
+            params, dict(batch, tokens=batch["tokens"][:, :LM_PROMPT]),
+            cache_len=LM_PROMPT + LM_STEPS + extra, device=dev)
+        out = [logits]
+        for i in range(LM_PROMPT, LM_PROMPT + LM_STEPS):
+            logits, cache = model.decode(params, {
+                "tokens": batch["tokens"][:, i:i + 1], "cache": cache})
+            out.append(logits)
+    return out, [picks for picks, _ in routes]
+
+
+def phase_lm_smoke(dev):
+    """16a: every LM arch at its SMOKE config in f32 (TF32 off): the
+    parameters materialized on the CPU from a seed and carried to the
+    card; prefill and decode on the card against the same port on the
+    CPU (relative 2-norm <= 1e-4 on the prefill and every step's logits),
+    the MoE archs routing every token to the same experts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.models.api import Model
+    from repro_torch.models.layers import materialize, tree_map
+
+    worst, lines = 0.0, []
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_config(arch, smoke=True)
+        model = Model(cfg)
+        cpu_params = materialize(model.decls(), i, device="cpu")
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        batch = lm_batch(cfg, np.random.default_rng(100 + i),
+                         LM_PROMPT + LM_STEPS, "cpu")
+        want, want_routes = lm_serve(model, cpu_params, batch, "cpu")
+        got, routes = lm_serve(model, params, tree_map(
+            lambda t: t.to(dev), batch), dev)
+        errs = [rel2(g.double().cpu(), w.double()) for g, w in zip(got, want)]
+        assert all(np.isfinite(errs)) and max(errs) <= 1e-4, (arch, errs)
+        assert len(routes) == len(want_routes)
+        for r, w in zip(routes, want_routes):
+            assert torch.equal(r.cpu(), w), f"{arch}: experts differ"
+        worst = max(worst, max(errs))
+        lines.append(f"{arch} {max(errs):.2e}" + (
+            f" ({len(routes)} routings equal)" if routes else ""))
+    torch.cuda.synchronize()
+    print(f"[16a] LM archs at SMOKE, f32: prefill {LM_PROMPT} + {LM_STEPS} "
+          f"decode steps on the card against the port on the CPU, max "
+          f"relative 2-norm per arch (bar 1e-4): " + "; ".join(lines),
+          flush=True)
+    return worst
+
+
+def phase_lm_full(dev, smi):
+    """16b: gemma-7b at its FULL config (28 layers, d_model 3072, 16 heads
+    of 256, d_ff 24576, vocab 256000, bf16), materialized on the card from
+    a CUDA generator. Serves GEMMA_BATCH requests: prompts of GEMMA_PROMPT
+    random tokens into a cache of GEMMA_PROMPT + GEMMA_STEPS, then
+    GEMMA_STEPS greedy decode steps under `no_implicit_syncs()`; each
+    step's logits against one full forward over the prompt and the
+    generated tokens (the reference's invariant, relative 2-norm <=
+    FULL_REL) and the greedy tokens equal in at least FULL_AGREE of the
+    steps. CUDA events time the prefill and each step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.api import Model
+    from repro_torch.models.layers import materialize, param_count
+
+    cfg = get_config("gemma-7b")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = materialize(model.decls(), 7, device=dev)
+    torch.cuda.synchronize()
+    mat_s = time.perf_counter() - t0
+    b, s, steps = GEMMA_BATCH, GEMMA_PROMPT, GEMMA_STEPS
+    rng = np.random.default_rng(2026)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)).astype(
+        "int32"), device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    logits, cache = model.prefill(params, {"tokens": prompt},
+                                  cache_len=s + steps, device=dev)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    (pulls, warned), (toks, outs) = guarded(
+        lambda: lm_decode_steps(model, params, logits, cache, steps,
+                                marks=marks), out=True)
+    torch.cuda.synchronize()
+    assert not pulls and warned == 0, (pulls, warned)
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(steps)]
+    decode_ms = statistics.median(step_ms)
+    full, _, _ = tf.lm_apply(cfg, params, torch.cat([prompt] + toks, 1))
+    full = full[:, s:]                               # the decoded positions
+    dec = torch.cat(outs, 1)
+    errs = step_errs(dec, full)
+    agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+    assert torch.isfinite(dec).all() and max(errs) <= FULL_REL, errs
+    assert agree >= FULL_AGREE, agree
+    peak = torch.cuda.max_memory_allocated(dev)
+    # one more step at the prefill's position (its K/V rewritten), under
+    # the profiler: how much of a step the device works
+    split = profile_split(lambda: model.decode(
+        params, {"tokens": toks[0], "cache": cache}), 3,
+        lambda name, cat: "ops")
+    busy_ms, n_ops = split["ops"].get("ops", (0.0, 0))
+    print(f"[16b] gemma-7b FULL ({param_count(model.decls()) / 1e9:.3f}e9 "
+          f"parameters, bf16, materialized on the card in {mat_s:.1f} s) "
+          f"serving {b} requests of {s} prompt tokens + {steps} greedy "
+          f"decode steps ({smi}): prefill {prefill_ms:.3f} ms, decode "
+          f"{decode_ms:.3f} ms a token (median of {steps} steps of {b} "
+          f"tokens; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+          f"{b * 1e3 / decode_ms:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; decode logits against one full forward "
+          f"over the prompt and the generated tokens: relative 2-norm max "
+          f"{max(errs):.3e}, mean {statistics.mean(errs):.3e} (bar "
+          f"{FULL_REL}), greedy tokens equal in {agree:.4f} of "
+          f"{b * steps} (bar {FULL_AGREE}); implicit syncs in the decode "
+          f"loop: {warned} (explicit pulls {pulls or 0}); one step under "
+          f"the profiler (median of 3): host enqueue {split['host']:.3f} "
+          f"ms, device busy {busy_ms:.3f} ms in {n_ops} operations, idle "
+          f"{split['gap']:.3f} ms of a {split['span']:.3f} ms span (idle "
+          f"share {split['gap'] / split['span']:.3f})", flush=True)
+    READINGS["[16b] decode_ms"] = decode_ms
+    del params, cache, logits, full, dec, outs
+
+
+#: 16c: (arch, requests, prompt tokens, greedy decode steps) at FULL
+#: width and depth in bf16. granite's full forward holds 2 x 512 tokens:
+#: one dispatch group of its moe_group 1024. llava's one request is 2880
+#: patches + 5568 text tokens = 8448 > attn_dense_max 8192 positions: its
+#: prefill and full forward take the KV-chunked attention.
+FULL_SERVE = (("granite-moe-1b-a400m", 2, 480, 32),
+              ("mamba2-1.3b", 2, 512, 32),
+              ("zamba2-1.2b", 2, 512, 32),
+              ("whisper-small", 2, 256, 32),
+              ("llava-next-mistral-7b", 1, 5568, 32))
+
+
+def lm_full_forward(cfg, params, batch):
+    """The port's logits over all of `batch`'s tokens in one pass (for
+    the VLM, over the patches and then the tokens)."""
+    from repro_torch.models import llava as lv
+    from repro_torch.models import mamba2 as mb
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import whisper as wh
+    toks = batch["tokens"]
+    if cfg.family in ("dense", "moe"):
+        return tf.lm_apply(cfg, params, toks)[0]
+    if cfg.family == "ssm":
+        return mb.mamba_lm_apply(cfg, params, toks)[0]
+    if cfg.family == "hybrid":
+        return mb.zamba_apply(cfg, params, toks)[0]
+    if cfg.family == "encdec":
+        return wh.decode_stack(cfg, params, toks,
+                               wh.encode(cfg, params, batch["frames"]))[0]
+    return lv.llava_apply(cfg, params, toks, batch["patches"])[0]
+
+
+def expert_sets(picks, n_experts):
+    """(..., K) expert indices -> (..., E) 0/1 rows of the chosen set."""
+    import torch
+    return (picks[..., None] == torch.arange(
+        n_experts, device=picks.device)).any(-2).float()
+
+
+def dispatch_holds(dispatch, picks, cap, k):
+    """The capacity dispatch (G, Sg, E, C) of top-k choices (G, Sg, K):
+    each slot holds at most one token, each token at most k slots, and
+    each expert keeps min(assigned, C) tokens. Returns the kept share."""
+    assigned = expert_sets(picks, dispatch.shape[2]).sum(1)        # (G, E)
+    d = dispatch.float()
+    assert bool((d.sum(1) <= 1).all()), "a slot holds two tokens"
+    assert bool((d.sum((2, 3)) <= k).all()), "a token holds > k slots"
+    kept = d.sum((1, 3))
+    assert bool((kept == assigned.clamp(max=cap)).all()), "kept != min(n, C)"
+    return float(kept.sum() / assigned.sum())
+
+
+def lm_decode_steps(model, params, logits, cache, steps, forced=None,
+                    marks=None):
+    """`steps` decode steps after a prefill's `logits`: greedy, or fed
+    the tokens `forced` (one (B, 1) tensor a step). Returns the tokens
+    fed and each step's logits; `marks` (steps + 1 CUDA events) time
+    the steps."""
+    import torch
+    toks, outs = [], []
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    if marks:
+        marks[0].record()
+    for i in range(steps):
+        tok = tok if forced is None else forced[i]
+        toks.append(tok)
+        logits, cache = model.decode(params, {"tokens": tok, "cache": cache})
+        if marks:
+            marks[i + 1].record()
+        outs.append(logits)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    return toks, outs
+
+
+def step_errs(dec, full):
+    """Relative 2-norm of each decode step's logits against the full
+    forward's at the same positions (both (B, steps, V))."""
+    return [rel2(dec[:, i].float(), full[:, i].float())
+            for i in range(dec.shape[1])]
+
+
+def phase_lm_full_archs(dev, smi):
+    """16c: the archs of FULL_SERVE at FULL width and depth in bf16,
+    materialized on the card from a CUDA generator, serving their
+    requests: prefill (timed), greedy decode steps under
+    `no_implicit_syncs()` (each timed), each step's logits against one
+    full forward over the prompt and the generated tokens.
+
+    The same weights in f32 (TF32 off) then serve request 0 on the same
+    tokens: its decode steps against its full forward within F32_REL
+    (the cache path at the real shapes), and the bf16 full forward
+    against the f32 one: bf16's own error on this model. With random
+    weights the deep SSMs amplify a rounding (`tools/lm_bf16_noise.py`,
+    on a CPU: a 2^-9 change of mamba2's embedding moves its f32 logits
+    by 1.6e-2 at 8 layers and 6.3e-2 at 24), so the bf16 bar is the
+    larger of FULL_REL and twice that error. The share of greedy tokens
+    equal is printed, not held: two bf16 results pick different tokens
+    wherever the top two logits lie within their errors, which the
+    2-norm bar bounds, and random weights give many such near-ties.
+
+    The MoE arch serves at a capacity that drops no token (C = the
+    group: the cache path and the full forward group tokens
+    differently), its decode steps choosing the full forward's experts
+    in >= FULL_AGREE of the (token, layer, slot) choices; then one
+    prefill of the full forward's 2 x 512 tokens at its own capacity
+    factor (C = 320 of a group of 1024), whose dispatch keeps
+    min(assigned, C) tokens an expert, its first layer's choices equal
+    to the full forward's. llava's prefill (8448 positions) takes the
+    KV-chunked attention, held against the dense one on its first
+    request (relative 2-norm <= FULL_REL)."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers as ly
+    from repro_torch.models.api import Model
+    from repro_torch.models.layers import materialize, param_count, tree_map
+
+    print(f"[16c] FULL configs in bf16 on the card ({smi}), each step's "
+          f"logits against one full forward (bars: max({FULL_REL}, twice "
+          f"the bf16 forward's error against f32); f32 {F32_REL}):",
+          flush=True)
+    for seed, (arch, b, s, steps) in enumerate(FULL_SERVE):
+        cfg = get_config(arch)
+        own_capacity = cfg.capacity_factor
+        if cfg.n_experts:
+            cfg = dc.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        model = Model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = materialize(model.decls(), 20 + seed, device=dev)
+        rng = np.random.default_rng(3000 + seed)
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab, (b, s)).astype("int32"), device=dev)}
+        gen = torch.Generator(device=dev).manual_seed(4000 + seed)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(
+                (b, cfg.src_seq, cfg.d_model), generator=gen,
+                device=dev).to(cfg.adtype)
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn(
+                (b, cfg.n_patches, cfg.vision_dim), generator=gen,
+                device=dev).to(cfg.adtype)
+        extra = cfg.n_patches if cfg.family == "vlm" else 0
+        cache_len = extra + s + steps
+        chunked = [0]
+        real_chunked = ly._chunked_attention
+
+        def counted(*args):
+            chunked[0] += 1
+            return real_chunked(*args)
+
+        ly._chunked_attention = counted
+        try:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            logits, cache = model.prefill(params, batch, cache_len=cache_len,
+                                          device=dev)
+            end.record()
+            torch.cuda.synchronize()
+            prefill_ms, pre_chunked = start.elapsed_time(end), chunked[0]
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(steps + 1)]
+            with moe_routes() as dec_routes:
+                (pulls, warned), (toks, outs) = guarded(
+                    lambda: lm_decode_steps(model, params, logits, cache,
+                                            steps, marks=marks), out=True)
+            torch.cuda.synchronize()
+            assert not pulls and warned == 0, (arch, pulls, warned)
+            step_ms = [marks[i].elapsed_time(marks[i + 1])
+                       for i in range(steps)]
+            decode_ms = statistics.median(step_ms)
+            peak = torch.cuda.max_memory_allocated(dev)
+            whole = dict(batch, tokens=torch.cat([batch["tokens"]] + toks,
+                                                 1))
+            with moe_routes() as full_routes:
+                full = lm_full_forward(cfg, params, whole)[:, -steps:]
+            dec = torch.cat(outs, 1)
+            errs = step_errs(dec, full)
+            agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+            assert torch.isfinite(dec).all() and torch.isfinite(full).all()
+            line = (f"{arch} ({param_count(model.decls()) / 1e9:.3f}e9 "
+                    f"parameters) {b} x {s} prompt tokens"
+                    + (f" + {extra} patches" if extra else "")
+                    + f" + {steps} steps: prefill {prefill_ms:.3f} ms, "
+                    f"decode {decode_ms:.3f} ms a step (min "
+                    f"{min(step_ms):.3f}, max {max(step_ms):.3f}), "
+                    f"{b * 1e3 / decode_ms:.1f} tokens/s, peak "
+                    f"{peak / 2**30:.2f} GiB, implicit syncs {warned}; "
+                    f"decode vs full forward relative 2-norm max "
+                    f"{max(errs):.3e}, mean {statistics.mean(errs):.3e}, "
+                    f"greedy tokens equal in {agree:.4f} of {b * steps}")
+            if cfg.n_experts:
+                line += "; " + moe_full_checks(
+                    model, params, whole, dec_routes, full_routes, s, steps,
+                    own_capacity, dev)
+            if extra:
+                assert pre_chunked > 0, "llava's prefill was not chunked"
+                dense = Model(dc.replace(cfg, attn_dense_max=extra + s))
+                first = {k: v[:1] for k, v in batch.items()}
+                n0 = chunked[0]
+                want, _ = dense.prefill(params, first, cache_len=extra + s,
+                                        device=dev)
+                assert chunked[0] == n0, "the dense prefill was chunked"
+                err = rel2(logits[:1].float(), want.float())
+                assert err <= FULL_REL, ("chunked vs dense", err)
+                line += (f"; prefill over {extra + s} positions through "
+                         f"the KV-chunked attention ({pre_chunked} calls, "
+                         f"chunk {cfg.attn_chunk}) against the dense one on "
+                         f"request 0: relative 2-norm {err:.3e}")
+                del want
+            del cache, logits, outs
+            # the same weights in f32, request 0 on the same tokens
+            cfg32 = dc.replace(cfg, dtype="float32", param_dtype="float32")
+            model32 = Model(cfg32)
+            params32 = tree_map(lambda t: t.float(), params)
+            del params
+            first = {k: v[:1].float() if v.is_floating_point() else v[:1]
+                     for k, v in batch.items()}
+            lg32, cache32 = model32.prefill(params32, first,
+                                            cache_len=cache_len, device=dev)
+            _, outs32 = lm_decode_steps(model32, params32, lg32, cache32,
+                                        steps, forced=[t[:1] for t in toks])
+            del lg32, cache32
+            whole32 = dict(first, tokens=whole["tokens"][:1])
+            full32 = lm_full_forward(cfg32, params32, whole32)[:, -steps:]
+            errs32 = step_errs(torch.cat(outs32, 1), full32)
+            noise = step_errs(full[:1], full32)
+            agree32 = (full[:1].argmax(-1) == full32.argmax(-1)).float() \
+                .mean().item()
+            bar = max(FULL_REL, 2 * max(noise))
+            line += (f"; in f32 on request 0: decode vs full forward max "
+                     f"{max(errs32):.3e}; the bf16 full forward against the "
+                     f"f32 one max {max(noise):.3e}, mean "
+                     f"{statistics.mean(noise):.3e}, greedy tokens equal in "
+                     f"{agree32:.4f}")
+            print(f"    {line}", flush=True)
+            assert max(errs32) <= F32_REL, (arch, "f32", errs32)
+            assert max(errs) <= bar, (arch, [round(e, 4) for e in errs], bar)
+            del params32, outs32, full32, full, dec
+        finally:
+            ly._chunked_attention = real_chunked
+        del batch, whole
+    torch.cuda.empty_cache()
+
+
+def moe_full_checks(model, params, whole, dec_routes, full_routes, s, steps,
+                    capacity_factor, dev):
+    """16c's MoE checks (see `phase_lm_full_archs`) on the full forward's
+    tokens `whole`; returns their text."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.models.api import Model
+    from repro_torch.models.moe import _capacity
+    cfg = model.cfg
+    nl, e, k = cfg.n_layers, cfg.n_experts, cfg.top_k
+    b, t = whole["tokens"].shape
+    assert len(full_routes) == nl and len(dec_routes) == nl * steps
+    shares = []
+    for layer in range(nl):
+        fp = full_routes[layer][0].reshape(b, s + steps, k)[:, s:]
+        for i in range(steps):
+            dp = dec_routes[i * nl + layer][0].reshape(b, k)
+            both = expert_sets(dp, e) * expert_sets(fp[:, i], e)
+            shares.append(both.sum(-1) / k)
+    overlap = torch.cat(shares).mean().item()
+    assert overlap >= FULL_AGREE, ("experts", overlap)
+    real = Model(dc.replace(cfg, capacity_factor=capacity_factor))
+    with moe_routes() as routes:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out, _ = real.prefill(params, whole, cache_len=t, device=dev)
+        end.record()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(routes[0][0], full_routes[0][0]), "layer 0 picks"
+    group = min(real.cfg.moe_group, b * t)
+    cap = _capacity(real.cfg, group)
+    kept = [dispatch_holds(d, p, cap, k) for p, d in routes]
+    return (f"experts of the decode steps in the full forward's sets: "
+            f"{overlap:.4f} of {b * steps * nl * k} choices; prefill of "
+            f"{b} x {t} tokens at capacity factor {real.cfg.capacity_factor} (groups of "
+            f"{group}, C = {cap}) {start.elapsed_time(end):.3f} ms, "
+            f"dispatch holds in all {len(kept)} layers, kept share of the "
+            f"choices min {min(kept):.4f}, mean {statistics.mean(kept):.4f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3810,6 +4471,7 @@ def main() -> int:
     phase_modified_charges(dev)
     plan, x, q, report = phase_main(dev, smi)
     report += phase_forces(dev, plan, x, q, smi)
+    phase_sheet(dev, smi)
     phase_yukawa(dev, plan, x, q)
     phase_sharded(dev, smi, x, q, plan)
     report.append(phase_differentiable(dev, smi, plan, x, q))
@@ -3832,6 +4494,13 @@ def main() -> int:
     phase_sharded_md(dev)
     phase_checking_tools(dev, smi, plan, x, q, md_sim, dplan, serve)
     del plan, md_sim, dplan, serve, x, q
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    phase_lm_smoke(dev)
+    phase_lm_full(dev, smi)
+    phase_lm_full_archs(dev, smi)
+    print(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s",
+          flush=True)
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(smi)

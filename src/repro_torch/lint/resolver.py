@@ -6,7 +6,7 @@ The port runs eagerly and has no such marker, so its roots are one
 table, `HOT_ROOTS`: the steady entry points whose every call must leave
 the card's queue running (an MD refit step, a warm execute or force
 call, an ensemble call, the differentiable executor, the sharded sweep,
-the kernel entries of `kernels/ops.py`). `COLD` names the calls out of
+the kernel entries of `kernels/ops.py`, an LM decode step). `COLD` names the calls out of
 them that are host work by contract (a rebuild, a checkpoint): the
 closure stops there.
 
@@ -71,6 +71,8 @@ HOT_ROOTS: Tuple[Tuple[str, str], ...] = (
      "SingleDeviceAdapter.force_fn.<locals>.force"),
     ("repro_torch.dynamics.refit", "ShardedAdapter.slack_fn.<locals>.slack"),
     ("repro_torch.dynamics.refit", "ShardedAdapter.force_fn.<locals>.force"),
+    # the LM serving loop's step
+    ("repro_torch.models.api", "Model.decode"),
 )
 
 #: Calls out of hot code that are host work by contract: the closure

@@ -19,7 +19,12 @@ MODULES = ["repro_torch.core.api", "repro_torch.core.eval",
            "repro_torch.distributed.rcb", "repro_torch.distributed.bltc",
            "repro_torch.distributed.exchange", "repro_torch.lint",
            "repro_torch.lint.runtime", "repro_torch.lint.cli",
-           "repro_torch.obs.transfers", "repro_torch.launch.dryrun_bltc"]
+           "repro_torch.obs.transfers", "repro_torch.launch.dryrun_bltc",
+           "repro_torch.configs.registry", "repro_torch.models.config",
+           "repro_torch.models.layers", "repro_torch.models.moe",
+           "repro_torch.models.transformer", "repro_torch.models.mamba2",
+           "repro_torch.models.whisper", "repro_torch.models.llava",
+           "repro_torch.models.api"]
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -16,7 +16,14 @@ sharded MD), 14 (the differentiable executor's backward on the Fig. 4
 plan, built here unless 4 ran first), 15 (the checking tools: the lint,
 the sync guard, transfer counts, REPRO_DEBUG_NANS and the meta dry run;
 it reuses the plan, the MD, the device plan and the frontend of 4, 8, 10
-and 12c when they ran first, and builds them otherwise). A failing phase
+and 12c when they ran first, and builds them otherwise), 4s (the Fig. 4
+setting on a sheet at z = 0, host and device builds and the
+hierarchical precompute) and 16 (LM serving: 16a, the ten archs at SMOKE
+on the card against the CPU, 16b, gemma-7b at FULL in bf16, and 16c,
+granite-moe, mamba2, zamba2, whisper-small and llava-next at FULL in
+bf16; also runnable alone as 16a, 16b and 16c; no
+kernel runs there, but the build comes first all the same). A failing
+phase
 prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
 line compares the hierarchical q_hat with this run's direct one only
@@ -98,6 +105,12 @@ def main() -> int:
         "13b": lambda: c.phase_sharded_md(dev),
         "14": phase_differentiable,
         "15": checking_tools,
+        "4s": lambda: c.phase_sheet(dev, smi),
+        "16a": lambda: c.phase_lm_smoke(dev),
+        "16b": lambda: c.phase_lm_full(dev, smi),
+        "16c": lambda: c.phase_lm_full_archs(dev, smi),
+        "16": lambda: (c.phase_lm_smoke(dev), c.phase_lm_full(dev, smi),
+                       c.phase_lm_full_archs(dev, smi)),
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:

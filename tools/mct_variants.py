@@ -43,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-ROWS = "const T d{i} = bary_row<T, N1, true>(y{i}[i], sn{o}, sW, t{r});"
+ROWS = "const T d{i} = bary_row<T, N1>(y{i}[i], sn{o}, sW, t{r});"
 KERNEL = ("template <typename T, int N1>\n"
           "__global__ void __launch_bounds__(TGeo")
 CHEAP = """template <typename T, int N1>
