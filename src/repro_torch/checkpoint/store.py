@@ -63,10 +63,14 @@ def _unflatten(like, items, prefix=()):
 
 
 def _host(v) -> np.ndarray:
+    """A host copy of a leaf: the caller may go on updating the tensor in
+    place (an optimizer step) while a background save writes it."""
     if isinstance(v, torch.Tensor):
         v = v.detach()
         if v.dtype == torch.bfloat16:
             v = v.float()
+        elif v.device.type == "cpu":
+            v = v.clone()      # .numpy() of a CPU tensor shares its memory
         return v.cpu().numpy()
     return np.asarray(v)
 

@@ -9,20 +9,21 @@ axes. Two built-in rule sets:
   - "fsdp_tp": additionally shards the `embed` logical axis over `data`
                (ZeRO-3-style 2D sharding; needed for the 480B MoE).
 
-The tables are the reference's. Resolving them against a mesh needs the
-port's mesh (`launch/mesh.py`), which comes with training: until then
-`resolve_spec`, `make_shardings` and `shard_ctx_for_mesh` raise, and
-`ShardCtx.constrain` is the identity (one device holds everything).
+The tables are the reference's. `resolve_spec` and `make_shardings`
+read only a mesh's axis names and sizes: a `torch.distributed`
+`DeviceMesh` (``mesh_dim_names``, ``shape``), a `launch.mesh.MeshShape`
+description, or anything else with those two attributes. They give per
+leaf the tuple that the reference's `PartitionSpec` holds, with its
+divisibility fallback. `ShardCtx.constrain` is the identity: the port
+trains one process on one device, where a constraint changes nothing.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
-
-#: Raised by what needs a device mesh (the port's mesh is not yet here).
-MESH_LATER = "device meshes: ROADMAP queue A item 2"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -83,7 +84,7 @@ class ModelConfig:
     # --- numerics / execution ---
     dtype: str = "float32"          # activation compute dtype
     param_dtype: str = "float32"
-    remat: bool = True              # (takes effect with the backward)
+    remat: bool = True              # recompute each block in the backward
     remat_policy: str = "nothing"   # nothing | dots
     grad_accum: int = 1             # microbatches per step
     ce_chunk: int = 0               # fused CE seq-chunk; 0 = dense loss
@@ -153,14 +154,72 @@ FSDP_TP_RULES: Rules = tuple(
 RULE_SETS = {"tp": TP_RULES, "fsdp_tp": FSDP_TP_RULES}
 
 
-def resolve_spec(logical, shape, rules: Rules, mesh):
-    """Logical axes -> a placement over `mesh` (needs the port's mesh)."""
-    raise NotImplementedError(f"resolve_spec: {MESH_LATER}")
+def mesh_axes(mesh) -> dict:
+    """{axis name: size} of a mesh: its ``mesh_dim_names`` and ``shape``
+    (a `DeviceMesh` or a `launch.mesh.MeshShape`)."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def resolve_spec(logical, shape, rules: Rules, mesh) -> tuple:
+    """Logical axes -> the entries of the reference's PartitionSpec (a
+    mesh axis name, a tuple of them, or None per dim, trailing Nones
+    dropped), with its divisibility fallback: a dim that the mesh axes'
+    product does not divide is replicated (e.g. kv_heads=2 or vocab=49155
+    on a 16-way model axis)."""
+    table = dict(rules)
+    axes = mesh_axes(mesh)
+    used = set()
+    out = []
+    for ax_name, dim in zip(logical, shape):
+        mesh_ax = table.get(ax_name) if ax_name else None
+        if mesh_ax is None:
+            out.append(None)
+            continue
+        mesh_ax = tuple(a for a in mesh_ax if a in axes and a not in used)
+        size = math.prod(axes[a] for a in mesh_ax)
+        if not mesh_ax or dim % size != 0:
+            out.append(None)
+            continue
+        used.update(mesh_ax)
+        out.append(mesh_ax if len(mesh_ax) > 1 else mesh_ax[0])
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _is_logical(x) -> bool:
+    return isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None))) for e in x)
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of a resolved spec over `mesh`'s dims: Shard(d)
+    for a mesh axis that spec entry d names, Replicate() otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [d for d, e in enumerate(spec)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
 
 
 def make_shardings(spec_tree, param_shapes, rules: Rules, mesh):
-    """Placements for a (logical-axes tree, shapes tree) over `mesh`."""
-    raise NotImplementedError(f"make_shardings: {MESH_LATER}")
+    """The resolved spec of every leaf of a (logical-axes tree, shapes
+    tree) over `mesh`; where `mesh` is a `DeviceMesh` of more than one
+    device, each leaf's DTensor placements over it instead."""
+    devices = math.prod(mesh_axes(mesh).values())
+    many = devices > 1 and hasattr(mesh, "get_group")
+
+    def walk(logical, shp):
+        if isinstance(logical, dict):
+            return {k: walk(v, shp[k]) for k, v in logical.items()}
+        if not _is_logical(logical):
+            raise TypeError(f"not a logical-axes tuple: {logical!r}")
+        spec = resolve_spec(logical, tuple(shp.shape), rules, mesh)
+        return placements(spec, mesh) if many else spec
+
+    return walk(spec_tree, param_shapes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,7 +227,8 @@ class ShardCtx:
     """Static activation-sharding context threaded through model code.
 
     The port runs a model on one device, where a sharding constraint
-    changes nothing: `constrain` and `batch` return their input."""
+    changes nothing: `constrain` and `batch` return their input, enabled
+    or not."""
 
     enabled: bool = False
     dp: Tuple[str, ...] = ("pod", "data")   # batch axes present in the mesh
@@ -185,4 +245,6 @@ NO_SHARD = ShardCtx(enabled=False)
 
 
 def shard_ctx_for_mesh(mesh) -> ShardCtx:
-    raise NotImplementedError(f"shard_ctx_for_mesh: {MESH_LATER}")
+    names = mesh_axes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    return ShardCtx(enabled=True, dp=dp, tp="model")

@@ -11,7 +11,11 @@ Conventions:
     reference asks XLA for an f32 result (`preferred_element_type`);
   - attention dispatches between a dense path (short kv) and a kv-chunked
     online-softmax path (long prefill) so that long contexts never
-    materialize an O(S*T) score tensor.
+    materialize an O(S*T) score tensor;
+  - training differentiates the same functions with autograd; a stacked
+    leaf is unbound into its layers once (`unstack`), and `checkpointed`
+    recomputes a block's activations in the backward (the reference's
+    `jax.checkpoint`).
 
 Plain PyTorch ops that mirror the reference's XLA ones; no fused kernel
 (its masking and accumulation would differ from the reference's).
@@ -19,12 +23,15 @@ Plain PyTorch ops that mirror the reference's XLA ones; no fused kernel
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.api import resolve_device
 from repro_torch.models.config import (NO_SHARD, ModelConfig, ShardCtx,
@@ -85,6 +92,58 @@ def tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return None if tree is None else fn(tree)
+
+
+def unstack(tree) -> list:
+    """The per-layer trees of a tree stacked on a leading `layers` axis.
+
+    Each leaf is unbound once (`Tensor.unbind(0)`: views, no copy), whose
+    backward stacks the layers' grads in one allocation, as `lax.scan`
+    stacks its gradients; taking t[i] of the stack per layer would add a
+    zero-filled grad of the whole stack per layer instead."""
+    if isinstance(tree, dict):
+        cols = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    if isinstance(tree, (tuple, list)):
+        cols = [unstack(v) for v in tree]
+        return [type(tree)(c[i] for c in cols) for i in range(len(cols[0]))]
+    return list(tree.unbind(0))
+
+
+# Outputs that the "dots" policy saves: matmuls without batch dims (the
+# reference's dots_with_no_batch_dims_saveable; einsums reach aten.bmm).
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpointed(fn, *args, policy: str = "nothing"):
+    """fn(*args) with its activations recomputed in the backward (the
+    reference's `jax.checkpoint`): "nothing" saves nothing inside fn,
+    "dots" only the outputs of aten.mm / aten.addmm. The forward runs the
+    same operations either way. Without autograd it is fn(*args)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    elif policy != "nothing":
+        raise ValueError(f"remat_policy {policy!r}: nothing | dots")
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """A block of the layer loop: checkpointed under `cfg.remat` with
+    `cfg.remat_policy`, else fn(*args)."""
+    if cfg.remat:
+        return checkpointed(fn, *args, policy=cfg.remat_policy)
+    return fn(*args)
 
 
 def materialize(decls, seed: int = 0, *, device=None):
@@ -442,11 +501,19 @@ def cross_entropy(logits, labels, mask=None):
     return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
+def _ce_chunk(ctx, hc, w, lc):
+    logits = ctx.constrain(hc @ w.to(hc.dtype), "dp", None, "tp")
+    nll, valid = _nll(logits, lc)
+    return (nll * valid).sum(), valid.sum()
+
+
 def fused_cross_entropy(cfg: ModelConfig, params, h, labels,
                         ctx: ShardCtx = NO_SHARD):
     """CE without materializing full (B, S, V) logits: a loop over
     sequence chunks of `ce_chunk`, each projecting h @ W and reducing to
-    (nll_sum, count). Forward only (the backward comes with training).
+    (nll_sum, count) under `checkpointed`, so the backward recomputes a
+    chunk's logits too (the reference's `jax.checkpoint(step,
+    nothing_saveable)`): peak logits memory B * ce_chunk * V.
     Equivalent to cross_entropy(logits_out(h), labels) up to summation
     order."""
     w = _out_table(cfg, params)
@@ -457,9 +524,8 @@ def fused_cross_entropy(cfg: ModelConfig, params, h, labels,
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, c):
-        hc = h[:, c0:c0 + c]
-        logits = ctx.constrain(hc @ w.to(hc.dtype), "dp", None, "tp")
-        nll, valid = _nll(logits, labels[:, c0:c0 + c])
-        nll_sum = nll_sum + (nll * valid).sum()
-        cnt = cnt + valid.sum()
+        part, n = checkpointed(_ce_chunk, ctx, h[:, c0:c0 + c], w,
+                               labels[:, c0:c0 + c])
+        nll_sum = nll_sum + part
+        cnt = cnt + n
     return nll_sum / torch.clamp(cnt, min=1.0)

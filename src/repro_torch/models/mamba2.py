@@ -16,6 +16,7 @@ global-attention pattern of the Zamba papers).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -26,10 +27,10 @@ from repro_torch.models.config import NO_SHARD, ModelConfig, ShardCtx
 from repro_torch.models.layers import (
     apply_norm, attn_init, attn_out, attn_qkv, attention, cache_write,
     cross_entropy, dense_init, embed_init, embed_tokens, fused_cross_entropy,
-    logits_out, meta, mlp_apply, mlp_init, norm_init, ones_init, rms_norm,
-    tree_map, zeros_init)
+    logits_out, meta, mlp_apply, mlp_init, norm_init, ones_init, remat,
+    rms_norm, unstack, zeros_init)
 from repro_torch.models.transformer import (
-    layer, num_layers, pad_seq, position_scalar, positions_from)
+    pad_seq, position_scalar, positions_from)
 
 
 # --------------------------------------------------------------------------
@@ -250,15 +251,17 @@ def ssm_block_apply(cfg: ModelConfig, p, h, *, ctx: ShardCtx = NO_SHARD,
 # --------------------------------------------------------------------------
 
 
-def _scan_blocks(cfg, blocks, h, ctx, cache, mode):
-    """Run the Mamba2 block stack. In train mode no cache flows through;
-    prefill/decode emit the per-layer conv histories + SSM states, stacked
-    (L, ...)."""
-    nl = num_layers(blocks)
+def _scan_blocks(cfg, layers, h, ctx, cache, mode):
+    """Run the Mamba2 block stack over `layers`, a list of per-layer
+    parameter trees (`layers.unstack`). In train mode no cache flows
+    through and each block is rematerialized under cfg.remat;
+    prefill/decode emit the per-layer conv histories + SSM states,
+    stacked (L, ...)."""
+    nl = len(layers)
     if mode == "train":
-        for i in range(nl):
-            h, _ = ssm_block_apply(cfg, layer(blocks, i), h, ctx=ctx,
-                                   mode=mode)
+        for lp in layers:
+            h, _ = remat(cfg, functools.partial(
+                ssm_block_apply, cfg, ctx=ctx, mode=mode), lp, h)
         return h, None
     if cache is None:  # prefill: fresh histories/states
         k = cfg.ssm_conv - 1
@@ -270,9 +273,8 @@ def _scan_blocks(cfg, blocks, h, ctx, cache, mode):
         cache = tuple(torch.zeros(s, dtype=h.dtype, device=h.device)
                       for s in shapes)
     new = []
-    for i in range(nl):
-        h, nc = ssm_block_apply(cfg, layer(blocks, i), h, ctx=ctx,
-                                cache=layer(cache, i), mode=mode)
+    for lp, lc in zip(layers, unstack(cache)):
+        h, nc = ssm_block_apply(cfg, lp, h, ctx=ctx, cache=lc, mode=mode)
         new.append(nc)
     return h, tuple(torch.stack(parts) for parts in zip(*new))
 
@@ -281,7 +283,8 @@ def mamba_lm_apply(cfg: ModelConfig, params, tokens, *,
                    ctx: ShardCtx = NO_SHARD, cache=None, mode="train"):
     h = embed_tokens(params["embed"], tokens, cfg.adtype)
     h = ctx.constrain(h, "dp", None, None)
-    h, new_cache = _scan_blocks(cfg, params["blocks"], h, ctx, cache, mode)
+    h, new_cache = _scan_blocks(cfg, unstack(params["blocks"]), h, ctx,
+                                cache, mode)
     h = apply_norm(cfg, h, params["final_norm"])
     logits = logits_out(cfg, params, h, ctx)
     return logits, new_cache
@@ -293,7 +296,8 @@ def mamba_lm_loss(cfg, params, batch, *, ctx: ShardCtx = NO_SHARD):
     if cfg.ce_chunk:
         h = embed_tokens(params["embed"], inp, cfg.adtype)
         h = ctx.constrain(h, "dp", None, None)
-        h, _ = _scan_blocks(cfg, params["blocks"], h, ctx, None, "train")
+        h, _ = _scan_blocks(cfg, unstack(params["blocks"]), h, ctx, None,
+                            "train")
         h = apply_norm(cfg, h, params["final_norm"])
         loss = fused_cross_entropy(cfg, params, h, labels, ctx)
         return loss, {"loss": loss}
@@ -397,14 +401,15 @@ def zamba_apply(cfg: ModelConfig, params, tokens, *, ctx: ShardCtx = NO_SHARD,
     h0 = h
 
     ssm_cache = cache["ssm"] if cache is not None else None
+    layers = unstack(params["blocks"])
     new_ssm, new_kv_k, new_kv_v = [], [], []
     use = 0
     for seg0 in range(0, cfg.n_layers, every):
         seg1 = min(seg0 + every, cfg.n_layers)
-        seg_blocks = tree_map(lambda x: x[seg0:seg1], params["blocks"])
-        seg_cache = (tree_map(lambda x: x[seg0:seg1], ssm_cache)
+        seg_cache = (tuple(x[seg0:seg1] for x in ssm_cache)
                      if ssm_cache is not None else None)
-        h, seg_new = _scan_blocks(cfg, seg_blocks, h, ctx, seg_cache, mode)
+        h, seg_new = _scan_blocks(cfg, layers[seg0:seg1], h, ctx, seg_cache,
+                                  mode)
         new_ssm.append(seg_new)
         if use < ns:
             kv = None

@@ -2,8 +2,9 @@
 
 One block implementation serves the loss (no cache), prefill (emits the
 KV cache) and decode (consumes + updates the cache). Layers are stacked
-on a leading `layers` axis and run by a loop over the layer index of the
-stacked tensors (the reference's lax.scan).
+on a leading `layers` axis, unbound once into per-layer views
+(`layers.unstack`) and run by a loop (the reference's lax.scan); in
+training each block is rematerialized under cfg.remat (`layers.remat`).
 
 Decode reads nothing to the host: the cache's position is a device
 scalar, the new K/V are written at pos + arange(s) in place
@@ -19,7 +20,7 @@ from repro_torch.models.config import NO_SHARD, ModelConfig, ShardCtx
 from repro_torch.models.layers import (
     apply_norm, attn_init, attn_out, attn_qkv, attention, cache_write,
     cross_entropy, dense_init, embed_init, embed_tokens, fused_cross_entropy,
-    logits_out, meta, mlp_apply, mlp_init, norm_init, tree_map)
+    logits_out, meta, mlp_apply, mlp_init, norm_init, remat, unstack)
 
 
 def lm_decls(cfg: ModelConfig):
@@ -45,17 +46,6 @@ def lm_decls(cfg: ModelConfig):
         tree["lm_head"] = dense_init((d, v), ("embed", "vocab"), cfg.pdtype,
                                      fan_in=d)
     return tree
-
-
-def layer(tree, i):
-    """Layer i of a tree stacked on a leading `layers` axis."""
-    return tree_map(lambda t: t[i], tree)
-
-
-def num_layers(tree) -> int:
-    while isinstance(tree, (dict, tuple, list)):
-        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
-    return tree.shape[0]
 
 
 def positions_from(start, b: int, s: int, device):
@@ -100,11 +90,15 @@ def forward_hidden(cfg: ModelConfig, params, h, positions, *,
     updated in place."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
-    for i in range(num_layers(params["blocks"])):
+    for i, lp in enumerate(unstack(params["blocks"])):
+        if mode == "train":
+            h, aux, _ = remat(cfg, _block, cfg, ctx, h, aux, lp, None, None,
+                              positions, start, mode)
+            continue
         kc, vc = ((cache["k"][i], cache["v"][i]) if mode == "decode"
                   else (None, None))
-        h, aux, ys = _block(cfg, ctx, h, aux, layer(params["blocks"], i),
-                            kc, vc, positions, start, mode)
+        h, aux, ys = _block(cfg, ctx, h, aux, lp, kc, vc, positions, start,
+                            mode)
         if mode == "prefill":
             ks.append(ys[0])
             vs.append(ys[1])
@@ -131,7 +125,8 @@ def lm_apply(cfg: ModelConfig, params, tokens, *, ctx: ShardCtx = NO_SHARD,
 
 
 def lm_loss(cfg: ModelConfig, params, batch, *, ctx: ShardCtx = NO_SHARD):
-    """The training loss, forward only (the backward comes with training)."""
+    """The training loss (the total: CE + aux_loss_coef * aux) and its
+    metrics; `training.step` differentiates it."""
     tokens = batch["tokens"]
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     if cfg.ce_chunk:

@@ -5,7 +5,9 @@ precomputed frame embeddings (B, src_seq, D) standing in for the
 conv1d+GELU audio frontend. Encoder: bidirectional attention + learned
 positions; decoder: causal self-attention + cross-attention into the
 encoder output. Serving caches both the self-attn KV and the (computed
-once at prefill) cross-attn KV.
+once at prefill) cross-attn KV. In training each encoder and decoder
+block is rematerialized under cfg.remat, saving nothing inside (the
+reference's nothing_saveable, whatever cfg.remat_policy says).
 """
 from __future__ import annotations
 
@@ -14,10 +16,10 @@ import torch
 from repro_torch.models.config import NO_SHARD, ModelConfig, ShardCtx
 from repro_torch.models.layers import (
     apply_norm, attn_init, attn_out, attn_qkv, attention, cache_write,
-    cross_entropy, embed_init, embed_tokens, meta, mlp_apply, mlp_init,
-    norm_init)
+    checkpointed, cross_entropy, embed_init, embed_tokens, meta, mlp_apply,
+    mlp_init, norm_init, unstack)
 from repro_torch.models.transformer import (
-    layer, num_layers, pad_seq, position_scalar, positions_from)
+    pad_seq, position_scalar, positions_from)
 
 
 def whisper_decls(cfg: ModelConfig):
@@ -46,22 +48,65 @@ def whisper_decls(cfg: ModelConfig):
     }
 
 
+def _remat(cfg, fn, *args):
+    return checkpointed(fn, *args) if cfg.remat else fn(*args)
+
+
+def _enc_block(cfg, ctx, positions, lp, h):
+    a_in = apply_norm(cfg, h, lp["attn_norm"])
+    q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, use_rope=False)
+    out = attention(cfg, q, k, v, positions, causal=False, ctx=ctx)
+    h = h + attn_out(lp["attn"], out).to(h.dtype)
+    m_in = apply_norm(cfg, h, lp["mlp_norm"])
+    return ctx.constrain(h + mlp_apply(cfg, lp["mlp"], m_in, ctx),
+                         "dp", None, None)
+
+
+def _dec_block(cfg, ctx, positions, lp, h, enc_out, kc=None, vc=None,
+               xkv=None, start=0):
+    """One decoder block: causal self-attention (into the cache kc / vc
+    in decode, written in place), cross-attention into enc_out (or the
+    cached cross K/V xkv), the MLP. Returns (h, self k, self v, xk, xv)."""
+    b, s = h.shape[:2]
+    a_in = apply_norm(cfg, h, lp["attn_norm"])
+    q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, use_rope=False)
+    if kc is not None:
+        kc = cache_write(kc, k, start)
+        vc = cache_write(vc, v, start)
+        kv_len = (start + s).expand(b)
+        out = attention(cfg, q, kc, vc, positions, kv_len=kv_len,
+                        causal=True, ctx=ctx)
+    else:
+        out = attention(cfg, q, k, v, positions, causal=True, ctx=ctx)
+    h = h + attn_out(lp["attn"], out).to(h.dtype)
+
+    # cross attention
+    x_in = apply_norm(cfg, h, lp["xattn_norm"])
+    xq = (x_in @ lp["xattn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    if xkv is not None:
+        xk, xv = xkv
+    else:
+        xk = (enc_out @ lp["xattn"]["wk"]).reshape(
+            b, -1, cfg.kv_heads, cfg.hd)
+        xv = (enc_out @ lp["xattn"]["wv"]).reshape(
+            b, -1, cfg.kv_heads, cfg.hd)
+    out = attention(cfg, xq, xk, xv, positions, causal=False, ctx=ctx)
+    h = h + attn_out(lp["xattn"], out).to(h.dtype)
+
+    m_in = apply_norm(cfg, h, lp["mlp_norm"])
+    h = ctx.constrain(h + mlp_apply(cfg, lp["mlp"], m_in, ctx),
+                      "dp", None, None)
+    return h, k, v, xk, xv
+
+
 def encode(cfg: ModelConfig, params, frames, *, ctx: ShardCtx = NO_SHARD):
     """frames (B, src_seq, D) stub embeddings -> encoder output (B, S, D)."""
     b, s, _ = frames.shape
     h = frames.to(cfg.adtype) + params["enc_pos"][None, :s].to(cfg.adtype)
     h = ctx.constrain(h, "dp", None, None)
     positions = positions_from(0, b, s, frames.device)
-    blocks = params["enc_blocks"]
-    for i in range(num_layers(blocks)):
-        lp = layer(blocks, i)
-        a_in = apply_norm(cfg, h, lp["attn_norm"])
-        q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, use_rope=False)
-        out = attention(cfg, q, k, v, positions, causal=False, ctx=ctx)
-        h = h + attn_out(lp["attn"], out).to(h.dtype)
-        m_in = apply_norm(cfg, h, lp["mlp_norm"])
-        h = ctx.constrain(h + mlp_apply(cfg, lp["mlp"], m_in, ctx),
-                          "dp", None, None)
+    for lp in unstack(params["enc_blocks"]):
+        h = _remat(cfg, _enc_block, cfg, ctx, positions, lp, h)
     return apply_norm(cfg, h, params["enc_final_norm"])
 
 
@@ -84,40 +129,18 @@ def decode_stack(cfg: ModelConfig, params, tokens, enc_out, *,
     h = h + ppos[None].to(h.dtype)
     h = ctx.constrain(h, "dp", None, None)
 
-    blocks = params["dec_blocks"]
     ys = []
-    for i in range(num_layers(blocks)):
-        lp = layer(blocks, i)
-        a_in = apply_norm(cfg, h, lp["attn_norm"])
-        q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, use_rope=False)
-        if mode == "decode":
-            kc = cache_write(cache["k"][i], k, start)
-            vc = cache_write(cache["v"][i], v, start)
-            kv_len = (start + s).expand(b)
-            out = attention(cfg, q, kc, vc, positions, kv_len=kv_len,
-                            causal=True, ctx=ctx)
+    for i, lp in enumerate(unstack(params["dec_blocks"])):
+        if mode == "train":
+            h = _remat(cfg, lambda lp_, h_, e_: _dec_block(
+                cfg, ctx, positions, lp_, h_, e_)[0], lp, h, enc_out)
+        elif mode == "decode":
+            h, *_ = _dec_block(cfg, ctx, positions, lp, h, None,
+                               cache["k"][i], cache["v"][i],
+                               (cache["xk"][i], cache["xv"][i]), start)
         else:
-            out = attention(cfg, q, k, v, positions, causal=True, ctx=ctx)
-        h = h + attn_out(lp["attn"], out).to(h.dtype)
-
-        # cross attention
-        x_in = apply_norm(cfg, h, lp["xattn_norm"])
-        xq = (x_in @ lp["xattn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-        if mode == "decode":
-            xk, xv = cache["xk"][i], cache["xv"][i]
-        else:
-            xk = (enc_out @ lp["xattn"]["wk"]).reshape(
-                b, -1, cfg.kv_heads, cfg.hd)
-            xv = (enc_out @ lp["xattn"]["wv"]).reshape(
-                b, -1, cfg.kv_heads, cfg.hd)
-        out = attention(cfg, xq, xk, xv, positions, causal=False, ctx=ctx)
-        h = h + attn_out(lp["xattn"], out).to(h.dtype)
-
-        m_in = apply_norm(cfg, h, lp["mlp_norm"])
-        h = ctx.constrain(h + mlp_apply(cfg, lp["mlp"], m_in, ctx),
-                          "dp", None, None)
-        if mode == "prefill":
-            ys.append((k, v, xk, xv))
+            h, *kv = _dec_block(cfg, ctx, positions, lp, h, enc_out)
+            ys.append(tuple(kv))
     h = apply_norm(cfg, h, params["final_norm"])
     # whisper ties output logits to the token embedding table
     logits = ctx.constrain(h @ params["embed"].T.to(h.dtype),

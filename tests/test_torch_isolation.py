@@ -24,7 +24,10 @@ MODULES = ["repro_torch.core.api", "repro_torch.core.eval",
            "repro_torch.models.layers", "repro_torch.models.moe",
            "repro_torch.models.transformer", "repro_torch.models.mamba2",
            "repro_torch.models.whisper", "repro_torch.models.llava",
-           "repro_torch.models.api"]
+           "repro_torch.models.api", "repro_torch.optim.optimizers",
+           "repro_torch.optim.compression", "repro_torch.data.pipeline",
+           "repro_torch.training.step", "repro_torch.launch.mesh",
+           "repro_torch.launch.train"]
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -22,7 +22,10 @@ hierarchical precompute) and 16 (LM serving: 16a, the ten archs at SMOKE
 on the card against the CPU, 16b, gemma-7b at FULL in bf16, and 16c,
 granite-moe, mamba2, zamba2, whisper-small and llava-next at FULL in
 bf16; also runnable alone as 16a, 16b and 16c; no
-kernel runs there, but the build comes first all the same). A failing
+kernel runs there, but the build comes first all the same) and 17 (LM
+training: 17a, the ten archs' train step at SMOKE on the card against
+the CPU, 17b, the launcher's resume, 17c, internlm2-1.8b at FULL in
+bf16, 17d, granite-moe and mamba2 at FULL; each also alone). A failing
 phase
 prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
@@ -111,6 +114,11 @@ def main() -> int:
         "16c": lambda: c.phase_lm_full_archs(dev, smi),
         "16": lambda: (c.phase_lm_smoke(dev), c.phase_lm_full(dev, smi),
                        c.phase_lm_full_archs(dev, smi)),
+        "17": lambda: c.phase_train(dev, smi),
+        "17a": lambda: c.phase_train(dev, smi, ("17a",)),
+        "17b": lambda: c.phase_train(dev, smi, ("17b",)),
+        "17c": lambda: c.phase_train(dev, smi, ("17c",)),
+        "17d": lambda: c.phase_train(dev, smi, ("17d",)),
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:
