@@ -235,6 +235,20 @@ Phases (each asserts; any failure exits non-zero):
     share and the forward / backward / recompute split on 1 x 2048;
     (17d) granite-moe-1b (4 x 1024) and mamba2-1.3b (4 x 2048) at FULL,
     5 steps each, the same but the held batch alone holding the fall;
+ 18. the LM dry run (`repro_torch.launch.dryrun`, its op-level cost
+    analysis `launch.hlo_analysis`; plain PyTorch, no kernel): (18a)
+    17c's step (internlm2-1.8b FULL, 4 x 2048, bf16, remat, AdamW) dry
+    run on one device as plain meta tensors, against one real step on
+    the card under the same `analyze`: matmul FLOPs equal exactly,
+    model_flops the reference's 6 N_active D, the dry run's arguments
+    plus its peak of temporaries within [0.8, 1.25] of the real step's
+    `max_memory_allocated`; the card's total memory beside the dry run's
+    `HBM_BYTES`; (18b) `run_cell` for gemma-7b train_4k on the 16 x 16
+    mesh and arctic-480b train_4k on the 2 x 16 x 16 one, in a
+    subprocess on PyTorch's fake process group (no CUDA there; started
+    before the build, it runs on the CPU during it): both `ok`,
+    their dry_run_s, per-device bytes, fits_hbm, roofline terms and
+    collectives printed;
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -4938,6 +4952,155 @@ def phase_train(dev, smi, parts=("17a", "17b", "17c", "17d")):
     print(f"[17] phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# 18a: the dry run's arguments plus its peak of temporaries against the
+# real step's max_memory_allocated
+DRY_PEAK_BAND = (0.8, 1.25)
+DRY_TRAIN = ("internlm2-1.8b", 4, 2048)
+# 18b: the cells run on the fake process group, (arch, shape, multi pod)
+DRY_CELLS = (("gemma-7b", "train_4k", False), ("arctic-480b", "train_4k", True))
+
+
+def phase_dryrun_step(dev, smi):
+    """18a: 17c's step dry run on one device (plain meta tensors) against
+    one real step on the card under the same `analyze`."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.api import Model, ShapeSpec
+    from repro_torch.models.config import shard_ctx_for_mesh
+    from repro_torch.models.layers import materialize
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.training.step import make_train_step
+    from repro_torch.configs.registry import get_config, optimizer_for
+
+    arch, b, s = DRY_TRAIN
+    cfg = get_config(arch)
+    model = Model(cfg)
+    shape = ShapeSpec(f"train_{s}", s, b, "train")
+    t0 = time.perf_counter()
+    rep = dryrun.one_device_report(arch, model, shape)
+    dry_s = time.perf_counter() - t0
+    pd = rep["per_device"]
+    torch.cuda.empty_cache()
+    params = materialize(model.decls(), 23, device=dev)
+    opt = get_optimizer(optimizer_for(arch))
+    state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                                     dtype=torch.int32, device=dev)}
+    step = make_train_step(model, opt, shard_ctx_for_mesh(
+        MeshShape((1, 1), ("data", "model"))))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    real = analyze(step, params, state, batch)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(0).total_memory
+    ratio = pd["peak_hbm_est"] / peak
+    want_flops = 6 * rep["active_params"] * b * s
+    print(f"[18a] {arch} FULL train step {b} x {s} (bf16, remat, "
+          f"{optimizer_for(arch)}; {smi}): dry run on one device "
+          f"{dry_s:.1f} s (plain meta tensors, {rep['ops_per_device']} ops), "
+          f"the real step under analyze {real_s:.1f} s ({real.ops} ops); "
+          f"matmul FLOPs dry {rep['matmul_flops_per_device']:.6e} real "
+          f"{real.matmul_flops:.6e}; all FLOPs dry "
+          f"{rep['hlo_flops_total']:.6e} real {real.flops:.6e}; bytes dry "
+          f"{rep['hlo_bytes_total']:.6e} real {real.hbm_bytes:.6e}; "
+          f"model_flops {rep['model_flops']:.6e} (17c's count "
+          f"{train_model_flops(cfg, b, s):.6e}); arguments "
+          f"{pd['argument_bytes'] / 2**30:.3f} GiB + peak temporaries "
+          f"{(pd['peak_hbm_est'] - pd['argument_bytes']) / 2**30:.3f} GiB = "
+          f"{pd['peak_hbm_est'] / 2**30:.3f} GiB against the real step's "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB (ratio {ratio:.4f}, "
+          f"band {DRY_PEAK_BAND}); the real step's peak of live outputs "
+          f"{real.peak_bytes / 2**30:.3f} GiB; the card's total_memory "
+          f"{total} bytes (the dry run's HBM_BYTES {dryrun.HBM_BYTES})",
+          flush=True)
+    assert rep["matmul_flops_per_device"] == real.matmul_flops > 0, (
+        rep["matmul_flops_per_device"], real.matmul_flops)
+    assert rep["model_flops"] == want_flops, (rep["model_flops"], want_flops)
+    assert DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1], ratio
+    READINGS["[18a] dry/real peak"] = ratio
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+
+DRY_CELL_CODE = r"""
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+for arch, shape, multi in json.loads(sys.argv[1]):
+    r = run_cell(arch, shape, multi)
+    print(json.dumps(r), flush=True)
+"""
+
+
+def start_dryrun_cells():
+    """Start 18b's subprocess: `run_cell` for DRY_CELLS on the CPU, in a
+    process that sees no card (the fake process group never shares a
+    process with CUDA work). It runs during the kernel build; its output
+    goes to temporary files. Killed at exit if it is still running."""
+    import atexit
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", DRY_CELL_CODE,
+                             json.dumps(DRY_CELLS)], stdout=out, stderr=err,
+                            text=True, env=env, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, err, time.perf_counter()
+
+
+def phase_dryrun_cells(smi, started=None):
+    """18b: waits for `start_dryrun_cells`' subprocess (started here
+    unless given) and prints its cells."""
+    from repro_torch.launch.dryrun import HBM_BYTES
+    proc, out, err, t0 = started or start_dryrun_cells()
+    t1 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t1
+    out.seek(0)
+    err.seek(0)
+    text = out.read()
+    assert rc == 0, err.read()[-3000:]
+    reps = [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+    assert len(reps) == len(DRY_CELLS), text[-2000:]
+    for r in reps:
+        assert r["status"] == "ok", r
+        pd, rf = r["per_device"], r["roofline"]
+        print(f"[18b] {r['arch']} {r['shape']} on {r['mesh']} ({r['chips']} "
+              f"fake ranks; fits_hbm against {HBM_BYTES} bytes): dry_run_s "
+              f"{r['dry_run_s']}, per device arguments "
+              f"{pd['argument_bytes'] / 2**30:.3f} GiB, temporaries "
+              f"{pd['temp_bytes'] / 2**30:.3f} GiB, outputs "
+              f"{pd['output_bytes'] / 2**30:.3f} GiB (aliased "
+              f"{pd['alias_bytes'] / 2**30:.3f}), peak "
+              f"{pd['peak_hbm_est'] / 2**30:.3f} GiB, fits_hbm "
+              f"{r['fits_hbm']}; roofline compute {rf['compute_s']:.4f} s, "
+              f"memory {rf['memory_s']:.4f} s, collective "
+              f"{rf['collective_s']:.4f} s (dominant {rf['dominant']}, useful "
+              f"FLOPs {rf['useful_flops_frac']:.4f}); collectives "
+              f"{ {k: (int(v['count']), v['bytes']) for k, v in r['collectives'].items()} }",
+              flush=True)
+    print(f"[18b] the subprocess, on the CPU, had been running "
+          f"{time.perf_counter() - t0:.1f} s when phase 18 took its result "
+          f"(it waited {waited:.1f} s for it)", flush=True)
+
+
+def phase_dryrun(dev, smi, parts=("18a", "18b"), started=None):
+    """Phase 18: the LM dry run and its cost analysis (plain PyTorch, no
+    kernel of its own). `started`: 18b's subprocess, if started earlier."""
+    t0 = time.perf_counter()
+    if "18a" in parts:
+        phase_dryrun_step(dev, smi)
+    if "18b" in parts:
+        phase_dryrun_cells(smi, started)
+    print(f"[18] phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4957,6 +5120,9 @@ def main() -> int:
     smi = smi_line()
     print(f"[1] {smi}; torch {torch.__version__} (CUDA {torch.version.cuda}) "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
+    # 18b runs on the CPU during the build, where it times nothing (later
+    # it would take a core from the host-bound LM phases 16 and 17)
+    dry_cells = start_dryrun_cells()
     t0 = time.perf_counter()
     _build.build()
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s "
@@ -5058,6 +5224,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train(dev, smi)
     lap("17")
+    torch.cuda.empty_cache()
+    phase_dryrun(dev, smi, started=dry_cells)
+    lap("18")
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(smi)

@@ -25,8 +25,9 @@ dynamic check of the lint over the sharded executor.
       [--n-per-rank 262144] [--out PATH]
 
 The FLOP and bytes terms are taken against the H100 SXM's published
-peaks (NVIDIA data sheet; the constants `chip_smoke.py` bounds its
-kernels with). There is no collective time: no link was measured.
+peaks (NVIDIA data sheet), which it takes from `launch.dryrun` as the
+reference takes its peaks from `repro.launch.dryrun`. There is no
+collective time: no link was measured.
 """
 from __future__ import annotations
 
@@ -43,10 +44,9 @@ from repro_torch.core import eval as ceval
 from repro_torch.core.api import TreecodeConfig, lift_params
 from repro_torch.distributed import bltc
 from repro_torch.kernels import modified_charges as _mc
+from repro_torch.launch.dryrun import HBM_BW as PEAK_BYTES
+from repro_torch.launch.dryrun import PEAK_FP32
 
-# H100 SXM published peaks (NVIDIA data sheet), as in `chip_smoke.py`.
-PEAK_FP32 = 67e12      # FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12   # HBM3 bytes/s
 # Operations per (target, source) pair of the batch-cluster sum:
 # 3 sub + 3 mul + 2 add (r^2), sqrt, divide, multiply by q, add.
 FLOPS_PER_PAIR = 12

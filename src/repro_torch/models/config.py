@@ -14,8 +14,10 @@ read only a mesh's axis names and sizes: a `torch.distributed`
 `DeviceMesh` (``mesh_dim_names``, ``shape``), a `launch.mesh.MeshShape`
 description, or anything else with those two attributes. They give per
 leaf the tuple that the reference's `PartitionSpec` holds, with its
-divisibility fallback. `ShardCtx.constrain` is the identity: the port
-trains one process on one device, where a constraint changes nothing.
+divisibility fallback. `ShardCtx.constrain` is the reference's
+`with_sharding_constraint` for a DTensor (a redistribution to the
+resolved spec's placements) and the identity for a plain tensor: one
+process on one device runs its tensors as they are.
 """
 from __future__ import annotations
 
@@ -200,6 +202,7 @@ def placements(spec: tuple, mesh) -> tuple:
     for name in mesh.mesh_dim_names:
         dims = [d for d, e in enumerate(spec)
                 if e == name or (isinstance(e, tuple) and name in e)]
+        # lint: disable=TS004 — a spec is host metadata, no device value
         out.append(Shard(dims[0]) if dims else Replicate())
     return tuple(out)
 
@@ -214,6 +217,8 @@ def make_shardings(spec_tree, param_shapes, rules: Rules, mesh):
     def walk(logical, shp):
         if isinstance(logical, dict):
             return {k: walk(v, shp[k]) for k, v in logical.items()}
+        if isinstance(logical, (tuple, list)) and not _is_logical(logical):
+            return type(logical)(walk(v, s) for v, s in zip(logical, shp))
         if not _is_logical(logical):
             raise TypeError(f"not a logical-axes tuple: {logical!r}")
         spec = resolve_spec(logical, tuple(shp.shape), rules, mesh)
@@ -226,19 +231,40 @@ def make_shardings(spec_tree, param_shapes, rules: Rules, mesh):
 class ShardCtx:
     """Static activation-sharding context threaded through model code.
 
-    The port runs a model on one device, where a sharding constraint
-    changes nothing: `constrain` and `batch` return their input, enabled
-    or not."""
+    On a DTensor, `constrain` redistributes to the spec's placements over
+    the tensor's own mesh (the reference's with_sharding_constraint); a
+    plain tensor, one device's, passes unchanged, enabled or not."""
 
     enabled: bool = False
     dp: Tuple[str, ...] = ("pod", "data")   # batch axes present in the mesh
     tp: str = "model"
 
     def constrain(self, x, *axes):
-        return x
+        """x redistributed to P(*axes) when sharding is enabled and x is a
+        DTensor. `axes` entries: "dp" -> the batch axes, "tp" -> model
+        axis, None. A dim that its mesh axes' product does not divide is
+        replicated, as `resolve_spec` does: GSPMD pads an uneven shard,
+        but DTensor's view rules refuse one (a decode's single MoE group
+        on a 16-way data axis)."""
+        mesh = getattr(x, "device_mesh", None)
+        if not self.enabled or mesh is None:
+            return x
+        sizes = mesh_axes(mesh)
+        resolved = []
+        for a, dim in zip(axes, x.shape):
+            a = self.dp if a == "dp" else (self.tp if a == "tp" else a)
+            names = (a,) if isinstance(a, str) else tuple(a or ())
+            size = math.prod(sizes[n] for n in names)
+            # lint: disable=HS002,TS004 — shapes are host ints, not values
+            resolved.append(a if dim % size == 0 else None)
+        want = placements(tuple(resolved), mesh)
+        # lint: disable=HS002,TS004 — placements are host metadata
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(mesh, want)
 
     def batch(self, x):
-        return x
+        return self.constrain(x, "dp", *([None] * (x.ndim - 1)))
 
 
 NO_SHARD = ShardCtx(enabled=False)

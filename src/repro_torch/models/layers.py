@@ -35,7 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core.api import resolve_device
 from repro_torch.models.config import (NO_SHARD, ModelConfig, ShardCtx,
-                                       dtype_name, torch_dtype)
+                                       dtype_name, mesh_axes, torch_dtype)
 
 # --------------------------------------------------------------------------
 # declarative param system
@@ -210,6 +210,75 @@ def params_from_numpy(tree, device=None):
 
 
 # --------------------------------------------------------------------------
+# DTensor regions run on each rank's shards
+# --------------------------------------------------------------------------
+
+
+def is_dtensor(t) -> bool:
+    """Whether t is a DTensor (it has a device mesh)."""
+    return getattr(t, "device_mesh", None) is not None
+
+
+def local(t, over=None):
+    """A DTensor's local shard (differentiable), or t itself. `over`: the
+    DTensor that splits the region's computation; where it is sharded
+    and t is not (a weight, B and C shared by the heads), each rank's
+    gradient for t is a partial sum, and is declared so."""
+    if not is_dtensor(t):
+        return t
+    if over is None:
+        return t.to_local()
+    from torch.distributed.tensor import Partial
+    grad = [Partial() if o.is_shard() and not p.is_shard() else p
+            for p, o in zip(t.placements, over.placements)]
+    return t.to_local(grad_placements=grad)
+
+
+def from_shards(out, sources):
+    """`out`, computed from each rank's local shards, as a DTensor over the
+    sources' mesh. sources: (DTensor, {source dim: out dim}) pairs; per
+    mesh dim, Shard(out dim) where the first source sharded there shards
+    a mapped dim, Partial() where it shards an unmapped one (out summed
+    over it: a contraction over a sharded dim), Replicate() where no
+    source is sharded. The regions that use it hold computations local to
+    a shard whose ops DTensor cannot place (bmm's flattened batch of a
+    data-sharded and a model-sharded dim, an in-place cache write, a
+    padded cache, a vocab-sharded lookup), and they spare DTensor the
+    sharding propagation of every op inside."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = sources[0][0].device_mesh
+    placed = []
+    for i in range(mesh.ndim):
+        p = Replicate()
+        for src, dims in sources:
+            sp = src.placements[i]
+            # lint: disable=HS002,TS004 — placements are host metadata
+            if sp.is_shard():
+                p = Shard(dims[sp.dim]) if sp.dim in dims else Partial()
+                break
+        placed.append(p)
+    return DTensor.from_local(out, mesh, placed, run_check=False)
+
+
+def replicated_like(t, ref):
+    """t as a DTensor over ref's mesh: itself if it is one, else
+    replicated (a tensor model code made from nothing, such as a fresh
+    zero state)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(t):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def model_axis_divides(t, n: int, ctx: ShardCtx) -> bool:
+    """Whether t's mesh's model axis divides n (True for a plain tensor)."""
+    mesh = getattr(t, "device_mesh", None)
+    return mesh is None or n % mesh_axes(mesh).get(ctx.tp, 1) == 0
+
+
+# --------------------------------------------------------------------------
 # norms
 # --------------------------------------------------------------------------
 
@@ -342,7 +411,55 @@ def attention(cfg: ModelConfig, q, k, v, q_pos, kv_len=None, *,
     """GQA attention. q (B,S,Hq,D); k/v (B,T,Hk,D); q_pos (B,S) absolute.
 
     kv_len (B,) masks cache positions >= kv_len (decode); defaults to T.
+    DTensors run `_attention_on_shards`.
     """
+    if is_dtensor(q):
+        return _attention_on_shards(cfg, q, k, v, q_pos, kv_len, causal, ctx)
+    return _attention(cfg, q, k, v, q_pos, kv_len, causal)
+
+
+def _attention_on_shards(cfg, q, k, v, q_pos, kv_len, causal, ctx):
+    """Attention of DTensors on each rank's shards. It is local to a
+    (batch, head) shard, but its einsums flatten the batch and head dims
+    into one for bmm, which DTensor refuses (or splits into a strided
+    shard) when both are sharded. So q, k, v, the positions and kv_len
+    are constrained to the batch axes, the heads placed as below, and
+    `_attention` runs on the local tensors; its output is q's placements.
+
+    Where the model axis divides the kv heads, q, k and v are sharded
+    over it by head. Where it divides q's heads only (GQA with fewer kv
+    heads than model ranks: 32 / 8 on 16), q is, and k and v stay
+    replicated there: each rank takes the kv heads its own q heads read
+    (its q heads hold whole kv groups, or lie in one), and its gradient
+    for k and v is a partial sum over the model axis. Otherwise all
+    three are replicated over it (56 heads on 16 ranks)."""
+    mesh = q.device_mesh
+    m = mesh_axes(mesh).get(ctx.tp, 1)
+    hq, hk = q.shape[2], k.shape[2]
+    per, group = hq // m, hq // hk
+    sliced = hk % m != 0 and hq % m == 0 and (
+        per % group == 0 or group % per == 0)
+    # lint: disable=HS002,TS004 — head counts are host ints
+    heads = "tp" if hk % m == 0 else None
+    # lint: disable=HS002,TS004 — as above
+    q = ctx.constrain(q, "dp", None, "tp" if sliced else heads, None)
+    k, v = (ctx.constrain(t, "dp", None, heads, None) for t in (k, v))
+    q_pos = ctx.constrain(q_pos, "dp", None)
+    if kv_len is not None:
+        kv_len = local(ctx.constrain(replicated_like(kv_len, q), "dp"))
+    kl, vl = local(k, over=q), local(v, over=q)
+    # lint: disable=HS002,TS004 — as above
+    if sliced:
+        lo = mesh.get_local_rank(mesh.mesh_dim_names.index(ctx.tp)) * per \
+            // group
+        kl, vl = (t[:, :, lo:lo + max(1, per // group)] for t in (kl, vl))
+    out = _attention(cfg, local(q), kl, vl, local(q_pos), kv_len, causal)
+    out = from_shards(out, [(q, {0: 0, 2: 2})])
+    return ctx.constrain(out, "dp", None, "tp", None)
+
+
+def _attention(cfg: ModelConfig, q, k, v, q_pos, kv_len, causal):
+    """`attention` of plain tensors: (B, S, Hq, D)."""
     b, s, hq, d = q.shape
     t = k.shape[1]
     hk = k.shape[2]
@@ -358,8 +475,7 @@ def attention(cfg: ModelConfig, q, k, v, q_pos, kv_len=None, *,
     else:
         out = _chunked_attention(qg, k, v, q_pos, k_pos, kv_len, causal,
                                  cfg.attn_chunk)
-    out = out.reshape(b, s, hq, d)
-    return ctx.constrain(out, "dp", None, "tp", None)
+    return out.reshape(b, s, hq, d)
 
 
 # --------------------------------------------------------------------------
@@ -390,18 +506,28 @@ def attn_init(cfg: ModelConfig, layers: Optional[int] = None):
     return p
 
 
-def attn_qkv(cfg: ModelConfig, p, x, pos, *, use_rope=True):
+def split_heads(t, h: int, hd: int, ctx: ShardCtx = NO_SHARD):
+    """(B, S, h*hd) -> (B, S, h, hd). A DTensor whose last dim is sharded
+    over the model axis is gathered over it first when that axis does not
+    divide h: DTensor splits a sharded dim evenly only (GSPMD would pad:
+    56 heads to 64); the heads then run replicated over the model axis."""
+    if not model_axis_divides(t, h, ctx):
+        t = ctx.constrain(t, "dp", None, None)
+    return t.reshape(t.shape[0], t.shape[1], h, hd)
+
+
+def attn_qkv(cfg: ModelConfig, p, x, pos, *, use_rope=True,
+             ctx: ShardCtx = NO_SHARD):
     """Project + (optionally) rotate. Returns q (B,S,Hq,hd), k/v (B,S,Hk,hd)."""
-    b, s, _ = x.shape
     hq, hk, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hk, hd)
-    v = v.reshape(b, s, hk, hd)
+    q = split_heads(q, hq, hd, ctx)
+    k = split_heads(k, hk, hd, ctx)
+    v = split_heads(v, hk, hd, ctx)
     if use_rope and cfg.rope != "none":
         fr = rope_fraction(cfg)
         q = rope(q, pos, cfg.rope_theta, fr)
@@ -409,9 +535,14 @@ def attn_qkv(cfg: ModelConfig, p, x, pos, *, use_rope=True):
     return q, k, v
 
 
-def attn_out(p, o):
+def attn_out(p, o, ctx: ShardCtx = NO_SHARD):
+    """The output projection, its result constrained to the batch axes:
+    a DTensor's head-sharded contraction leaves a partial sum, reduced
+    here (Megatron's all-reduce after the row-parallel matmul); left
+    partial, the norm after the residual add would make DTensor gather the
+    next matmul's weight and run it on every model rank."""
     b, s = o.shape[:2]
-    return o.reshape(b, s, -1) @ p["wo"]
+    return ctx.constrain(o.reshape(b, s, -1) @ p["wo"], "dp", None, None)
 
 
 def cache_write(cache, new, start):
@@ -423,6 +554,10 @@ def cache_write(cache, new, start):
     dynamic_update_slice would clamp the start instead)."""
     idx = start.to(torch.int64) + torch.arange(new.shape[1],
                                                device=cache.device)
+    if is_dtensor(cache):     # on each rank's shard, new placed as cache
+        new = new.redistribute(cache.device_mesh, cache.placements)
+        local(cache).index_copy_(1, local(idx), local(new).to(cache.dtype))
+        return cache
     return cache.index_copy_(1, idx, new.to(cache.dtype))
 
 
@@ -472,7 +607,39 @@ def mlp_apply(cfg: ModelConfig, p, x, ctx: ShardCtx = NO_SHARD):
 
 
 def embed_tokens(embed, tokens, dtype):
+    """embed[tokens] in `dtype`; a DTensor table by `_embed_on_shards`."""
+    if is_dtensor(embed):
+        return _embed_on_shards(embed, tokens, dtype)
     return embed[tokens].to(dtype)
+
+
+def _embed_on_shards(embed, tokens, dtype):
+    """The lookup of a vocab-sharded table on each rank's shards (a
+    vocab-parallel embedding): the table gathered over every mesh dim but
+    the vocab's (an FSDP gather of its embed dim), the tokens over the
+    vocab's; each rank looks up the ids in its own vocab range and zeroes
+    the others, so the result is a partial sum over the vocab's mesh dims
+    (the caller's `constrain` reduces it)."""
+    from torch.distributed.tensor import Replicate
+    mesh = embed.device_mesh
+    vocab = [i for i, p in enumerate(embed.placements)
+             if p.is_shard() and p.dim == 0]
+    embed = embed.redistribute(mesh, [
+        p if i in vocab else Replicate()
+        for i, p in enumerate(embed.placements)])
+    tokens = tokens.redistribute(mesh, [
+        Replicate() if i in vocab else p
+        for i, p in enumerate(tokens.placements)])
+    table = local(embed, over=tokens)
+    rows = table.shape[0]
+    first = 0
+    for i in vocab:           # this rank's first id (shards in mesh order)
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    ids = local(tokens).to(torch.int64) - first * rows
+    hit = (ids >= 0) & (ids < rows)
+    out = table[ids.clamp(0, rows - 1)] * hit[..., None].to(table.dtype)
+    return from_shards(out.to(dtype), [(tokens, {0: 0, 1: 1}),
+                                       (embed, {})])
 
 
 def _out_table(cfg: ModelConfig, params):
@@ -484,18 +651,63 @@ def logits_out(cfg: ModelConfig, params, h, ctx: ShardCtx = NO_SHARD):
     return ctx.constrain(logits, "dp", None, "tp")
 
 
-def _nll(logits, labels):
-    """(per-token nll, valid mask) in f32; labels < 0 are ignored."""
+class _Pick(torch.autograd.Function):
+    """torch.gather(x, -1, idx) of (B, S, V) logits whose backward
+    scatters the gradient into zeros made like x (autograd's own makes
+    them with `new_zeros` of x's shape, which a DTensor replicates at the
+    global shape) and constrains it back to x's batch and vocab axes (a
+    DTensor scatters along an unsharded dim only): the same values."""
+
+    @staticmethod
+    def forward(ctx, x, idx, shard):
+        ctx.save_for_backward(x, idx)
+        ctx.shard = shard
+        return torch.gather(x, -1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, idx = ctx.saved_tensors
+        gx = torch.zeros_like(x).scatter_add(-1, idx, grad)
+        return ctx.shard.constrain(gx, "dp", None, "tp"), None, None
+
+
+class _LogSumExp(torch.autograd.Function):
+    """torch.logsumexp(x, -1) written out as ATen computes it (the same
+    values, bitwise), with autograd's backward for it: DTensor has no rule
+    that keeps a sharded last dim through logsumexp, but it reduces a
+    sharded amax and sum (an all-reduce of the (B, S) statistics)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = torch.amax(x, -1, keepdim=True)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        out = torch.log(torch.sum((x - m).exp_(), -1)) + m[..., 0]
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad[..., None] * (x - out[..., None]).exp()
+
+
+def _nll(logits, labels, ctx: ShardCtx = NO_SHARD):
+    """(per-token nll, valid mask) in f32; labels < 0 are ignored. The
+    label's logit is picked from the (vocab-sharded) logits and
+    constrained to the batch axes before it drops its last dim: DTensor
+    keeps a masked partial sum through the view otherwise, and cannot
+    reduce it there."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None]
-                      .to(torch.int64))[..., 0]
+    lse = _LogSumExp.apply(logits)
+    ll = _Pick.apply(logits, torch.clamp(labels, min=0)[..., None]
+                     .to(torch.int64), ctx)
+    ll = ctx.constrain(ll, "dp", None, None)[..., 0]
     return lse - ll, (labels >= 0).to(torch.float32)
 
 
-def cross_entropy(logits, labels, mask=None):
+def cross_entropy(logits, labels, mask=None, ctx: ShardCtx = NO_SHARD):
     """Token-mean CE in f32; labels < 0 are ignored."""
-    nll, valid = _nll(logits, labels)
+    nll, valid = _nll(logits, labels, ctx)
     if mask is not None:
         valid = valid * mask.to(torch.float32)
     return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
@@ -503,7 +715,7 @@ def cross_entropy(logits, labels, mask=None):
 
 def _ce_chunk(ctx, hc, w, lc):
     logits = ctx.constrain(hc @ w.to(hc.dtype), "dp", None, "tp")
-    nll, valid = _nll(logits, lc)
+    nll, valid = _nll(logits, lc, ctx)
     return (nll * valid).sum(), valid.sum()
 
 
@@ -520,7 +732,8 @@ def fused_cross_entropy(cfg: ModelConfig, params, h, labels,
     s = h.shape[1]
     c = cfg.ce_chunk
     if not c or s % c:
-        return cross_entropy(logits_out(cfg, params, h, ctx), labels)
+        return cross_entropy(logits_out(cfg, params, h, ctx), labels,
+                             ctx=ctx)
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, c):

@@ -39,8 +39,7 @@ def _spliced(cfg, params, tokens, patches, ctx):
     img = _project(cfg, params, patches)                     # (B, P, D)
     txt = embed_tokens(params["embed"], tokens, cfg.adtype)  # (B, S, D)
     h = ctx.constrain(torch.cat([img, txt], dim=1), "dp", None, None)
-    b, s = h.shape[:2]
-    return h, tf.positions_from(0, b, s, h.device)
+    return h, tf.positions_from(0, h)
 
 
 def llava_apply(cfg: ModelConfig, params, tokens, patches, *,
@@ -61,7 +60,7 @@ def llava_loss(cfg, params, batch, *, ctx: ShardCtx = NO_SHARD):
     logits, aux = llava_apply(cfg, params, tokens[:, :-1], patches, ctx=ctx)
     n_img = patches.shape[1]
     txt_logits = logits[:, n_img:]
-    loss = cross_entropy(txt_logits, tokens[:, 1:])
+    loss = cross_entropy(txt_logits, tokens[:, 1:], ctx=ctx)
     return loss + cfg.aux_loss_coef * aux, {"loss": loss}
 
 

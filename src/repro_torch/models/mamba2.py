@@ -26,9 +26,10 @@ import torch.nn.functional as F
 from repro_torch.models.config import NO_SHARD, ModelConfig, ShardCtx
 from repro_torch.models.layers import (
     apply_norm, attn_init, attn_out, attn_qkv, attention, cache_write,
-    cross_entropy, dense_init, embed_init, embed_tokens, fused_cross_entropy,
-    logits_out, meta, mlp_apply, mlp_init, norm_init, ones_init, remat,
-    rms_norm, unstack, zeros_init)
+    cross_entropy, dense_init, embed_init, embed_tokens, from_shards,
+    fused_cross_entropy, is_dtensor, local, logits_out, meta, mlp_apply,
+    mlp_init, model_axis_divides, norm_init, ones_init, remat,
+    replicated_like, rms_norm, unstack, zeros_init)
 from repro_torch.models.transformer import (
     pad_seq, position_scalar, positions_from)
 
@@ -114,7 +115,7 @@ def _causal_conv(x, w, b, cache=None):
 def _split_heads(cfg, x, bm, c, dt):
     """-> x (B,L,G,Hg,P), B/C (B,L,G,N), dt (B,L,G,Hg)."""
     b, l = x.shape[:2]
-    g, n, hh = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    g, n, hh = cfg.ssm_groups, cfg.ssm_state, x.shape[2]
     hg, p = hh // g, cfg.ssm_head_dim
     return (x.reshape(b, l, g, hg, p), bm.reshape(b, l, g, n),
             c.reshape(b, l, g, n), dt.reshape(b, l, g, hg))
@@ -211,6 +212,38 @@ def ssd_recurrent(cfg: ModelConfig, x, bm, c, dt, a_head, init_state=None):
     return torch.stack(ys, dim=1), ss
 
 
+def _ssd(cfg: ModelConfig, fn, xh, br, cr, dt, a_head, d_skip, init):
+    """The scan `fn` with its D skip: (y (B, L, H*P), final state)."""
+    b, l, h = xh.shape[:3]
+    y, new_state = fn(cfg, xh, br, cr, dt, a_head, init_state=init)
+    dmat = d_skip.reshape(1, 1, cfg.ssm_groups, h // cfg.ssm_groups, 1)
+    y = y + dmat * xh.reshape(y.shape)
+    return y.reshape(b, l, h * xh.shape[3]), new_state
+
+
+def _ssd_on_shards(cfg: ModelConfig, fn, xh, br, cr, dt, a_head, d_skip,
+                   init, *, ctx: ShardCtx):
+    """`_ssd` of DTensors on each rank's shards: the scan is local to a
+    (batch, head) shard, its einsums flatten batch and head dims that
+    DTensor cannot flatten when both are sharded. The heads are sharded
+    over the model axis where it divides them and there is one group
+    (B and C are shared by a group's heads, replicated here)."""
+    # lint: disable=HS002,TS004 — a group and head count are host ints
+    heads = "tp" if cfg.ssm_groups == 1 and model_axis_divides(
+        xh, xh.shape[2], ctx) else None
+    xh = ctx.constrain(xh, "dp", None, heads, None)
+    br, cr = (ctx.constrain(t, "dp", None, None) for t in (br, cr))
+    dt = ctx.constrain(dt, "dp", None, heads)
+    a_head, d_skip = (ctx.constrain(t, heads) for t in (a_head, d_skip))
+    if init is not None:
+        init = local(ctx.constrain(replicated_like(init, xh), "dp", None,
+                                   heads, None, None))
+    y, state = _ssd(cfg, fn, local(xh), *(local(t, over=xh) for t in (
+        br, cr, dt, a_head, d_skip)), init)
+    return (from_shards(y, [(xh, {0: 0, 2: 2})]),
+            from_shards(state, [(xh, {0: 0, 2: 2})]))
+
+
 def ssm_block_apply(cfg: ModelConfig, p, h, *, ctx: ShardCtx = NO_SHARD,
                     cache=None, mode="train"):
     """One Mamba2 block. cache = (conv_x, conv_B, conv_C, ssm_state)."""
@@ -234,12 +267,11 @@ def ssm_block_apply(cfg: ModelConfig, p, h, *, ctx: ShardCtx = NO_SHARD,
 
     use_recurrent = (mode == "decode") or l == 1
     fn = ssd_recurrent if use_recurrent else ssd_chunked
-    y, new_state = fn(cfg, xh, br, cr, dt, a_head, init_state=cc[3])
-
-    dmat = p["D"].to(xr.dtype).reshape(
-        1, 1, cfg.ssm_groups, cfg.ssm_heads // cfg.ssm_groups, 1)
-    y = y + dmat * xh.reshape(y.shape)
-    y = y.reshape(b, l, cfg.d_inner)
+    args = (xh, br, cr, dt, a_head, p["D"].to(xr.dtype), cc[3])
+    if is_dtensor(xh):
+        y, new_state = _ssd_on_shards(cfg, fn, *args, ctx=ctx)
+    else:
+        y, new_state = _ssd(cfg, fn, *args)
     y = rms_norm(y * F.silu(z), p["gate_norm"])
     out = (y @ p["wo"]).to(h.dtype)
     new_cache = (ncx, ncb, ncc, new_state)
@@ -263,17 +295,11 @@ def _scan_blocks(cfg, layers, h, ctx, cache, mode):
             h, _ = remat(cfg, functools.partial(
                 ssm_block_apply, cfg, ctx=ctx, mode=mode), lp, h)
         return h, None
-    if cache is None:  # prefill: fresh histories/states
-        k = cfg.ssm_conv - 1
-        b = h.shape[0]
-        g, hg = cfg.ssm_groups, cfg.ssm_heads // cfg.ssm_groups
-        gn = cfg.ssm_groups * cfg.ssm_state
-        shapes = ((nl, b, k, cfg.d_inner), (nl, b, k, gn), (nl, b, k, gn),
-                  (nl, b, g, hg, cfg.ssm_state, cfg.ssm_head_dim))
-        cache = tuple(torch.zeros(s, dtype=h.dtype, device=h.device)
-                      for s in shapes)
+    # prefill: fresh histories and states, zeros that each block makes
+    # (the conv's history, the scan's initial state) for its layer only
+    caches = unstack(cache) if cache is not None else [None] * nl
     new = []
-    for lp, lc in zip(layers, unstack(cache)):
+    for lp, lc in zip(layers, caches):
         h, nc = ssm_block_apply(cfg, lp, h, ctx=ctx, cache=lc, mode=mode)
         new.append(nc)
     return h, tuple(torch.stack(parts) for parts in zip(*new))
@@ -302,7 +328,7 @@ def mamba_lm_loss(cfg, params, batch, *, ctx: ShardCtx = NO_SHARD):
         loss = fused_cross_entropy(cfg, params, h, labels, ctx)
         return loss, {"loss": loss}
     logits, _ = mamba_lm_apply(cfg, params, inp, ctx=ctx)
-    loss = cross_entropy(logits, labels)
+    loss = cross_entropy(logits, labels, ctx=ctx)
     return loss, {"loss": loss}
 
 
@@ -368,7 +394,7 @@ def _shared_block(cfg, sp, use_idx, h, h0, positions, ctx,
     decode, `kv` is this use's slice of the cache, written in place."""
     u = torch.cat([h, h0], dim=-1) @ sp["w_in"]
     a_in = apply_norm(cfg, u, sp["attn_norm"])
-    q, k, v = attn_qkv(cfg, sp["attn"], a_in, positions)
+    q, k, v = attn_qkv(cfg, sp["attn"], a_in, positions, ctx=ctx)
     if mode == "decode":
         kc = cache_write(kv[0], k, start)
         vc = cache_write(kv[1], v, start)
@@ -379,7 +405,7 @@ def _shared_block(cfg, sp, use_idx, h, h0, positions, ctx,
     else:
         out = attention(cfg, q, k, v, positions, causal=True, ctx=ctx)
         new_kv = (k, v)
-    u = u + attn_out(sp["attn"], out).to(u.dtype)
+    u = u + attn_out(sp["attn"], out, ctx).to(u.dtype)
     u = u + mlp_apply(cfg, sp["mlp"], apply_norm(cfg, u, sp["mlp_norm"]), ctx)
     return h + u @ sp["w_out"][use_idx], new_kv
 
@@ -394,7 +420,7 @@ def zamba_apply(cfg: ModelConfig, params, tokens, *, ctx: ShardCtx = NO_SHARD,
     ns = _num_shared(cfg)
     every = max(cfg.attn_every, 1)
     start = cache["pos"] if mode == "decode" else 0
-    positions = positions_from(start, b, s, tokens.device)
+    positions = positions_from(start, tokens)
 
     h = embed_tokens(params["embed"], tokens, cfg.adtype)
     h = ctx.constrain(h, "dp", None, None)
@@ -441,7 +467,7 @@ def zamba_apply(cfg: ModelConfig, params, tokens, *, ctx: ShardCtx = NO_SHARD,
 def zamba_loss(cfg, params, batch, *, ctx: ShardCtx = NO_SHARD):
     tokens = batch["tokens"]
     logits, _ = zamba_apply(cfg, params, tokens[:, :-1], ctx=ctx)
-    loss = cross_entropy(logits, tokens[:, 1:])
+    loss = cross_entropy(logits, tokens[:, 1:], ctx=ctx)
     return loss, {"loss": loss}
 
 

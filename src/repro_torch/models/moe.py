@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import NO_SHARD, ModelConfig, ShardCtx
-from repro_torch.models.layers import activate, dense_init
+from repro_torch.models.layers import (activate, dense_init, from_shards,
+                                       is_dtensor, local, model_axis_divides)
 
 def moe_init(cfg: ModelConfig, layers: Optional[int] = None):
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
@@ -62,6 +63,40 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _experts(cfg: ModelConfig, p, xg, dispatch, combine,
+             ctx: ShardCtx = NO_SHARD):
+    """The experts' MLP on their capacity slots and the combine: (G, Sg,
+    D)."""
+    dt = xg.dtype
+    exp_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    exp_in = ctx.constrain(exp_in, "tp", "dp", None, None)
+    u = torch.einsum("egcd,edf->egcf", exp_in, p["wu"].to(dt))
+    gate = (torch.einsum("egcd,edf->egcf", exp_in, p["wg"].to(dt))
+            if cfg.act.endswith("_glu") else None)
+    h = activate(cfg.act, gate, u)
+    out_e = torch.einsum("egcf,efd->egcd", h, p["wo"].to(dt))
+    out_e = ctx.constrain(out_e, "tp", "dp", None, None)
+    return torch.einsum("egcd,gsec->gsd", out_e, combine.to(dt))
+
+
+def _experts_on_shards(cfg: ModelConfig, p, xg, dispatch, combine, ctx):
+    """`_experts` of DTensors on each rank's shards (expert parallelism):
+    the groups over the batch axes, the experts over the model axis (the
+    reference's constraints on exp_in and out_e), the expert weights
+    gathered over any other axis (FSDP's gather of arctic's embed dim).
+    Each rank combines its own experts' outputs, a partial sum over the
+    model axis."""
+    ex = "tp" if model_axis_divides(xg, cfg.n_experts, ctx) else None
+    xg = ctx.constrain(xg, "dp", None, None)
+    dispatch, combine = (ctx.constrain(t, "dp", None, ex, None)
+                         for t in (dispatch, combine))
+    w = {k: local(ctx.constrain(p[k], ex, None, None), over=dispatch)
+         for k in ("wu", "wg", "wo") if k in p}
+    y = _experts(cfg, w, local(xg, over=dispatch), local(dispatch),
+                 local(combine))
+    return from_shards(y, [(xg, {0: 0, 1: 1}), (dispatch, {0: 0, 1: 1})])
+
+
 def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
               ctx: ShardCtx = NO_SHARD):
     """x (B, S, D) -> (y (B, S, D), aux_loss scalar)."""
@@ -80,29 +115,29 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor,
     gate_w, gate_i = top_k(probs, k)                   # (G, Sg, K)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
 
-    counts = torch.zeros((g, e), dtype=torch.float32, device=x.device)
-    dispatch = torch.zeros((g, group, e, cap), dtype=x.dtype, device=x.device)
-    combine = torch.zeros((g, group, e, cap), dtype=torch.float32,
-                          device=x.device)
+    # the counts, dispatch and combine start from the first choice's
+    # terms (all >= +0, so adding them to zeros would change no bit): no
+    # zero tensors are made, which a DTensor would replicate at the
+    # global (G, Sg, E, C)
+    counts = dispatch = combine = None
     for j in range(k):
         oh = one_hot(gate_i[..., j], e)
-        pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
+        pos = torch.cumsum(oh, dim=1) - oh
+        if counts is not None:
+            pos = pos + counts[:, None, :]
         keep = oh * (pos < cap)
-        counts = counts + keep.sum(dim=1)
+        kept = keep.sum(dim=1)
+        counts = kept if counts is None else counts + kept
         slot = one_hot(torch.clamp(pos, max=cap - 1).to(torch.int64),
                        cap) * keep[..., None]
-        dispatch = dispatch + slot.to(x.dtype)
-        combine = combine + slot * gate_w[..., j, None, None]
+        d_j, c_j = slot.to(x.dtype), slot * gate_w[..., j, None, None]
+        dispatch = d_j if dispatch is None else dispatch + d_j
+        combine = c_j if combine is None else combine + c_j
 
-    exp_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
-    exp_in = ctx.constrain(exp_in, "tp", "dp", None, None)
-    u = torch.einsum("egcd,edf->egcf", exp_in, p["wu"].to(x.dtype))
-    gate = (torch.einsum("egcd,edf->egcf", exp_in, p["wg"].to(x.dtype))
-            if cfg.act.endswith("_glu") else None)
-    h = activate(cfg.act, gate, u)
-    out_e = torch.einsum("egcf,efd->egcd", h, p["wo"].to(x.dtype))
-    out_e = ctx.constrain(out_e, "tp", "dp", None, None)
-    y = torch.einsum("egcd,gsec->gsd", out_e, combine.to(x.dtype))
+    if is_dtensor(xg):
+        y = _experts_on_shards(cfg, p, xg, dispatch, combine, ctx)
+    else:
+        y = _experts(cfg, p, xg, dispatch, combine, ctx)
 
     # Switch-style load-balance aux loss: E * sum_e f_e * P_e.
     frac = dispatch.to(torch.float32).sum(dim=(1, 3)) / group   # (G, E)

@@ -19,8 +19,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import NO_SHARD, ModelConfig, ShardCtx
 from repro_torch.models.layers import (
     apply_norm, attn_init, attn_out, attn_qkv, attention, cache_write,
-    cross_entropy, dense_init, embed_init, embed_tokens, fused_cross_entropy,
-    logits_out, meta, mlp_apply, mlp_init, norm_init, remat, unstack)
+    cross_entropy, dense_init, embed_init, embed_tokens, from_shards,
+    fused_cross_entropy, is_dtensor, local, logits_out, meta, mlp_apply,
+    mlp_init, norm_init, remat, unstack)
 
 
 def lm_decls(cfg: ModelConfig):
@@ -48,16 +49,20 @@ def lm_decls(cfg: ModelConfig):
     return tree
 
 
-def positions_from(start, b: int, s: int, device):
-    """(B, S) absolute positions start + arange(s); start an int or a
-    device scalar."""
-    pos = torch.arange(s, device=device)[None] + start
-    return pos.expand(b, s)
+def positions_from(start, like):
+    """(B, S) absolute positions start + arange(S) for `like` (B, S, ...),
+    int64, made like like's leading dims (under DTensor: placed as they
+    are, batch-sharded, where an arange alone would be replicated at the
+    global batch); start an int or a device scalar."""
+    b, s = like.shape[:2]
+    rows = like.reshape(b, s, -1)[:, :, 0]
+    pos = torch.arange(s, device=like.device)[None] + start
+    return torch.zeros_like(rows, dtype=torch.int64) + pos
 
 
 def _block(cfg, ctx, h, aux, lp, kc, vc, positions, start, mode):
     a_in = apply_norm(cfg, h, lp["attn_norm"])
-    q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions)
+    q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, ctx=ctx)
     if mode == "decode":
         kc = cache_write(kc, k, start)
         vc = cache_write(vc, v, start)
@@ -68,7 +73,7 @@ def _block(cfg, ctx, h, aux, lp, kc, vc, positions, start, mode):
     else:
         out = attention(cfg, q, k, v, positions, causal=True, ctx=ctx)
         ys = (k, v) if mode == "prefill" else None
-    h = h + attn_out(lp["attn"], out).to(h.dtype)
+    h = h + attn_out(lp["attn"], out, ctx).to(h.dtype)
     m_in = apply_norm(cfg, h, lp["mlp_norm"])
     delta = None
     if "mlp" in lp:
@@ -112,9 +117,7 @@ def forward_hidden(cfg: ModelConfig, params, h, positions, *,
 def lm_apply(cfg: ModelConfig, params, tokens, *, ctx: ShardCtx = NO_SHARD,
              cache=None, start=0, mode: str = "train"):
     """tokens (B, S) -> (logits (B, S, V), aux, cache_ys)."""
-    b, s = tokens.shape
-    positions = positions_from(start if mode == "decode" else 0, b, s,
-                               tokens.device)
+    positions = positions_from(start if mode == "decode" else 0, tokens)
     h = embed_tokens(params["embed"], tokens, cfg.adtype)
     h = ctx.constrain(h, "dp", None, None)
     h, aux, ys = forward_hidden(cfg, params, h, positions, ctx=ctx,
@@ -131,8 +134,7 @@ def lm_loss(cfg: ModelConfig, params, batch, *, ctx: ShardCtx = NO_SHARD):
     inp, labels = tokens[:, :-1], tokens[:, 1:]
     if cfg.ce_chunk:
         # fused CE path: full (B, S, V) logits never materialize
-        b, s = inp.shape
-        positions = positions_from(0, b, s, inp.device)
+        positions = positions_from(0, inp)
         h = embed_tokens(params["embed"], inp, cfg.adtype)
         h = ctx.constrain(h, "dp", None, None)
         h, aux, _ = forward_hidden(cfg, params, h, positions, ctx=ctx)
@@ -140,7 +142,7 @@ def lm_loss(cfg: ModelConfig, params, batch, *, ctx: ShardCtx = NO_SHARD):
         loss = fused_cross_entropy(cfg, params, h, labels, ctx)
     else:
         logits, aux, _ = lm_apply(cfg, params, inp, ctx=ctx)
-        loss = cross_entropy(logits, labels)
+        loss = cross_entropy(logits, labels, ctx=ctx)
     total = loss + cfg.aux_loss_coef * aux
     return total, {"loss": loss, "aux_loss": aux}
 
@@ -151,8 +153,12 @@ def lm_loss(cfg: ModelConfig, params, batch, *, ctx: ShardCtx = NO_SHARD):
 
 
 def pad_seq(t, cache_len: int, dim: int = 2):
-    """Zero-pad axis `dim` of t up to cache_len."""
+    """Zero-pad axis `dim` of t up to cache_len (a DTensor on each rank's
+    shard: axis `dim` is not sharded)."""
     pad = [0, 0] * (t.dim() - 1 - dim) + [0, cache_len - t.shape[dim]]
+    if is_dtensor(t):
+        return from_shards(F.pad(local(t), pad),
+                           [(t, {d: d for d in range(t.dim())})])
     return F.pad(t, pad)
 
 

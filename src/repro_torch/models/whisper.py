@@ -17,7 +17,7 @@ from repro_torch.models.config import NO_SHARD, ModelConfig, ShardCtx
 from repro_torch.models.layers import (
     apply_norm, attn_init, attn_out, attn_qkv, attention, cache_write,
     checkpointed, cross_entropy, embed_init, embed_tokens, meta, mlp_apply,
-    mlp_init, norm_init, unstack)
+    mlp_init, norm_init, split_heads, unstack)
 from repro_torch.models.transformer import (
     pad_seq, position_scalar, positions_from)
 
@@ -54,9 +54,10 @@ def _remat(cfg, fn, *args):
 
 def _enc_block(cfg, ctx, positions, lp, h):
     a_in = apply_norm(cfg, h, lp["attn_norm"])
-    q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, use_rope=False)
+    q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, use_rope=False,
+                       ctx=ctx)
     out = attention(cfg, q, k, v, positions, causal=False, ctx=ctx)
-    h = h + attn_out(lp["attn"], out).to(h.dtype)
+    h = h + attn_out(lp["attn"], out, ctx).to(h.dtype)
     m_in = apply_norm(cfg, h, lp["mlp_norm"])
     return ctx.constrain(h + mlp_apply(cfg, lp["mlp"], m_in, ctx),
                          "dp", None, None)
@@ -69,7 +70,8 @@ def _dec_block(cfg, ctx, positions, lp, h, enc_out, kc=None, vc=None,
     cached cross K/V xkv), the MLP. Returns (h, self k, self v, xk, xv)."""
     b, s = h.shape[:2]
     a_in = apply_norm(cfg, h, lp["attn_norm"])
-    q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, use_rope=False)
+    q, k, v = attn_qkv(cfg, lp["attn"], a_in, positions, use_rope=False,
+                       ctx=ctx)
     if kc is not None:
         kc = cache_write(kc, k, start)
         vc = cache_write(vc, v, start)
@@ -78,20 +80,20 @@ def _dec_block(cfg, ctx, positions, lp, h, enc_out, kc=None, vc=None,
                         causal=True, ctx=ctx)
     else:
         out = attention(cfg, q, k, v, positions, causal=True, ctx=ctx)
-    h = h + attn_out(lp["attn"], out).to(h.dtype)
+    h = h + attn_out(lp["attn"], out, ctx).to(h.dtype)
 
     # cross attention
     x_in = apply_norm(cfg, h, lp["xattn_norm"])
-    xq = (x_in @ lp["xattn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    xq = split_heads(x_in @ lp["xattn"]["wq"], cfg.n_heads, cfg.hd, ctx)
     if xkv is not None:
         xk, xv = xkv
     else:
-        xk = (enc_out @ lp["xattn"]["wk"]).reshape(
-            b, -1, cfg.kv_heads, cfg.hd)
-        xv = (enc_out @ lp["xattn"]["wv"]).reshape(
-            b, -1, cfg.kv_heads, cfg.hd)
+        xk = split_heads(enc_out @ lp["xattn"]["wk"], cfg.kv_heads, cfg.hd,
+                         ctx)
+        xv = split_heads(enc_out @ lp["xattn"]["wv"], cfg.kv_heads, cfg.hd,
+                         ctx)
     out = attention(cfg, xq, xk, xv, positions, causal=False, ctx=ctx)
-    h = h + attn_out(lp["xattn"], out).to(h.dtype)
+    h = h + attn_out(lp["xattn"], out, ctx).to(h.dtype)
 
     m_in = apply_norm(cfg, h, lp["mlp_norm"])
     h = ctx.constrain(h + mlp_apply(cfg, lp["mlp"], m_in, ctx),
@@ -104,7 +106,7 @@ def encode(cfg: ModelConfig, params, frames, *, ctx: ShardCtx = NO_SHARD):
     b, s, _ = frames.shape
     h = frames.to(cfg.adtype) + params["enc_pos"][None, :s].to(cfg.adtype)
     h = ctx.constrain(h, "dp", None, None)
-    positions = positions_from(0, b, s, frames.device)
+    positions = positions_from(0, frames)
     for lp in unstack(params["enc_blocks"]):
         h = _remat(cfg, _enc_block, cfg, ctx, positions, lp, h)
     return apply_norm(cfg, h, params["enc_final_norm"])
@@ -119,8 +121,7 @@ def decode_stack(cfg: ModelConfig, params, tokens, enc_out, *,
     computed from enc_out and emitted.
     """
     b, s = tokens.shape
-    positions = positions_from(start if mode == "decode" else 0, b, s,
-                               tokens.device)
+    positions = positions_from(start if mode == "decode" else 0, tokens)
     h = embed_tokens(params["embed"], tokens, cfg.adtype)
     if mode == "decode":  # start is a device scalar: gather the rows
         ppos = params["dec_pos"].index_select(0, positions[0])
@@ -156,7 +157,7 @@ def whisper_loss(cfg, params, batch, *, ctx: ShardCtx = NO_SHARD):
     enc_out = encode(cfg, params, batch["frames"], ctx=ctx)
     tokens = batch["tokens"]
     logits, _ = decode_stack(cfg, params, tokens[:, :-1], enc_out, ctx=ctx)
-    loss = cross_entropy(logits, tokens[:, 1:])
+    loss = cross_entropy(logits, tokens[:, 1:], ctx=ctx)
     return loss, {"loss": loss}
 
 

@@ -27,7 +27,8 @@ MODULES = ["repro_torch.core.api", "repro_torch.core.eval",
            "repro_torch.models.api", "repro_torch.optim.optimizers",
            "repro_torch.optim.compression", "repro_torch.data.pipeline",
            "repro_torch.training.step", "repro_torch.launch.mesh",
-           "repro_torch.launch.train"]
+           "repro_torch.launch.train", "repro_torch.launch.dryrun",
+           "repro_torch.launch.hlo_analysis", "repro_torch.obs.report"]
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -25,7 +25,10 @@ bf16; also runnable alone as 16a, 16b and 16c; no
 kernel runs there, but the build comes first all the same) and 17 (LM
 training: 17a, the ten archs' train step at SMOKE on the card against
 the CPU, 17b, the launcher's resume, 17c, internlm2-1.8b at FULL in
-bf16, 17d, granite-moe and mamba2 at FULL; each also alone). A failing
+bf16, 17d, granite-moe and mamba2 at FULL; each also alone) and 18 (the
+LM dry run: 18a, 17c's step dry run on one device against a real step
+under the same cost analysis, 18b, gemma-7b and arctic-480b train_4k on
+the fake 256- and 512-rank meshes in a subprocess; each also alone). A failing
 phase
 prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
@@ -119,6 +122,9 @@ def main() -> int:
         "17b": lambda: c.phase_train(dev, smi, ("17b",)),
         "17c": lambda: c.phase_train(dev, smi, ("17c",)),
         "17d": lambda: c.phase_train(dev, smi, ("17d",)),
+        "18": lambda: c.phase_dryrun(dev, smi),
+        "18a": lambda: c.phase_dryrun(dev, smi, ("18a",)),
+        "18b": lambda: c.phase_dryrun(dev, smi, ("18b",)),
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:
