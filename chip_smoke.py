@@ -7,7 +7,9 @@ Phases (each asserts; any failure exits non-zero):
 
  1. device line (nvidia-smi name and power limit), torch version, and the
     build of every CUDA kernel from `src/repro_torch/kernels/csrc/`
-    (one nvcc per source, started together);
+    (one nvcc per source, started together; 18b's subprocess and 17b's
+    and 19b's launcher runs, which time nothing, run beside it and end
+    before phase 2);
  2. batch_cluster kernel vs its plain PyTorch version (phases 2, 2f, 2g
     and 3 end with their kernel's systems-axis cases, SYSTEMS_W stacked
     systems against the plain version and each against its own
@@ -128,12 +130,12 @@ Phases (each asserts; any failure exits non-zero):
     the launches a call (2/2/0/0 and 0/2/1/1 whatever W is), each system
     against an f64 direct sum (1e-5, FORCE_BAR) and within 1e-6 of its
     single plan, each lane kernel on the stacked shapes against its
-    bound and each kernel against its plain version on the first 64
-    batch rows of every system; (12b) a 5-kappa scan over one geometry
-    under torch.cuda.set_sync_debug_mode("error"); (12c) ServeFrontend
-    on 24 requests, then the same 24 (compiles <= buckets x 2 kinds; the
-    second pass 0 compiles, retraces and capacity growths; every request
-    against a single plan); (12d) an 8-replica EnsembleMD (launches a
+    bound and each kernel against its plain version on the first
+    SERVE_ROWS batch rows of every system; (12b) a 5-kappa scan over one
+    geometry under torch.cuda.set_sync_debug_mode("error"); (12c)
+    ServeFrontend on 24 requests, then the same 24 (compiles <= buckets
+    x 2 kinds; the second pass 0 compiles, retraces and capacity growths;
+    every request against a single plan); (12d) an 8-replica EnsembleMD (launches a
     step, every replica against its own Simulation(rebuild="never") and
     its energy balance); 12b, 12c (each bucket's last flush) and 12d (the
     refitted, skin-gated stack) also hold every kernel against its plain
@@ -249,6 +251,25 @@ Phases (each asserts; any failure exits non-zero):
     before the build, it runs on the CPU during it): both `ok`,
     their dry_run_s, per-device bytes, fits_hbm, roofline terms and
     collectives printed;
+ 19. the LM launcher on a mesh of several ranks (`launch.train`,
+    `launch.mesh.start_group`, `checkpoint.store` on DTensors; plain
+    PyTorch, no kernel), its ranks torchrun processes sharing cuda:0
+    under gloo (NCCL takes one card a rank): (19a) internlm2-1.8b at
+    FULL in bf16 with remat, AdamW lr 1e-4, on a (data 2, model 1) mesh,
+    1 x 2048 tokens a rank, 3 steps, beside one rank on the same 2 x 2048
+    tokens from the same parameters: each step's loss within
+    MESH_LOSS_REL and grad norm within MESH_GNORM_REL; each rank's
+    max_memory_allocated and the step times printed (gloo moves the
+    gradient exchange through host memory: no measure of NCCL); (19b)
+    the launcher at internlm2 SMOKE on 2 ranks, 20 steps with
+    checkpoints at 10 and 20, then one rank from the same directory to
+    40 ("resumed from step 20"), against an uninterrupted one-rank
+    40-step run: the step-40 checkpoints within MESH_RESUME_REL a leaf;
+    (19c) the four example twins on the card: quickstart at N = 20000
+    (error <= 1e-5), `md_nbody_torch.py --n 1500 --steps 200` (energy
+    drift <= ENERGY_BAR, 0 retraces), `figure4_sweep_torch.py
+    --kappa-only` (one compile, the distances growing with kappa) and
+    `train_lm_torch.py --steps 100` (the loss falls by TRAIN_LM_FALL);
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound), the device line, and the final status line.
 
@@ -2873,6 +2894,10 @@ SERVE_REQUEST_SIZES = (50_000, 60_000, 100_000)
 SERVE_KAPPAS = (0.5, 1.0, 2.0)
 SERVE_MD_M = 32
 SERVE_MD_STEPS = 20
+# 12a: the batch rows of every system on which each kernel is held against
+# its plain version, as in 12b and 12c (the plain field version's sweep
+# over 64 took ~180 s of the script's time limit)
+SERVE_ROWS = 16
 
 
 def serve_config(kernel="yukawa"):
@@ -3003,8 +3028,8 @@ def phase_serve_ensemble(dev, smi):
     of the 8 single-system plans' times, the launches a call, each system
     against an f64 direct sum and against its own single-system plan,
     each lane kernel on the stacked shapes against its bound, and each
-    kernel against its plain version on the first 64 batch rows of every
-    system."""
+    kernel against its plain version on the first SERVE_ROWS batch rows
+    of every system."""
     import numpy as np
     import torch
     from repro_torch.core import eval as ev
@@ -3139,7 +3164,7 @@ def phase_serve_ensemble(dev, smi):
                a["mc_chunk_ptr"], a["node_lo"], a["node_hi"])
     mc_ms = event_ms(lambda: ops.modified_charges_ranged(
         *mc_args, degree=degree, backend="cuda"), 7)
-    rows = 64
+    rows = SERVE_ROWS
     worst = stacked_rows_check(a, slab, kp, cfg, plan.kernel, "12a", rows)
     print("[12a] stacked lanes (W = 8, CUDA events, median of 5): "
           + "; ".join(lines), flush=True)
@@ -4669,34 +4694,17 @@ def phase_train_smoke(dev, archs=None):
     return worst
 
 
-def phase_train_launcher(dev):
-    """17b: the launcher (`python -m repro_torch.launch.train`) at
-    internlm2-1.8b's SMOKE config on the card, in subprocesses: 20 steps
-    with a checkpoint every 10, then 40 steps from the same directory
-    (it must print "resumed from step 20"), beside one uninterrupted
-    40-step run; the two step-40 checkpoints (params and optimizer
-    state) equal bitwise."""
+def train_launcher_runs(dev):
+    """17b's runs and checks (`phase_train_launcher`); (leaves, the
+    resumed run's last step line, seconds)."""
     import tempfile
     import numpy as np
 
-    env = dict(os.environ, PYTHONPATH=SRC)
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             "internlm2-1.8b", "--smoke", "--device", str(dev)]
 
     def start(*args):
-        return subprocess.Popen(base + list(args), env=env, cwd=ROOT,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-
-    def finish(proc, what):
-        try:
-            out, _ = proc.communicate(timeout=300)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        assert proc.returncode == 0, (what, out[-3000:])
-        return out
+        return start_proc(base + list(args))
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -4704,8 +4712,10 @@ def phase_train_launcher(dev):
         first = start("--steps", "20", "--ckpt-every", "10", "--ckpt-dir",
                       cut)
         one = start("--steps", "40", "--ckpt-dir", whole)
-        out1, out_whole = finish(first, "20 steps"), finish(one, "40 steps")
-        out2 = finish(start("--steps", "40", "--ckpt-dir", cut), "resume")
+        out1 = finish_proc(first, "20 steps")
+        out_whole = finish_proc(one, "40 steps")
+        out2 = finish_proc(start("--steps", "40", "--ckpt-dir", cut),
+                           "resume")
         assert "resumed from step 20" in out2, out2[-2000:]
         assert "resumed" not in out1 + out_whole
         a, b = (os.path.join(d, "step_40") for d in (cut, whole))
@@ -4721,13 +4731,26 @@ def phase_train_launcher(dev):
             assert x.tobytes() == y.tobytes(), f"{key} differs"
         leaves = len(ma)
     last = [l for l in out2.splitlines() if l.startswith("step")][-1]
+    return leaves, last, time.perf_counter() - t0
+
+
+def phase_train_launcher(dev, started=None):
+    """17b: the launcher (`python -m repro_torch.launch.train`) at
+    internlm2-1.8b's SMOKE config on the card, in subprocesses: 20 steps
+    with a checkpoint every 10, then 40 steps from the same directory
+    (it must print "resumed from step 20"), beside one uninterrupted
+    40-step run; the two step-40 checkpoints (params and optimizer
+    state) equal bitwise. `started`: a `Background` of
+    `train_launcher_runs`, if they ran earlier (during the build)."""
+    leaves, last, secs = (started.result() if started
+                          else train_launcher_runs(dev))
     print(f"[17b] launcher at internlm2-1.8b SMOKE on the card: 20 steps "
           f"(checkpoints at 10, 20), then 40 from the same directory "
           f"(printed 'resumed from step 20'; {last.strip()!r}), beside one "
           f"uninterrupted 40-step run: the step-40 checkpoints equal "
           f"bitwise in all {leaves} leaves (params and AdamW state); "
-          f"{time.perf_counter() - t0:.1f} s for the three runs",
-          flush=True)
+          f"{secs:.1f} s for the three runs"
+          f"{' (during the kernel build)' if started else ''}", flush=True)
 
 
 def train_model_flops(cfg, b, s):
@@ -4935,15 +4958,16 @@ def phase_train_full(dev, smi, tag, arch, b, s, steps, warm, timed, warmup,
     return med
 
 
-def phase_train(dev, smi, parts=("17a", "17b", "17c", "17d")):
+def phase_train(dev, smi, parts=("17a", "17b", "17c", "17d"),
+                started=None):
     """Phase 17: LM training (`repro_torch.training`; plain PyTorch, no
-    kernel of its own)."""
+    kernel of its own). `started`: 17b's runs, if they ran earlier."""
     import torch
     t0 = time.perf_counter()
     if "17a" in parts:
         phase_train_smoke(dev)
     if "17b" in parts:
-        phase_train_launcher(dev)
+        phase_train_launcher(dev, started)
     for i, row in enumerate(TRAIN_FULL):
         tag = "[17c]" if i == 0 else "[17d]"
         if tag[1:-1] in parts:
@@ -5101,6 +5125,397 @@ def phase_dryrun(dev, smi, parts=("18a", "18b"), started=None):
     print(f"[18] phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# 19: the launcher on a mesh of several ranks (gloo on one card)
+MESH_LOSS_REL = 2e-3        # 19a: a step's loss, 2 ranks against 1, bf16
+MESH_GNORM_REL = 1e-2       # 19a: a step's grad norm
+# 19a: (arch, ranks, tokens a rank, steps, AdamW warmup) at FULL width
+MESH_FULL = ("internlm2-1.8b", 2, 2048, 3, 5)
+MESH_FREE_GIB = 68          # 19a: 2 x 33.35 GiB a rank (PERF.md §5)
+MESH_RESUME_REL = 1e-5      # 19b: step-40 checkpoints, a leaf (the tests')
+TRAIN_LM_FALL = 0.2         # 19c: train_lm's last loss below its first
+
+
+def mesh_train(argv):
+    """One rank of a 19a / 19m run: the launcher's `train` on its host
+    mesh (`launch.mesh.start_group`, `make_host_mesh`), with AdamW and an
+    `on_step` that synchronizes and keeps each step's metrics. argv: the
+    record's path, AdamW's warmup and lr, the model axis, then the
+    launcher's flags. Writes {rank, losses, gnorms, step_ms (from step 1
+    on), peak} to <path>.<rank> and returns it."""
+    import contextlib
+    import io
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh, start_group
+    from repro_torch.optim.optimizers import AdamW
+
+    out, warmup, lr, model_axis = argv[:4]
+    args = launch.parser().parse_args(argv[4:])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = start_group(args.device, args.dist_backend)
+    cuda = dev.type == "cuda"
+    marks, losses, gnorms = [], [], []
+
+    def on_step(step, m):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        marks.append(time.perf_counter())
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_host_mesh(int(model_axis), device_type=dev.type)
+    with contextlib.redirect_stdout(io.StringIO()):   # the launcher's log
+        launch.train(args, mesh, dev, opt=AdamW(lr=float(lr),
+                                                warmup=int(warmup)),
+                     on_step=on_step)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    rec = dict(rank=rank, losses=[float(launch.whole(x)) for x in losses],
+               gnorms=[float(launch.whole(x)) for x in gnorms],
+               step_ms=[(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+               peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(rec, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return rec
+
+
+def mesh_script(tmp):
+    """A script that runs `mesh_train` on its arguments (for torchrun)."""
+    path = os.path.join(tmp, "mesh_run.py")
+    with open(path, "w") as f:
+        f.write(f"import sys\nsys.path.insert(0, {ROOT!r})\nimport chip_smoke"
+                f"\nchip_smoke.mesh_train(sys.argv[1:])\n")
+    return path
+
+
+def torchrun(ranks):
+    """The command that starts `ranks` torchrun processes on this host."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(ranks)]
+
+
+def start_proc(cmd):
+    """A subprocess of the checkout (PYTHONPATH src), output captured, in
+    a session of its own (so `finish_proc` can end what it starts)."""
+    return subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=SRC),
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def kill_proc(proc):
+    """Ends `proc` and every process it started (its session), also those
+    that outlive it once it has exited by itself."""
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:          # the session has no process left
+        pass
+    proc.wait()
+
+
+class Background:
+    """`fn(*args)` on a thread of its own: `wait()` until it has ended,
+    `result()` its value, or its exception raised here."""
+
+    def __init__(self, fn, *args):
+        import threading
+        self._box = {}
+        self._thread = threading.Thread(target=self._run, args=(fn, args),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self._box["value"] = fn(*args)
+        except BaseException as e:          # re-raised by result()
+            self._box["error"] = e
+
+    def wait(self):
+        self._thread.join()
+
+    def result(self):
+        self.wait()
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._box["value"]
+
+
+def finish_proc(proc, what, timeout=300):
+    """Its output; at `timeout` s it and every process it started are
+    killed; asserts exit code 0."""
+    out = ""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        kill_proc(proc)
+    assert proc.returncode == 0, (what, out[-3000:])
+    return out
+
+
+def phase_mesh_full(dev, smi, tmp, beside=None):
+    """19a: MESH_FULL on a (data ranks, model 1) mesh of torchrun
+    processes sharing cuda:0 under gloo, then one rank (this process's
+    launcher call) on the same global batch: losses and grad norms per
+    step against each other; memory and step times printed. `beside()`,
+    if given, runs between the two (it starts 19b's and 19c's
+    subprocesses, whose start-up then overlaps the one-rank run)."""
+    import torch
+    arch, ranks, tokens, steps, warmup = MESH_FULL
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    assert free >= MESH_FREE_GIB * 2**30, (free / 2**30, "GiB free")
+    script = mesh_script(tmp)
+    flags = ["--arch", arch, "--steps", str(steps), "--seq", str(tokens),
+             "--batch", str(ranks), "--ckpt-every", "1000000", "--device",
+             "cuda"]
+    out = os.path.join(tmp, "full")
+    t0 = time.perf_counter()
+    finish_proc(start_proc(torchrun(ranks) + [
+        script, out, str(warmup), str(FULL_TRAIN_LR), "1", *flags,
+        "--ckpt-dir", os.path.join(tmp, "full_ck"), "--dist-backend",
+        "gloo"]), "19a ranks", timeout=600)
+    t_ranks = time.perf_counter() - t0
+    recs = []
+    for r in range(ranks):
+        with open(f"{out}.{r}") as f:
+            recs.append(json.load(f))
+    if beside is not None:
+        beside()
+    t0 = time.perf_counter()
+    one = mesh_train([out + "_one", str(warmup), str(FULL_TRAIN_LR), "1",
+                      *flags, "--ckpt-dir", os.path.join(tmp, "one_ck")])
+    t_one = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    got = recs[0]
+    e_loss = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                  one["losses"])]
+    e_gn = [abs(a - b) / abs(b) for a, b in zip(got["gnorms"],
+                                                one["gnorms"])]
+    peaks = ", ".join(f"{r['peak'] / 2**30:.2f}" for r in recs)
+    print(f"[19a] {arch} FULL (bf16, remat, AdamW lr {FULL_TRAIN_LR} warmup "
+          f"{warmup}) on a (data {ranks}, model 1) mesh, {ranks} torchrun "
+          f"ranks sharing cuda:0 under gloo, 1 x {tokens} tokens a rank, "
+          f"{steps} steps ({smi}): losses "
+          f"{' '.join(f'{x:.5f}' for x in got['losses'])} against one rank "
+          f"on {ranks} x {tokens} {' '.join(f'{x:.5f}' for x in one['losses'])}"
+          f" (relative {max(e_loss):.3e}, bar {MESH_LOSS_REL}); grad norms "
+          f"{' '.join(f'{x:.5f}' for x in got['gnorms'])} against "
+          f"{' '.join(f'{x:.5f}' for x in one['gnorms'])} (relative "
+          f"{max(e_gn):.3e}, bar {MESH_GNORM_REL}); max_memory_allocated a "
+          f"rank {peaks} GiB "
+          f"(one rank on {ranks} x {tokens}: {one['peak'] / 2**30:.2f} GiB; "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free before); "
+          f"step ms after step 0, rank 0 "
+          f"{' '.join(f'{x:.1f}' for x in got['step_ms'])} (one rank "
+          f"{' '.join(f'{x:.1f}' for x in one['step_ms'])}, in this process, "
+          f"the phase's later subprocesses starting beside it); the runs "
+          f"took {t_ranks:.1f} s "
+          f"with the ranks' start and {t_one:.1f} s", flush=True)
+    assert len(got["losses"]) == len(one["losses"]) == steps
+    assert all(r["losses"] == got["losses"] for r in recs)
+    assert max(e_loss) <= MESH_LOSS_REL and max(e_gn) <= MESH_GNORM_REL
+    READINGS["[19a] step_ms"] = statistics.median(got["step_ms"])
+
+
+MESH_MODEL_REL = 1e-5       # 19m: SMOKE f32, (1, 2) mesh against one rank
+
+
+def phase_mesh_model_axis(tmp, device="cuda"):
+    """19m: internlm2 SMOKE in f32 on a (data 1, model 2) mesh of 2
+    torchrun ranks sharing the card under gloo, 4 AdamW steps, against
+    one rank: each step's loss and grad norm within MESH_MODEL_REL."""
+    script = mesh_script(tmp)
+    flags = ["--smoke", "--steps", "4", "--seq", "32", "--batch", "4",
+             "--ckpt-every", "1000000", "--device", device]
+    out = os.path.join(tmp, "model_axis")
+    t0 = time.perf_counter()
+    finish_proc(start_proc(torchrun(2) + [
+        script, out, "2", "1e-3", "2", *flags, "--ckpt-dir",
+        os.path.join(tmp, "model_ck"), "--dist-backend", "gloo"]),
+        "19m ranks")
+    finish_proc(start_proc([sys.executable, script, out + "_one", "2",
+                            "1e-3", "1", *flags, "--ckpt-dir",
+                            os.path.join(tmp, "model_one_ck")]),
+                "19m one rank")
+    with open(out + ".0") as f:
+        got = json.load(f)
+    with open(out + "_one.0") as f:
+        one = json.load(f)
+    err = max(abs(a - b) / abs(b) for a, b in
+              zip(got["losses"] + got["gnorms"], one["losses"] + one["gnorms"]))
+    print(f"[19m] internlm2-1.8b SMOKE (f32) on a (data 1, model 2) mesh of 2 "
+          f"torchrun ranks on {device} under gloo, 4 steps: losses "
+          f"{' '.join(f'{x:.6f}' for x in got['losses'])} against one rank's "
+          f"{' '.join(f'{x:.6f}' for x in one['losses'])}; losses and grad "
+          f"norms within {err:.3e} (bar {MESH_MODEL_REL}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert len(got["losses"]) == 4 and err <= MESH_MODEL_REL, err
+
+
+def resume_runs(tmp, device="cuda"):
+    """19b's runs in `tmp`: the launcher at internlm2 SMOKE on 2 torchrun
+    ranks (20 steps, checkpoints at 10 and 20) beside one rank's
+    uninterrupted 40 steps, then one rank resuming the 2-rank run's
+    directory to 40; (the 2-rank output, the resumed output, seconds)."""
+    t0 = time.perf_counter()
+    base = ["-m", "repro_torch.launch.train", "--arch", "internlm2-1.8b",
+            "--smoke", "--device", device]
+    cut, whole = os.path.join(tmp, "cut"), os.path.join(tmp, "whole")
+    ranks = start_proc(torchrun(2) + base + [
+        "--steps", "20", "--ckpt-every", "10", "--ckpt-dir", cut,
+        "--dist-backend", "gloo"])
+    once = start_proc([sys.executable] + base + [
+        "--steps", "40", "--ckpt-every", "40", "--ckpt-dir", whole])
+    out1 = finish_proc(ranks, "19b 2 ranks")
+    finish_proc(once, "19b one rank, 40 steps")
+    out2 = finish_proc(start_proc([sys.executable] + base + [
+        "--steps", "40", "--ckpt-every", "10", "--ckpt-dir", cut]),
+        "19b resume")
+    return out1, out2, time.perf_counter() - t0
+
+
+def start_resume(device="cuda"):
+    """Starts 19b's runs (`resume_runs`) on a thread, in a temporary
+    directory of their own; (the directory, the `Background`)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_19b_")
+    return tmp, Background(resume_runs, tmp, device)
+
+
+def phase_mesh_resume(device="cuda", started=None):
+    """19b: waits for `start_resume`'s runs (started here unless given)
+    and holds the resumed run's step-40 checkpoint against the
+    uninterrupted run's."""
+    import shutil
+    tmp, runs = started or start_resume(device)
+    try:
+        mesh_resume_check(tmp, *runs.result())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_resume_check(tmp, out1, out2, secs):
+    """19b's checks on `resume_runs`' outputs and checkpoints in `tmp`."""
+    import numpy as np
+    cut, whole = os.path.join(tmp, "cut"), os.path.join(tmp, "whole")
+    assert "mesh {'data': 2, 'model': 1}" in out1, out1[-2000:]
+    assert out1.count("done in") == 1, out1[-2000:]
+    assert "resumed from step 20" in out2, out2[-2000:]
+    a, b = (os.path.join(d, "step_40") for d in (cut, whole))
+    with open(os.path.join(a, "manifest.json")) as f:
+        ma = json.load(f)["leaves"]
+    with open(os.path.join(b, "manifest.json")) as f:
+        mb = json.load(f)["leaves"]
+    assert ma.keys() == mb.keys()
+    worst, where = 0.0, None
+    for key in ma:
+        x = np.load(os.path.join(a, ma[key]["file"])).astype(np.float64)
+        y = np.load(os.path.join(b, mb[key]["file"])).astype(np.float64)
+        e = float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-30))
+        if e >= worst:
+            worst, where = e, key
+    print(f"[19b] launcher at internlm2-1.8b SMOKE on the card: 2 torchrun "
+          f"ranks (gloo, cuda:0) 20 steps, checkpoints at 10 and 20 from "
+          f"rank 0, then one rank to 40 from the same directory (printed "
+          f"'resumed from step 20'), beside an uninterrupted one-rank "
+          f"40-step run: the step-40 checkpoints within {worst:.3e} "
+          f"(largest at {where}; bar {MESH_RESUME_REL}) over {len(ma)} leaves "
+          f"(params and AdamW state); {secs:.1f} s for the three runs",
+          flush=True)
+    assert worst <= MESH_RESUME_REL, (where, worst)
+
+
+def start_examples(tmp):
+    """19c's subprocesses: the four example twins on the card, started
+    side by side; (their processes, the start time)."""
+    py = [sys.executable]
+    runs = {
+        "quickstart": start_proc(py + ["examples/quickstart_torch.py"]),
+        "md_nbody": start_proc(py + ["examples/md_nbody_torch.py", "--n",
+                                     "1500", "--steps", "200"]),
+        "figure4": start_proc(py + ["examples/figure4_sweep_torch.py",
+                                    "--kappa-only"]),
+        "train_lm": start_proc(py + ["examples/train_lm_torch.py",
+                                     "--steps", "100", "--ckpt-dir",
+                                     os.path.join(tmp, "train_lm")]),
+    }
+    return runs, time.perf_counter()
+
+
+def phase_examples(tmp, started=None):
+    """19c: waits for `start_examples`' subprocesses (started here unless
+    given) and checks their own lines."""
+    import re
+    runs, t0 = started or start_examples(tmp)
+    outs = {k: finish_proc(p, f"19c {k}") for k, p in runs.items()}
+    qs = outs["quickstart"]
+    err = float(re.search(r"Eq\. 16\): (\S+)", qs).group(1))
+    assert "N = 20000   strategy = single_device" in qs and err <= 1e-5, qs
+    md = outs["md_nbody"]
+    drift = float(re.search(r"energy drift (\S+)", md).group(1))
+    assert "retraces 0" in md and abs(drift) <= ENERGY_BAR, md[-1500:]
+    fig = outs["figure4"].splitlines()
+    head = "kappa sweep: 1 ensemble launch, 1 compile"
+    assert head in fig, fig[-12:]
+    fig = fig[fig.index(head):][:7]
+    dists = [float(line.split(",")[1]) for line in fig[2:]]
+    assert len(dists) == 5 and dists[0] == 0 and all(
+        a < b for a, b in zip(dists, dists[1:])), fig
+    lm = re.findall(r"^step\s+(\d+)\s+loss (\S+)", outs["train_lm"], re.M)
+    assert lm and lm[-1][0] == "99", outs["train_lm"][-1500:]
+    assert float(lm[-1][1]) <= float(lm[0][1]) - TRAIN_LM_FALL, lm
+    lines = {k: [line for line in v.splitlines() if line.strip()]
+             for k, v in outs.items()}
+    print(f"[19c] the example twins on the card, side by side (beside 19b "
+          f"when it did not run with the build) in "
+          f"{time.perf_counter() - t0:.1f} s: quickstart "
+          f"{' | '.join(lines['quickstart'])}; md_nbody (--n 1500 --steps "
+          f"200) {' | '.join(lines['md_nbody'][-3:])}; figure4_sweep "
+          f"--kappa-only {' | '.join(fig)}; train_lm (--steps 100) losses "
+          f"{' '.join(f'{s}:{x}' for s, x in lm)} "
+          f"({lines['train_lm'][-1]})", flush=True)
+
+
+def phase_mesh(dev, smi, parts=("19a", "19b", "19c"), started_19b=None):
+    """Phase 19: the launcher on a mesh of several ranks and the example
+    twins (plain PyTorch but for the examples' kernels). 19c's
+    subprocesses, and 19b's unless `started_19b` holds them (started
+    during the build), start once 19a's ranks are done and run side by
+    side with 19a's one-rank run and each other: they check values, not
+    times."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {"19b": started_19b}
+
+        def beside():
+            if "19c" in parts:
+                started["19c"] = start_examples(tmp)
+            if "19b" in parts and started["19b"] is None:
+                started["19b"] = start_resume()
+
+        try:
+            if "19a" in parts:
+                phase_mesh_full(dev, smi, tmp, beside)
+            else:
+                beside()
+            if "19b" in parts:
+                phase_mesh_resume(started=started["19b"])
+        finally:
+            if "19c" in started:
+                phase_examples(tmp, started["19c"])
+        if "19m" in parts:
+            phase_mesh_model_axis(tmp)
+    print(f"[19] phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5121,13 +5536,22 @@ def main() -> int:
     print(f"[1] {smi}; torch {torch.__version__} (CUDA {torch.version.cuda}) "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     # 18b runs on the CPU during the build, where it times nothing (later
-    # it would take a core from the host-bound LM phases 16 and 17)
+    # it would take a core from the host-bound LM phases 16 and 17); so do
+    # 17b's and 19b's launcher runs at SMOKE (subprocesses on the card,
+    # which check values and time nothing), ended before phase 2
     dry_cells = start_dryrun_cells()
+    early = {"17b": Background(train_launcher_runs, dev),
+             "19b": start_resume()}
     t0 = time.perf_counter()
     _build.build()
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s "
           f"{ {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()} }",
           flush=True)
+    t1 = time.perf_counter()
+    early["17b"].wait()
+    early["19b"][1].wait()
+    print(f"[1] 17b's and 19b's launcher runs, started with the build, "
+          f"ended {time.perf_counter() - t1:.1f} s after it", flush=True)
     for line in _build.BUILD_LOG.get("batch_cluster", "").splitlines():
         if "Used" in line or "spill" in line and " 0 bytes" not in line:
             print(f"    batch_cluster: {line.strip()}")
@@ -5222,11 +5646,14 @@ def main() -> int:
     phase_lm_full_archs(dev, smi)
     lap("16")
     torch.cuda.empty_cache()
-    phase_train(dev, smi)
+    phase_train(dev, smi, started=early["17b"])
     lap("17")
     torch.cuda.empty_cache()
     phase_dryrun(dev, smi, started=dry_cells)
     lap("18")
+    torch.cuda.empty_cache()
+    phase_mesh(dev, smi, started_19b=early["19b"])
+    lap("19")
     print(f"[7] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": report}))
     print(smi)
@@ -5236,5 +5663,79 @@ def main() -> int:
     return 0
 
 
+def become_subreaper():
+    """Makes this process the child subreaper of its descendants (Linux
+    prctl PR_SET_CHILD_SUBREAPER): a process whose parent ends before it
+    is handed to this one, so that `end_descendants` finds it."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):   # not Linux: children only
+        pass
+
+
+def descendants():
+    """{pid: command line} of every process below this one (/proc) that
+    is not a zombie (one that has ended and waits to be reaped)."""
+    parent, cmd = {}, {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                line = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:                     # ended meanwhile
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        parent[int(name)] = int(ppid)
+        cmd[int(name)] = (state, line.strip() or stat.split(" ", 2)[1])
+    below, todo = {}, [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        for child, ppid in parent.items():
+            if ppid == pid and child not in below:
+                below[child] = cmd[child]
+                todo.append(child)
+    return {pid: line for pid, (state, line) in below.items()
+            if state != "Z"}
+
+
+def end_descendants():
+    """Kills and reaps every process below this one that is still there
+    at the end (none, when every phase ended what it started); names them
+    on stderr. Returns how many there were."""
+    import signal
+    ended = {}
+    for _ in range(50):
+        left = descendants()
+        if not left:
+            break
+        ended.update(left)
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        time.sleep(0.05)
+    while True:                             # reap this process's children
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                break
+        except ChildProcessError:
+            break
+    for pid, line in sorted(ended.items()):
+        print(f"chip_smoke: ended process {pid} left running at exit: "
+              f"{line[:300]}", file=sys.stderr, flush=True)
+    return len(ended)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    import signal
+    become_subreaper()
+    # a SIGTERM (a time limit) unwinds through `finally` too
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        code = main()
+    finally:
+        end_descendants()
+    sys.exit(code)

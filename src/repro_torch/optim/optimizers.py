@@ -24,7 +24,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.layers import params_from_numpy, tree_leaves, tree_map
+from repro_torch.models.layers import (is_dtensor, params_from_numpy,
+                                       tree_leaves, tree_map)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -32,6 +33,20 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(
         torch.linalg.vector_norm(x, dtype=torch.float32).square()
         for x in tree_leaves(tree)))
+
+
+def exchanged(grads, params) -> list:
+    """The gradient leaves (`tree_leaves` order), each DTensor one
+    redistributed to its parameter's placements: a partial sum over the
+    data axis is reduced here, once (left partial, each of the update's
+    operations on it would reduce it again). Plain tensors pass as they
+    are."""
+    out = []
+    for g, p in zip(tree_leaves(grads), tree_leaves(params)):
+        if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        out.append(g)
+    return out
 
 
 def _clip_scale(gnorm, max_norm):
@@ -73,6 +88,7 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state, params):
+        grads = exchanged(grads, params)
         gnorm = global_norm(grads)
         scale = _clip_scale(gnorm, self.clip_norm)
         step = state["step"] + 1
@@ -80,7 +96,7 @@ class AdamW:
         bc1 = 1.0 - torch.pow(self.b1, t)
         bc2 = 1.0 - torch.pow(self.b2, t)
         lr = self._lr(step)
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+        for p, g, m, v in zip(tree_leaves(params), grads,
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
             g = g.to(torch.float32) * scale
@@ -126,12 +142,13 @@ class Adafactor:
 
     @torch.no_grad()
     def update(self, grads, state, params):
+        grads = exchanged(grads, params)
         gnorm = global_norm(grads)
         scale = _clip_scale(gnorm, self.clip_norm)
         step = state["step"] + 1
         lr = self.lr * _warm(step, self.warmup)
         d = self.decay
-        for p, g, st in zip(tree_leaves(params), tree_leaves(grads),
+        for p, g, st in zip(tree_leaves(params), grads,
                             tree_leaves(state["fac"], is_leaf=_is_fac)):
             g = g.to(torch.float32) * scale
             g2 = g * g + self.eps

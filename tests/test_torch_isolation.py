@@ -79,3 +79,19 @@ def test_cuda_sources_are_present():
             name.startswith("batch_cluster_field"))
     from repro_torch.kernels import _build
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+
+
+TWINS = ["quickstart_torch.py", "figure4_sweep_torch.py", "md_nbody_torch.py",
+         "train_lm_torch.py"]
+# what an example twin may import: the port, torch, numpy, the stdlib
+TWIN_IMPORTS = {"repro_torch", "torch", "numpy", "argparse", "collections",
+                "dataclasses", "os", "tempfile", "time"}
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twin_imports_only_the_port_torch_and_numpy(name):
+    text = open(os.path.join(ROOT, "examples", name)).read()
+    mods = re.findall(r"^\s*(?:import\s+([\w.]+)|from\s+([\w.]+)\s+import)",
+                      text, re.M)
+    tops = {(a or b).split(".")[0] for a, b in mods}
+    assert "repro_torch" in tops and not tops - TWIN_IMPORTS, tops

@@ -4,10 +4,10 @@ card, phase 17a of `chip_smoke.py`.
 On the CPU: `--smoke --device cpu` trains, checkpoints and resumes, and
 a resumed run ends on the uninterrupted run's parameters bitwise (one
 torch thread: a CPU GEMM's sums may depend on the threads); every
-family's stub inputs are drawn from a generator seeded with the step;
-without a card and without `--device cpu` the launcher raises. The
-`cuda` tests run 17a (the train step on the card against the CPU, per
-arch) and need a card; they import no JAX.
+family's stub inputs are the reference's zeros (that test alone imports
+JAX, inside it); without a card and without `--device cpu` the launcher
+raises. The `cuda` tests run 17a (the train step on the card against
+the CPU, per arch) and need a card; they import no JAX.
 """
 import os
 import sys
@@ -68,17 +68,26 @@ def test_launcher_trains_every_family(arch, tmp_path, capsys):
 
 
 def test_stub_inputs_are_seeded_by_the_step():
+    """The stubs no longer depend on the step (nor take it): they are the
+    reference launcher's ``jnp.zeros((batch, ...), cfg.adtype)`` inputs,
+    equal in shape, dtype and value."""
+    import jax.numpy as jnp
+    from repro.configs.registry import get_config as ref_config
     for arch, name in (("whisper-small", "frames"),
                        ("llava-next-mistral-7b", "patches")):
-        cfg = get_config(arch, smoke=True)
-        a, b, c = (train.stub_inputs(cfg, 2, k, "cpu")[name]
-                   for k in (3, 3, 4))
-        assert a.dtype == cfg.adtype and torch.equal(a, b)
-        assert not torch.equal(a, c)
-    assert train.stub_inputs(get_config("gemma-7b", smoke=True), 2, 0,
+        cfg, ref = get_config(arch, smoke=True), ref_config(arch, smoke=True)
+        a = train.stub_inputs(cfg, 2, "cpu")[name]
+        want = (jnp.zeros((2, ref.src_seq, ref.d_model), ref.adtype)
+                if name == "frames" else
+                jnp.zeros((2, ref.n_patches, ref.vision_dim), ref.adtype))
+        assert a.dtype == cfg.adtype and str(want.dtype) == str(
+            a.dtype).replace("torch.", "")
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(want, np.float32))
+    assert train.stub_inputs(get_config("gemma-7b", smoke=True), 2,
                              "cpu") == {}
     batch = train.device_batch(get_config("whisper-small", smoke=True), {
-        "tokens": np.zeros((2, 5), np.int32)}, 0, "cpu")
+        "tokens": np.zeros((2, 5), np.int32)}, "cpu")
     assert set(batch) == {"tokens", "frames"}
 
 

@@ -278,7 +278,7 @@ def inputs(rank):
 
 def mesh_checks(p):
     # with a group up: the host mesh is a (p, 1) DeviceMesh, the rules
-    # give DTensor placements over it, and the launcher refuses it
+    # give DTensor placements over it, and the launcher trains on it
     import tempfile
     from torch.distributed.tensor import Replicate, Shard
     from repro_torch.configs.registry import get_config
@@ -301,12 +301,14 @@ def mesh_checks(p):
                         RULE_SETS["tp"], mesh)
     assert tp["final_norm"]["scale"] == (Replicate(), Replicate())
     with tempfile.TemporaryDirectory() as d:
-        try:
-            train.main(["--smoke", "--device", "cpu", "--ckpt-dir", d])
-        except SystemExit as e:
-            assert "one process on one device" in str(e), e
-        else:
-            raise AssertionError("the launcher trained on a mesh of ranks")
+        # the launcher trains on the group's (p, 1) mesh, its parameters
+        # DTensors placed by the tp rules
+        params = train.main(["--smoke", "--device", "cpu", "--steps", "2",
+                             "--seq", "16", "--batch", "4", "--ckpt-dir",
+                             d])
+        leaf = params["final_norm"]["scale"]
+        assert tuple(leaf.device_mesh.shape) == (p, 1), leaf
+        assert tuple(leaf.placements) == tp["final_norm"]["scale"]
 
 
 def run(rank, p, port, errors):

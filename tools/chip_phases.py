@@ -28,9 +28,12 @@ the CPU, 17b, the launcher's resume, 17c, internlm2-1.8b at FULL in
 bf16, 17d, granite-moe and mamba2 at FULL; each also alone) and 18 (the
 LM dry run: 18a, 17c's step dry run on one device against a real step
 under the same cost analysis, 18b, gemma-7b and arctic-480b train_4k on
-the fake 256- and 512-rank meshes in a subprocess; each also alone). A failing
-phase
-prints its traceback
+the fake 256- and 512-rank meshes in a subprocess; each also alone) and 19
+(the launcher on a mesh of several ranks: 19a, internlm2-1.8b FULL on
+2 torchrun ranks sharing the card under gloo beside one rank, 19b, the
+SMOKE launcher's 2-rank checkpoints resumed on one rank, 19c, the four
+example twins; each also alone; 19m, internlm2 SMOKE on a (data 1, model
+2) mesh of 2 ranks, alone only). A failing phase prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
 line compares the hierarchical q_hat with this run's direct one only
 (phase 4 runs here only when named). Prints the
@@ -125,6 +128,11 @@ def main() -> int:
         "18": lambda: c.phase_dryrun(dev, smi),
         "18a": lambda: c.phase_dryrun(dev, smi, ("18a",)),
         "18b": lambda: c.phase_dryrun(dev, smi, ("18b",)),
+        "19": lambda: c.phase_mesh(dev, smi),
+        "19a": lambda: c.phase_mesh(dev, smi, ("19a",)),
+        "19b": lambda: c.phase_mesh(dev, smi, ("19b",)),
+        "19c": lambda: c.phase_mesh(dev, smi, ("19c",)),
+        "19m": lambda: c.phase_mesh(dev, smi, ("19m",)),
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:
