@@ -78,8 +78,8 @@ Phases (each asserts; any failure exits non-zero):
     1000 sampled targets (relative 2-norm <= FORCE_BAR); per lane the
     kernel's time against its bound (the largest of FLOP, SFU and bytes
     times), the pairs its geometry sweeps and the issue slots per swept
-    pair, and the kernel against its plain version (timed once over the
-    whole lane) on the first FORCE_ROWS (128) of the 500 batch rows, the
+    pair, and the kernel against its plain version (timed once there,
+    since PR 26) on the first FORCE_ROWS (128) of the 1023 batch rows, the
     gradient per entry as in 2f, phi against `execute` on their targets
     (the magnitude sweep that sets those bars took ~95 s over every
     row); on the
@@ -270,8 +270,28 @@ Phases (each asserts; any failure exits non-zero):
     drift <= ENERGY_BAR, 0 retraces), `figure4_sweep_torch.py
     --kappa-only` (one compile, the distances growing with kappa) and
     `train_lm_torch.py --steps 100` (the loss falls by TRAIN_LM_FALL);
+ 20. user kernels (any kernel but Coulomb and Yukawa) through the three
+    batch-cluster sources built as their user libraries, with G and 2 G'
+    generated from the kernel's torch function (`kernels/codegen.py`),
+    built beside the base sources: `yukawa_user` (the built-in Yukawa's
+    math) and `plummer` ((r2 + eps2)^-1/2). (20a) each user library's
+    three kernels against their plain versions at phase 2, 2f and 2g's
+    tolerances (f32 and f64, free and periodic, Kahan, counts, exact
+    hits, grid degrees USER_GRID_DEGREES, W = 3 systems with a parameter
+    each); (20b) on phase 4's plan, yukawa_user's execute and forces
+    against the built-in Yukawa's (USER_PHI_BAR, USER_FORCE_BAR; ms in
+    turns), plummer against an f64 direct sum on 1000 targets (1e-5,
+    FORCE_BAR) and its eps2 scan with no build, reload or host sync,
+    each user specialization's lanes timed against their bound (the
+    function's MUFU and FP32 operations a pair, USER_PAIR_NEED; its
+    SASS's printed beside) and held to the plain version on USER_ROWS
+    batch rows; (20c) a USER_MD_STEPS-step plummer
+    MD on USER_MD_M^3 points of phase 8's lattice: one host sync a refit
+    step, no build after step 1, energy balance <= ENERGY_BAR;
  7. one JSON line per kernel (launches, error against the plain
-    version, times, bound), the device line, and the final status line.
+    version, times, bound; the plain version timed on the rows it is
+    held to, `plain_rows`), the device line, and the final status
+    line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -856,14 +876,14 @@ def count_case(rng, B, NB, C, m, dev):
 SYSTEMS_W = 4
 
 
-def stacked_case(rng, dtype, dev, B=5, S=7, NB=150, C=8, m=200):
-    """Operands of SYSTEMS_W systems with a leading systems axis, as an
+def stacked_case(rng, dtype, dev, B=5, S=7, NB=150, C=8, m=200,
+                 W=SYSTEMS_W):
+    """Operands of W systems with a leading systems axis, as an
     ensemble stacks them: ragged per-system target and source counts, an
     interior -1 slot, system 1 a dummy slot (all charges 0) and the last
     batch row of every system a point-padded scratch row (count 0).
     Returns (idx, tgt, src, q, tgt_count, src_count, kappas (W,))."""
     import torch
-    W = SYSTEMS_W
     qlo = -1.0 if dtype == torch.float32 else 0.0
 
     def t(a):
@@ -885,11 +905,12 @@ def stacked_case(rng, dtype, dev, B=5, S=7, NB=150, C=8, m=200):
             t(rng.uniform(0.5, 2.0, W)))
 
 
-def systems_axis_cases(dev, kind):
+def systems_axis_cases(dev, kind, kernels=None, W=SYSTEMS_W):
     """A kernel (`kind`: "batch_cluster", "field", "grid_field" or
-    "modified_charges") on stacked operands of SYSTEMS_W systems against
+    "modified_charges") on stacked operands of W systems against
     its plain version (the tolerances of its phase), f32 and f64, free
-    space and a periodic box, Coulomb and Yukawa with a kappa per system:
+    space and a periodic box, Coulomb and Yukawa with a kappa per system
+    (or `kernels`, each parameter a value per system):
     one launch a call, the scratch rows and the dummy slot exactly 0, and
     each system bitwise its own single-system launch. Returns (cases,
     max abs err)."""
@@ -935,8 +956,8 @@ def systems_axis_cases(dev, kind):
     degree = 8
     for dtype, space, kern in itertools.product(
             (torch.float32, torch.float64), (FREE, box),
-            (coulomb(), yukawa())):
-        idx, tgt, src, q, tc, sc, kappa = stacked_case(rng, dtype, dev)
+            kernels or (coulomb(), yukawa())):
+        idx, tgt, src, q, tc, sc, kappa = stacked_case(rng, dtype, dev, W=W)
         params = (kappa,) if kern.params else None
         kw = dict(kernel=kern, space=space, tgt_count=tc)
         if kind == "grid_field":
@@ -945,7 +966,7 @@ def systems_axis_cases(dev, kind):
             src = ops._cluster_nodes(lo, hi, degree).contiguous()
             # f64 cases take positive charges, as in phase 2g
             qlo = -1.0 if dtype == torch.float32 else 0.0
-            q = torch.as_tensor(rng.uniform(qlo, 1, (SYSTEMS_W, lo.shape[1],
+            q = torch.as_tensor(rng.uniform(qlo, 1, (W, lo.shape[1],
                                                      (degree + 1) ** 3)),
                                 dtype=dtype, device=dev)
             q[1] = 0.0
@@ -960,8 +981,8 @@ def systems_axis_cases(dev, kind):
         got = op(*args, backend="cuda", **kw)
         assert getattr(bcm, counter) == before + 1, "one launch a call"
         want = op(*args, backend="torch", **kw)
-        what = (f"{kind} W={SYSTEMS_W} {dtype} {space} {kern.name} "
-                f"per-system kappas")
+        what = (f"{kind} W={W} {dtype} {space} {kern.name} "
+                f"per-system parameters")
         if kind == "batch_cluster":
             rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 \
                 else (1e-12, 0.0)
@@ -975,7 +996,7 @@ def systems_axis_cases(dev, kind):
         worst = max(worst, err)
         assert (got[:, -1] == 0).all(), f"{what}: scratch batch row"
         assert (got[1] == 0).all(), f"{what}: dummy slot"
-        for w in range(SYSTEMS_W):
+        for w in range(W):
             one = op(idx[w], tgt[w], src[w], q[w],
                      None if params is None else (kappa[w],), backend="cuda",
                      **{k: (v[w] if isinstance(v, torch.Tensor) else v)
@@ -1024,6 +1045,14 @@ def sass_inner_loop(lib_path, symbol):
     unchecked plane), the one with the fewest instructions of its own
     (the unpredicated one). Returns (instructions, pairs) or None where
     cuobjdump is missing."""
+    own = sass_loop(lib_path, symbol)
+    return own and (len(own), sum("MUFU.RSQ" in i for i in own))
+
+
+def sass_loop(lib_path, symbol, marker="MUFU.RSQ"):
+    """The own instructions of the loop `sass_inner_loop` picks, `marker`
+    marking a pair (a list of SASS lines), None where cuobjdump is
+    missing."""
     import re
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -1051,11 +1080,11 @@ def sass_inner_loop(lib_path, symbol):
                   if lo <= a and b <= hi and (a, b) != (lo, hi)]
         own = [i for a, i in body if lo <= a <= hi
                and not any(x <= a <= y for x, y in nested)]
-        mufu = sum("MUFU.RSQ" in i for i in own)
-        if mufu and (best is None or (mufu, -len(own)) > (best[1],
-                                                          -best[0])):
-            best = (len(own), mufu)
-    return best
+        mufu = sum(marker in i for i in own)
+        if mufu and (best is None or (mufu, -len(own)) > (best[0],
+                                                          -len(best[1]))):
+            best = (mufu, own)
+    return best and best[1]
 
 
 def phase_modified_charges(dev):
@@ -1269,11 +1298,11 @@ def ptxas_usage(log):
     return out
 
 
-def grid_flops(pairs, n1):
+def grid_flops(pairs, n1, per_pair=GRID_FLOPS_PER_PAIR):
     """Operations of the grid field kernel's factored sweep over `pairs`
-    (target, grid point) pairs of degree n1 - 1 (GRID_FLOPS_PER_PAIR)."""
+    (target, grid point) pairs of degree n1 - 1 (`per_pair` a pair)."""
     sweeps = pairs / n1 ** 3                 # (target, cluster) sweeps
-    return pairs * GRID_FLOPS_PER_PAIR + sweeps * (
+    return pairs * per_pair + sweeps * (
         4 * n1 ** 2 + 2 * n1 + 2 * 3 * n1)
 
 
@@ -1300,13 +1329,14 @@ def print_grid_usage(usage):
 
 def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_bytes, sm_mhz,
              flops_per_pair=FLOPS_PER_PAIR, outputs=1, flops=None,
-             rows=None):
+             rows=None, mufu_per_pair=MUFU_PER_PAIR):
     """The bound of one batch-cluster (or field) launch, {"ms", "side",
     "pairs", "sides"}: the pairs the data needs (real targets x real
     sources of every valid slot), and the largest ("side") of three
     times ("sides", in ms): the operations over
     PEAK_FP32 (`flops_per_pair` a pair, or `flops(pairs)`), the MUFU
-    operations over the SFU rate at `sm_mhz` (None: MAX_SM_MHZ), and the
+    operations (`mufu_per_pair` a pair) over the SFU rate at `sm_mhz`
+    (None: MAX_SM_MHZ), and the
     bytes over PEAK_BYTES (the lists, the targets, `src_bytes` of
     sources and `outputs` values written per target slot). side is
     "FLOP", "SFU" or "bytes". The rows are the plan's batch rows, or
@@ -1329,7 +1359,7 @@ def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_bytes, sm_mhz,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_flops = flops(pairs) if flops else pairs * flops_per_pair
     times = {"FLOP": n_flops / PEAK_FP32,
-             "SFU": pairs * MUFU_PER_PAIR / (
+             "SFU": pairs * mufu_per_pair / (
                  SFU_PER_SM_CLOCK * sms * (sm_mhz or MAX_SM_MHZ) * 1e6),
              "bytes": nbytes / PEAK_BYTES}
     side = max(times, key=times.get)
@@ -1550,9 +1580,11 @@ def phase_main(dev, smi):
                 **counts[lane]), 5)
         finally:
             lane_clock[lane] = smi_samples(sampler)
+        # the plain version on the rows it is held to above (over every
+        # row it took ~55 s of the script's time limit)
         lane_plain_ms[lane] = event_ms(lambda: ops.batch_cluster_eval(
-            idx, tgt, pts, qq, kernel=kern, backend="torch",
-            **counts[lane]), 1)
+            idx[rows], tgt[rows], pts, qq, kernel=kern, backend="torch",
+            **dict(counts[lane], tgt_count=inp.tgt_count[rows])), 1)
         lane_bound[lane] = bc_bound(
             plan, idx, leaf_counts if lane == "direct" else n1c, 4,
             pts.shape[0] * pts.shape[1] * 4 * 4,
@@ -1574,7 +1606,8 @@ def phase_main(dev, smi):
                      f"of {k} samples): {slots / geo['pairs']:.2f} issue "
                      f"slots per swept pair")
         print(f"[4] batch_cluster {lane} lane: {lane_ms[lane]:.3f} ms "
-              f"(plain {lane_plain_ms[lane]:.1f} ms), {pairs:.4e} pairs "
+              f"(plain {lane_plain_ms[lane]:.1f} ms on the {rows.numel()} "
+              f"rows above), {pairs:.4e} pairs "
               f"needed, {bound_text(lane_bound[lane], smi)}; launch "
               f"geometry sweeps {geo['pairs']:.4e} pairs "
               f"({geo['pairs'] / pairs:.3f}x needed; without counts "
@@ -1616,6 +1649,7 @@ def phase_main(dev, smi):
              replaces="src/repro/kernels/batch_cluster.py:145",
              launches=launches["batch_cluster"], max_abs_err=bc_err,
              ms=sum(lane_ms.values()), plain_ms=sum(lane_plain_ms.values()),
+             plain_rows=f"{rows.numel()} of {b} batch rows",
              bound_ms=bc_bound_ms, bound_by=bc_side, library_ms=None),
         dict(name="modified_charges", route="cuda",
              source="src/repro_torch/kernels/csrc/modified_charges.cu",
@@ -1640,10 +1674,10 @@ def field_lane(lane):
 
 
 #: 4f holds the field kernels to their plain versions, and phi to
-#: `execute`, on the first FORCE_ROWS of Fig. 4's 500 batch rows: the
-#: magnitude sweep that sets the per-entry bars costs as much as the plain
-#: version (~95 s over every row on an H100), which is still timed over
-#: the whole lanes.
+#: `execute`, on the first FORCE_ROWS of Fig. 4's 1023 batch rows, and
+#: times the plain version there: the magnitude sweep that sets the
+#: per-entry bars costs as much as the plain version, ~100 s over every
+#: row on an H100.
 FORCE_ROWS = 128
 
 
@@ -1653,7 +1687,7 @@ def phase_forces(dev, plan, x, q, smi):
     the generic field kernel's on the same clusters as explicit grid
     points), phi against `execute`, forces against an f64 direct sum on
     sampled targets, and each field kernel against its plain version
-    (timed over its whole lane) on the first FORCE_ROWS batch rows.
+    (timed there) on the first FORCE_ROWS batch rows.
     Returns the two field kernels' report entries (their launches are
     the MD run's)."""
     import numpy as np
@@ -1704,11 +1738,12 @@ def phase_forces(dev, plan, x, q, smi):
             ms = event_ms(lambda: run("cuda"), 10)
         finally:
             clock = smi_samples(sampler)
+        first = dict(cnt, tgt_count=cnt["tgt_count"][:FORCE_ROWS])
         t0 = time.perf_counter()
-        want = run("torch")[:FORCE_ROWS]
+        want = op(idx[:FORCE_ROWS], tgt[:FORCE_ROWS], src, qq, kernel=kern,
+                  backend="torch", **first)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        first = dict(cnt, tgt_count=cnt["tgt_count"][:FORCE_ROWS])
         mag = plain(idx[:FORCE_ROWS], tgt[:FORCE_ROWS], src, qq, kernel=kern,
                     magnitude=True, **first)
         phi_mag = phi_mag + mag[..., 0]
@@ -1733,7 +1768,8 @@ def phase_forces(dev, plan, x, q, smi):
                      f"(median of {clock[2]} samples): "
                      f"{issue / geo['pairs']:.2f} issue slots per swept pair")
         print(f"[4f] field {lane} lane ({op.__name__}): {ms:.3f} ms (plain "
-              f"{plain_ms:.1f} ms, host clock, one call), {bd['pairs']:.4e}"
+              f"{plain_ms:.1f} ms on the first {FORCE_ROWS} batch rows, host "
+              f"clock, one call), {bd['pairs']:.4e}"
               f" pairs needed, {bound_text(bd, smi)}; launch geometry sweeps"
               f" {geo['pairs']:.4e} pairs ({geo['pairs'] / bd['pairs']:.3f}x"
               f" needed); {slots}; against the plain version on the first "
@@ -1772,6 +1808,7 @@ def phase_forces(dev, plan, x, q, smi):
             replaces="src/repro/core/eval.py:442 (XLA JVP forces path; "
                      "no TPU kernel)",
             launches=0, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+            plain_rows=f"{FORCE_ROWS} of {tgt.shape[0]} batch rows",
             bound_ms=bd["ms"], bound_by=bound_by([bd["side"]]),
             library_ms=None))
     exec_phi = plan.execute(q)
@@ -2846,6 +2883,573 @@ def phase_yukawa(dev, plan, x, q):
     print(f"[5] yukawa sweep kappa 0.5 -> 1.0 on the same geometry: no "
           f"rebuild, no host sync; rel 2-norm errors on 500 targets "
           f"{errs[0]:.3e}, {errs[1]:.3e}", flush=True)
+
+
+# Phase 20 (user kernels on the card): every kernel `register_kernel` or
+# `Kernel(...)` accepts runs through the three batch-cluster CUDA sources,
+# built as its user library with G and 2 G' generated from its torch
+# function (`kernels/codegen.py`). Two user kernels: Yukawa registered
+# under another name with the built-in's math (held to the built-in's
+# hand-tuned path on the same plan), and Plummer-softened Coulomb, G =
+# (r2 + eps2)^-1/2, the softening of astrophysical treecodes such as
+# GADGET-2 (held to an f64 direct sum). Their libraries build at the
+# start, beside the four base sources (`user_library_specs`).
+USER_KAPPA = 0.5
+PLUMMER_EPS2 = 1e-4                  # eps 0.01, half the MD lattice's spacing
+PLUMMER_SCAN = (1e-4, 4e-4, 1e-3)
+#: 20a's grid field degrees (8 is the main path's); a user library
+#: instantiates the grid field kernel for one degree.
+USER_GRID_DEGREES = (4, 8)
+#: Batch rows of the Fig. 4 lanes on which 20b holds each user
+#: specialization to its plain version and times the plain version (over
+#: every row the plain versions of the three kernels take ~150 s a kernel).
+USER_ROWS = 8
+#: 20c: phase 8's lattice spacing and MD settings on USER_MD_M^3 points.
+USER_MD_M = 46
+USER_MD_STEPS = 10
+#: 20b's bars: the user Yukawa against the built-in on the same plan.
+USER_PHI_BAR, USER_FORCE_BAR = 1e-6, 1e-5
+#: What a pair of each phase-20 G needs, for its bound (`bc_bound`):
+#: (FP32 operations beyond the built-in Coulomb's, MUFU operations). The
+#: user Yukawa computes the built-in's G, so it takes the built-in's
+#: counts (the rsqrt and the exponential); Plummer is Coulomb's pair on
+#: r2 + eps2 (one add, one rsqrt, 2 G' = -G^3 by multiplies).
+USER_PAIR_NEED = {"yukawa": (0, 2), "yukawa_user": (0, 2), "plummer": (1, 1)}
+#: The SASS symbols of the f32 free-space, no-Kahan instantiations of a
+#: kernel id (0 Coulomb, 2 user) in each source; the grid's at n+1 = 9.
+USER_SYMBOLS = {"batch_cluster": "batch_cluster_kernelIfLi{k}ELb0ELb0ELb0E",
+                "batch_cluster_field": "field_kernelIfLi{k}ELb0ELb0E",
+                "batch_cluster_field_grid": "grid_field_kernelIfLi9ELi{k}EE"}
+
+
+def yukawa_user_g(r2, params):
+    """The built-in Yukawa's G, written again: a user kernel."""
+    import torch
+    (kappa,) = params
+    r = torch.sqrt(r2)
+    return torch.exp(-kappa * r) / r
+
+
+def plummer_g(r2, params):
+    """Plummer-softened Coulomb, G = (r2 + eps2)^-1/2."""
+    (eps2,) = params
+    return (r2 + eps2) ** -0.5
+
+
+def user_kernels():
+    """{name: Kernel} of phase 20, registered under their names (so a
+    `TreecodeConfig(kernel=...)` takes them) at their defaults."""
+    from repro_torch.core.potentials import (Kernel, get_kernel,
+                                             register_kernel)
+    register_kernel("yukawa_user", lambda kappa=USER_KAPPA: Kernel(
+        "yukawa_user", yukawa_user_g, (float(kappa),), ("kappa",)),
+        overwrite=True)
+    register_kernel("plummer", lambda eps2=PLUMMER_EPS2: Kernel(
+        "plummer", plummer_g, (float(eps2),), ("eps2",)), overwrite=True)
+    return {n: get_kernel(n) for n in ("yukawa_user", "plummer")}
+
+
+def user_library_specs():
+    """`_build.build` entries of phase 20's user libraries: each user
+    kernel's potential and field libraries and its grid field libraries
+    at USER_GRID_DEGREES."""
+    from repro_torch.core.potentials import kernel_source
+    specs = []
+    for kern in user_kernels().values():
+        text = kernel_source(kern).text
+        specs += [("batch_cluster", text, ()),
+                  ("batch_cluster_field", text, ())]
+        specs += [("batch_cluster_field_grid", text,
+                   (f"REPRO_USER_N1={d + 1}",)) for d in USER_GRID_DEGREES]
+    return specs
+
+
+def user_pair_ops(name, kern):
+    """A diagnostic, not a bound: (instructions, MUFU, FP32 operations
+    (FADD, FMUL and FMNMX one, FFMA two)) a pair of a user kernel's f32
+    free-space pair loop in source `name`, from its user library's SASS.
+    The loop's pairs are those of the built-in Coulomb instantiation's
+    (one MUFU.RSQ a pair), but for the grid kernel, whose user loop is
+    one row of n+1 points for each of a lane's targets (its rows are not
+    unrolled). None without cuobjdump."""
+    import re
+    from repro_torch.core.potentials import kernel_source
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+    grid = name == "batch_cluster_field_grid"
+    own = sass_loop(_build.library_path(
+        name, kernel_source(kern).text, ("REPRO_USER_N1=9",) if grid else ()),
+        USER_SYMBOLS[name].format(k=2), marker="MUFU.")
+    if grid:
+        pairs = 9 * bcm.grid_tile(4, 9) // 32
+    else:
+        base = sass_inner_loop(_build.library_path(name),
+                               USER_SYMBOLS[name].format(k=0))
+        pairs = base and base[1]
+    if not pairs or not own:
+        return None
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0] for i in own]
+    flops = sum({"FFMA": 2, "FADD": 1, "FMUL": 1, "FMNMX": 1}.get(
+        op.split(".")[0], 0) for op in ops)
+    return (len(own) / pairs, sum(op.startswith("MUFU.") for op in ops)
+            / pairs, flops / pairs)
+
+
+def phase_user_cases(dev):
+    """20a: each user library's three kernels against their plain versions
+    at the tolerances of phases 2, 2f and 2g: f32 and f64, free space and
+    a periodic box, Kahan on and off, counts on and off, -1 sentinels,
+    exact hits (a particle meeting itself adds 0 to all four outputs),
+    the grid kernel at USER_GRID_DEGREES, and W = 3 systems with a
+    parameter value each (`systems_axis_cases`). One launch a call."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cheby
+    from repro_torch.core.space import FREE, PeriodicBox
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    kernels = list(user_kernels().values())
+    rng = np.random.default_rng(41)
+    box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
+    worst = {"batch_cluster": 0.0, "field": 0.0, "grid_field": 0.0}
+    n = {k: 0 for k in worst}
+
+    def one_launch(counter, fn):
+        before = getattr(bcm, counter)
+        out = fn()
+        assert getattr(bcm, counter) == before + 1, "one launch a call"
+        return out
+
+    for dtype, (B, S, NB, C, m), space, kern, kahan, counts in (
+            itertools.product((torch.float32, torch.float64),
+                              [(5, 9, 300, 11, 700), (2, 3, 129, 3, 257)],
+                              (FREE, box), kernels, (False, True),
+                              (False, True))):
+        rtol, atol = FIELD_TOL[dtype.itemsize]
+        qlo = -1.0 if dtype == torch.float32 else 0.0
+        for r2 in ("diff", "matmul") if not space.periodic else ("diff",):
+            tgt = rng.uniform(-1, 1, (B, NB, 3))
+            src = rng.uniform(-1, 1, (C, m, 3))
+            if r2 == "matmul":                  # MAC-separated geometry
+                src = src + np.array([4.0, 0.0, 0.0])
+            q = rng.uniform(qlo, 1, (C, m))
+            idx = rng.integers(-1, C, (B, S))
+            idx[:, S // 2] = -1                 # interior sentinel
+            if B > 1:
+                idx[0] = -1                     # all-empty row
+            if r2 == "diff":                    # exact hits
+                k = min(NB, m, 3)
+                tgt[-1, :k] = src[0, :k]
+                idx[-1, 0] = 0
+            t = [torch.as_tensor(v, dtype=dtype, device=dev)
+                 for v in (tgt, src, q)]
+            it = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+            kw = dict(kernel=kern, space=space, kahan=kahan)
+            if counts:
+                kw.update(count_case(rng, B, NB, C, m, dev))
+            what = (f"user {kern.name} {dtype} {(B, S, NB, C, m)} {space} "
+                    f"kahan={kahan} counts={counts} r2={r2}")
+            got = one_launch("LAUNCHES", lambda: ops.batch_cluster_eval(
+                it, *t, backend="cuda", r2_mode=r2, **kw))
+            want = ops.batch_cluster_eval(it, *t, backend="torch",
+                                          r2_mode=r2, **kw)
+            worst["batch_cluster"] = max(worst["batch_cluster"], close(
+                got, want, rtol, atol, f"batch_cluster {what}"))
+            n["batch_cluster"] += 1
+            if r2 == "matmul":
+                continue
+            got = one_launch("FIELD_LAUNCHES", lambda: ops.batch_cluster_field(
+                it, *t, backend="cuda", **kw))
+            want = ops.batch_cluster_field(it, *t, backend="torch", **kw)
+            mag = bcm.batch_cluster_field_plain(it, *t, magnitude=True, **kw)
+            err, _ = field_close(got, want, mag, rtol, atol,
+                                 f"batch_cluster_field {what}")
+            worst["field"] = max(worst["field"], err)
+            if B > 1:
+                assert (got[0] == 0).all(), what
+            n["field"] += 1
+    # a lone particle meeting itself: exactly 0 in all four outputs
+    for dtype, space, kern in itertools.product(
+            (torch.float32, torch.float64), (FREE, box), kernels):
+        x = torch.as_tensor(rng.uniform(-0.7, 0.7, (1, 1, 3)), dtype=dtype,
+                            device=dev)
+        it = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        one = torch.ones((1, 1), dtype=dtype, device=dev)
+        got = ops.batch_cluster_field(it, x, x.clone(), one, kernel=kern,
+                                      space=space, backend="cuda")
+        phi = ops.batch_cluster_eval(it, x, x.clone(), one, kernel=kern,
+                                     space=space, backend="cuda")
+        assert (got == 0).all() and (phi == 0).all(), (
+            f"exact hit {dtype} {space} {kern.name}")
+    for dtype, degree, space, kern, kahan, counts in itertools.product(
+            (torch.float32, torch.float64), USER_GRID_DEGREES, (FREE, box),
+            kernels, (False, True), (False, True)):
+        rtol, atol = FIELD_TOL[dtype.itemsize]
+        qlo = -1.0 if dtype == torch.float32 else 0.0
+        B, S, NB, C = 4, 6, 150, 7
+        n1 = degree + 1
+        lo = rng.uniform(-1, 0.5, (C, 3))
+        hi = lo + rng.uniform(0.1, 0.5, (C, 3))
+        hi[1, 2] = lo[1, 2]                 # zero width in z
+        lo_t, hi_t = (torch.as_tensor(v, dtype=dtype, device=dev)
+                      for v in (lo, hi))
+        nodes = ops._cluster_nodes(lo_t, hi_t, degree).contiguous()
+        pts = cheby.cluster_grid(lo_t, hi_t, degree)
+        qh = torch.as_tensor(rng.uniform(qlo, 1, (C, n1 ** 3)), dtype=dtype,
+                             device=dev)
+        tgt = torch.as_tensor(rng.uniform(-1, 1, (B, NB, 3)), dtype=dtype,
+                              device=dev)
+        tgt[-1, :3] = pts[0, [0, n1 ** 3 // 2, n1 ** 3 - 1]]   # exact hits
+        idx = rng.integers(-1, C, (B, S))
+        idx[:, S // 2] = -1
+        idx[0] = -1
+        idx[-1, 0] = 0
+        it = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+        kw = dict(kernel=kern, space=space, kahan=kahan)
+        if counts:
+            tc = rng.integers(0, NB + 1, B)
+            tc[-1] = NB
+            kw["tgt_count"] = torch.as_tensor(tc, dtype=torch.int32,
+                                              device=dev)
+        args = (it, tgt, nodes, qh)
+        what = (f"user batch_cluster_field_grid {kern.name} {dtype} degree="
+                f"{degree} {space} kahan={kahan} counts={counts}")
+        got = one_launch("GRID_FIELD_LAUNCHES",
+                         lambda: ops.batch_cluster_field_grid(
+                             *args, backend="cuda", **kw))
+        want = ops.batch_cluster_field_grid(*args, backend="torch", **kw)
+        mag = bcm.batch_cluster_field_grid_plain(*args, magnitude=True, **kw)
+        err, _ = field_close(got, want, mag, rtol, atol, what)
+        ref = bcm.batch_cluster_field_plain(it, tgt, pts, qh, **kw)
+        field_close(want, ref, mag, rtol, atol, f"{what}: plain vs points")
+        worst["grid_field"] = max(worst["grid_field"], err)
+        assert (got[0] == 0).all(), what
+        n["grid_field"] += 1
+    systems = {}
+    for kind in ("batch_cluster", "field", "grid_field"):
+        systems[kind] = systems_axis_cases(dev, kind, kernels, W=3)
+    torch.cuda.synchronize()
+    print(f"[20a] user libraries ({', '.join(k.name for k in kernels)}) "
+          f"against their plain versions: cases {n}, max abs err "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (phase 2's "
+          f"rtol/atol {FIELD_TOL[4]} f32, rtol {FIELD_TOL[8][0]} f64; "
+          f"gradients GRAD_K * sum|terms|); grid degrees "
+          f"{USER_GRID_DEGREES}; exact hits 0 in all outputs; W = 3 systems "
+          f"with a parameter each (cases, max abs err) {systems}; one "
+          f"launch a call; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_user_fig4(dev, smi, plan, x, q):
+    """20b: the user kernels on phase 4's Fig. 4 plan at 10^6, swapped in
+    as phase 5 swaps its kernel: `yukawa_user` against the built-in
+    Yukawa (execute and `potential_and_forces`, in turns: built-in, user,
+    user, built-in; warm medians of 7 and 3), `plummer` against an f64
+    direct sum on 1000 sampled targets and its eps2 scan with no build, no
+    library reload and no host sync. Each user specialization's lane
+    timed at its full width against its bound (bc_bound, the function's
+    MUFU and FP32 operations a pair, USER_PAIR_NEED) beside the built-in
+    Yukawa's, its SASS's operations a pair printed as a diagnostic,
+    and held to its plain version on USER_ROWS batch rows. Returns the
+    report entries of the six user specializations (launches: one
+    plummer execute and force call)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import eval as ev
+    from repro_torch.core.api import SingleDevicePlan
+    from repro_torch.core.direct import direct_field
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.kernels import ops
+    from repro_torch.obs import events
+
+    t_phase = time.perf_counter()
+    user_kernels()
+
+    def swapped(name, **params):
+        cfg = dataclasses.replace(plan.config, kernel=name,
+                                  kernel_params=params)
+        return SingleDevicePlan(cfg, cfg.make_kernel(), plan.inner,
+                                plan.dtype)
+
+    yplan = swapped("yukawa", kappa=USER_KAPPA)
+    uplan = swapped("yukawa_user", kappa=USER_KAPPA)
+    pplan = swapped("plummer", eps2=PLUMMER_EPS2)
+    # -- the main path runs the report's launches read: one execute and
+    # one force call of each user kernel, the counts at 0 before each
+    launches = {}
+    for name, p in (("yukawa_user", uplan), ("plummer", pplan)):
+        zero_launch_counts()
+        phi_p = p.execute(q)
+        _, f_p = p.potential_and_forces(q)
+        torch.cuda.synchronize()
+        launches[name] = {"batch_cluster": bcm.LAUNCHES,
+                          "batch_cluster_field": bcm.FIELD_LAUNCHES,
+                          "batch_cluster_field_grid": bcm.GRID_FIELD_LAUNCHES,
+                          "modified_charges": mcm.LAUNCHES}
+        assert all(launches[name].values()), (name, launches[name])
+    # -- yukawa_user against the built-in on the same plan ---------------
+    out = {}
+    for name, p in (("yukawa", yplan), ("yukawa_user", uplan)):
+        out[name] = (p.execute(q), *p.potential_and_forces(q))
+    torch.cuda.synchronize()
+    errs = [rel2(out["yukawa_user"][k], out["yukawa"][k]) for k in range(3)]
+    assert errs[0] <= USER_PHI_BAR and errs[1] <= USER_PHI_BAR, errs
+    assert errs[2] <= USER_FORCE_BAR, errs
+    turns = {"execute": ([], 7, "execute"),
+             "potential_and_forces": ([], 3, "potential_and_forces")}
+    for call, (ms, reps, attr) in turns.items():
+        for p in (yplan, uplan, uplan, yplan):
+            ms.append(event_ms(lambda: getattr(p, attr)(q), reps))
+    timing = {call: ((v[0][0] + v[0][3]) / 2, (v[0][1] + v[0][2]) / 2)
+              for call, v in turns.items()}
+    print(f"[20b] yukawa_user (kappa {USER_KAPPA}, its user library) "
+          f"against the built-in yukawa on phase 4's plan at N="
+          f"{x.shape[0]}: rel 2-norm execute phi {errs[0]:.3e}, force "
+          f"sweep phi {errs[1]:.3e} (bar {USER_PHI_BAR}), forces "
+          f"{errs[2]:.3e} (bar {USER_FORCE_BAR}); in turns (built-in, user, "
+          f"user, built-in): " + "; ".join(
+              f"{c} built-in {b:.3f} ms, user {u:.3f} ms ({u / b:.3f}x)"
+              for c, (b, u) in timing.items()) + f"; {smi}; at "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    # -- plummer against an f64 direct sum, and its eps2 scan --------------
+    rng = np.random.default_rng(2026)
+    sample = torch.as_tensor(rng.choice(x.shape[0], 1000, replace=False),
+                             device=dev)
+    x64 = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    q64 = q.double()
+    ref_phi, grad = direct_field(x64[sample], x64, q64, kernel=pplan.kernel,
+                                 source_chunk=1 << 14)
+    ref_f = -q64[sample, None] * grad
+    perr = rel2(phi_p[sample].double(), ref_phi)
+    ferr = rel2(f_p[sample].double(), ref_f)
+    assert torch.isfinite(phi_p).all() and torch.isfinite(f_p).all()
+    assert perr <= 1e-5 and ferr <= FORCE_BAR, (perr, ferr)
+    libs, built = dict(_build._LIBS), events.build_count()
+    eps = [torch.tensor(v, dtype=plan.dtype, device=dev)
+           for v in PLUMMER_SCAN]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scan = [pplan.execute(q, kernel_params={"eps2": e}) for e in eps]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _build._LIBS == libs, "a kernel library was reloaded"
+    assert events.build_count() == built, "a kernel was built"
+    assert all(not torch.equal(scan[0], s) for s in scan[1:])
+    scan_err = rel2(scan[0], phi_p)
+    print(f"[20b] plummer (eps2 {PLUMMER_EPS2}) at Fig. 4, N={x.shape[0]}: "
+          f"against an f64 direct sum of the same kernel (`direct_field`, "
+          f"torch.func) on 1000 sampled targets rel 2-norm phi {perr:.3e} "
+          f"(bar 1e-5), forces {ferr:.3e} (bar {FORCE_BAR}); eps2 scan "
+          f"{PLUMMER_SCAN} as device tensors under set_sync_debug_mode("
+          f"'error'): no build, no library reload, the first value's phi "
+          f"{scan_err:.3e} from the default's; launches of one execute and "
+          f"one force call {launches}; at {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+    # -- each user specialization: full-width lanes, bound, plain rows -----
+    a = plan.arrays
+    tgt = a["tgt_batched"]
+    nb = tgt.shape[1]
+    degree = plan.config.degree
+    n1 = degree + 1
+    inp = ev.kernel_inputs(a, q, degree=degree)
+    qhat = ops.modified_charges_ranged(
+        a["src_sorted"], inp.q_sorted, a["mc_chunks"], a["mc_chunk_ptr"],
+        a["node_lo"], a["node_hi"], degree=degree, backend="cuda")
+    field = plan_lanes(plan, q)
+    pot = {"approx": (a["approx_idx"], inp.grids, qhat,
+                      {"tgt_count": inp.tgt_count}),
+           "direct": (a["direct_idx"], inp.leaf_pts, inp.leaf_q,
+                      {"tgt_count": inp.tgt_count,
+                       "src_count": inp.leaf_count})}
+    leaf_counts = (a["leaf_gather"] >= 0).sum(1)
+    n1c = torch.full((a["node_lo"].shape[0],), n1 ** 3, device=dev)
+    rows = torch.arange(0, tgt.shape[0], max(1, tgt.shape[0] // USER_ROWS),
+                        device=dev)[:USER_ROWS]
+    real = a["tgt_mask"][rows]
+    sources = {"batch_cluster": [("approx", ops.batch_cluster_eval, pot),
+                                 ("direct", ops.batch_cluster_eval, pot)],
+               "batch_cluster_field": [("direct", ops.batch_cluster_field,
+                                        field)],
+               "batch_cluster_field_grid": [
+                   ("approx", ops.batch_cluster_field_grid, field)]}
+    kernels = {"yukawa": yplan.kernel, "yukawa_user": uplan.kernel,
+               "plummer": pplan.kernel}
+    report = []
+    for name, lanes in sources.items():
+        ops_pair = {k: user_pair_ops(name, kern) for k, kern in
+                    kernels.items() if k != "yukawa"}
+        ms = {k: 0.0 for k in kernels}
+        bound = {k: 0.0 for k in kernels}
+        sides, plain_ms, err = {k: [] for k in kernels}, {}, {}
+        # the SM clock, sampled over the source's timed launches
+        sampler = smi_sampler()
+        try:
+            for lane, op, inputs in lanes:
+                idx, src, qq, cnt = inputs[lane]
+                for k, kern in kernels.items():
+                    def timed_run(kern=kern):
+                        return op(idx, tgt, src, qq, kernel=kern,
+                                  backend="cuda", **cnt)
+                    timed_run()
+                    ms[k] += event_ms(timed_run, 5)
+        finally:
+            clock = smi_samples(sampler)
+        for lane, op, inputs in lanes:
+            idx, src, qq, cnt = inputs[lane]
+            for k, kern in kernels.items():
+                def run(backend, kern=kern):
+                    return op(idx[rows], tgt[rows], src, qq, kernel=kern,
+                              backend=backend, **dict(
+                                  cnt, tgt_count=cnt["tgt_count"][rows]))
+                extra, mufu = USER_PAIR_NEED[k]
+                fpp = extra + {
+                    "batch_cluster": FLOPS_PER_PAIR,
+                    "batch_cluster_field": FIELD_FLOPS_PER_PAIR,
+                    "batch_cluster_field_grid": GRID_FLOPS_PER_PAIR}[name]
+                common = dict(sm_mhz=clock and clock[0], mufu_per_pair=mufu)
+                if name == "batch_cluster_field_grid":
+                    bd = bc_bound(plan, idx, n1c, 4,
+                                  (src.numel() + qq.numel()) * 4, outputs=4,
+                                  flops=lambda p, f=fpp: grid_flops(p, n1, f),
+                                  **common)
+                else:
+                    bd = bc_bound(plan, idx,
+                                  leaf_counts if lane == "direct" else n1c,
+                                  4, src.shape[0] * src.shape[1] * 4 * 4,
+                                  flops_per_pair=fpp,
+                                  outputs=1 if name == "batch_cluster" else 4,
+                                  **common)
+                bound[k] += bd["ms"]
+                sides[k].append(bd["side"])
+                if k != "plummer" and k != "yukawa_user":
+                    continue
+                got = run("cuda")
+                t0 = time.perf_counter()
+                want = run("torch")
+                torch.cuda.synchronize()
+                plain_ms[k] = plain_ms.get(k, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+                if name == "batch_cluster":
+                    assert (got[~real] == 0).all(), f"{name} {k} padded"
+                    e = close(got[real], want[real], 2e-4, 2e-4,
+                              f"{name} {k} {lane} rows", scale="median")
+                else:
+                    plain = (bcm.batch_cluster_field_grid_plain
+                             if lane == "approx" and name.endswith("grid")
+                             else bcm.batch_cluster_field_plain)
+                    mag = plain(idx[rows], tgt[rows], src, qq, kernel=kern,
+                                magnitude=True, **dict(
+                                    cnt, tgt_count=cnt["tgt_count"][rows]))
+                    e, _, _ = field_rows_close(got, want, mag, real,
+                                               f"{name} {k} {lane} rows")
+                err[k] = max(err.get(k, 0.0), e)
+        per_pair = {k: v and tuple(round(u, 2) for u in v)
+                    for k, v in ops_pair.items()}
+        ratio = ms["yukawa_user"] / ms["yukawa"]
+        print(f"[20b] {name} at Fig. 4, full lanes "
+              f"({'+'.join(lane for lane, _, _ in lanes)}): built-in yukawa "
+              f"{ms['yukawa']:.3f} ms, yukawa_user {ms['yukawa_user']:.3f} "
+              f"ms ({ratio:.3f}x), plummer {ms['plummer']:.3f} ms; bounds "
+              f"(bc_bound, the function's operations a pair, "
+              f"USER_PAIR_NEED) "
+              + ", ".join(f"{k} {v:.3f} ms by {bound_by(sides[k])}"
+                          for k, v in bound.items())
+              + f"; the user libraries' SASS a pair (instructions, MUFU, "
+              f"FP32 ops; a diagnostic): {per_pair}"
+              + f"; against the plain version on {USER_ROWS} batch rows: "
+              f"max abs err {err}, the plain version {plain_ms} ms (host "
+              f"clock, one call); SM clock "
+              f"{'not sampled' if clock is None else f'{clock[0]:.0f} MHz'}"
+              f"; {smi}; at {time.perf_counter() - t_phase:.1f} s", flush=True)
+        for k in ("yukawa_user", "plummer"):
+            report.append(dict(
+                name=f"{name}[{k}]", route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                replaces=("src/repro/kernels/batch_cluster.py:145"
+                          if name == "batch_cluster" else
+                          "src/repro/core/eval.py:442 (XLA JVP forces "
+                          "path; no TPU kernel)"),
+                launches=launches[k][name],
+                max_abs_err=err[k], ms=ms[k], plain_ms=plain_ms[k],
+                plain_rows=f"{USER_ROWS} of {tgt.shape[0]} batch rows",
+                bound_ms=bound[k], bound_by=bound_by(sides[k]),
+                library_ms=None))
+    print(f"[20b] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return report
+
+
+def phase_user_md(dev):
+    """20c: a USER_MD_STEPS-step `Simulation` with `plummer` on
+    USER_MD_M^3 points of phase 8's salt lattice (its spacing, skin, dt
+    and refit interval): one host sync per refit step, no build after
+    step 1, energy balance |dKE + dPE| / dKE <= ENERGY_BAR, and the field
+    kernels' user libraries launched each step."""
+    import torch
+    from repro_torch.configs.bltc import fig4
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.dynamics import Simulation
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.obs import events
+
+    t_phase = time.perf_counter()
+    user_kernels()
+    spacing = 2.0 / MD_M
+    x, q = salt_lattice(USER_MD_M, -0.5 * USER_MD_M * spacing, spacing, 43)
+    cfg = dataclasses.replace(fig4(theta=0.7, degree=8), skin=MD_SKIN,
+                              kernel="plummer")
+    plan = TreecodeSolver(cfg).plan(x, capacities="auto")
+    sim = Simulation(plan, q, dt=MD_DT, refit_interval=MD_REFIT)
+    sim.log.record(0, sim.diagnostics())
+    phi0, v0 = sim.state.phi.clone(), sim.state.v.clone()
+    sim.step()
+    torch.cuda.synchronize()
+    builds0 = events.build_count()
+    zero_launch_counts()
+    syncs, explicit, step_ms = [], [], []
+    for _ in range(USER_MD_STEPS - 1):
+        refits0 = sim.refits
+        t0 = time.perf_counter()
+        pulls, caught = guarded(sim.step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if sim.refits > refits0:
+            syncs.append(caught)
+            explicit.append(pulls)
+    steps = USER_MD_STEPS - 1
+    launches = (bcm.FIELD_LAUNCHES, bcm.GRID_FIELD_LAUNCHES)
+    assert launches == (steps, steps), launches
+    builds = events.build_count() - builds0
+    st = sim.stats()
+    assert builds == 0 and st["retraces"] == 0, (builds, st)
+    assert syncs and all(k == 1 for k in syncs), syncs
+    assert all(e == {"drift": 1} for e in explicit), explicit
+    dke, dpe = energy_balance(sim, phi0, v0)
+    balance = abs(dke + dpe) / dke
+    assert dke > 0 and balance <= ENERGY_BAR, (dke, dpe)
+    print(f"[20c] plummer MD (eps2 {PLUMMER_EPS2}), N={x.shape[0]} "
+          f"({USER_MD_M}^3 of phase 8's lattice, spacing {spacing}), skin "
+          f"{MD_SKIN}, dt {MD_DT}, refit interval {MD_REFIT}, "
+          f"{USER_MD_STEPS} steps: steps 2-{USER_MD_STEPS} median "
+          f"{statistics.median(step_ms):.2f} ms (host clock to a "
+          f"synchronize); refits {st['refits']}, rebuilds {st['rebuilds']}; "
+          f"host syncs per refit step {sorted(set(syncs))}, explicit "
+          f"{sorted(set(map(str, explicit)))}; kernel builds after step 1 "
+          f"{builds}; field / grid field launches {launches}; f64 dKE "
+          f"{dke:.6e}, dPE {dpe:.6e}, |dKE + dPE| / dKE {balance:.3e} (bar "
+          f"{ENERGY_BAR}); {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def phase_user(dev, smi, plan, x, q):
+    """Phase 20 (20a, 20b, 20c); returns 20b's report entries."""
+    phase_user_cases(dev)
+    report = phase_user_fig4(dev, smi, plan, x, q)
+    phase_user_md(dev)
+    return report
 
 
 def phase_periodic(dev):
@@ -5543,10 +6147,19 @@ def main() -> int:
     early = {"17b": Background(train_launcher_runs, dev),
              "19b": start_resume()}
     t0 = time.perf_counter()
-    _build.build()
+    # phase 20's user libraries build beside the four base sources
+    _build.build(list(_build.SOURCES) + user_library_specs())
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s "
           f"{ {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()} }",
           flush=True)
+    for label, log in sorted(_build.BUILD_LOG.items()):
+        usage = ptxas_usage(log)
+        if ":user_" in label and usage:
+            spills = {k: v for k, v in usage.items() if v[1] or v[2]}
+            print(f"    {label}: {len(usage)} kernels, "
+                  f"{min(v[0] for v in usage.values())}-"
+                  f"{max(v[0] for v in usage.values())} registers, spills "
+                  f"{spills or 'none'}", flush=True)
     t1 = time.perf_counter()
     early["17b"].wait()
     early["19b"][1].wait()
@@ -5612,6 +6225,8 @@ def main() -> int:
     phase_sheet(dev, smi)
     phase_yukawa(dev, plan, x, q)
     lap("4s, 5")
+    report += phase_user(dev, smi, plan, x, q)
+    lap("20")
     phase_sharded(dev, smi, x, q, plan)
     lap("13a")
     report.append(phase_differentiable(dev, smi, plan, x, q))
@@ -5619,7 +6234,8 @@ def main() -> int:
     phase_periodic(dev)
     md_launches, *host_ref, md_sim = phase_md(dev)
     for entry in report:     # the field kernels' launches are the MD run's
-        if entry["name"].startswith("batch_cluster_field"):
+        if entry["name"] in ("batch_cluster_field",
+                             "batch_cluster_field_grid"):
             entry["launches"] = md_launches[entry["name"]]
     phase_md(dev, "[8d]", "device", host_ref=host_ref)
     phase_md(dev, "[8a]", "device", async_replan=True,

@@ -62,7 +62,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import eval as _eval
-from repro_torch.core.potentials import Kernel, builtin_id, resolve_kernel
+from repro_torch.core.potentials import (Kernel, builtin_id, kernel_source,
+                                         resolve_kernel)
 from repro_torch.core.space import FreeSpace, PeriodicBox, resolve_space
 from repro_torch.lint import runtime as _rt
 from repro_torch.obs import trace as _trace
@@ -232,13 +233,16 @@ class SingleDevicePlan:
     nranks = 1
 
     def __init__(self, config: TreecodeConfig, kernel: Kernel,
-                 inner: _eval.Plan, dtype: torch.dtype):
+                 inner: _eval.Plan, dtype: torch.dtype, kernel_params=None):
         self.config = config
         self.kernel = kernel
         self.inner = inner
         self.dtype = dtype
         self.device = inner.device
-        self.kernel_params = lift_params(kernel, dtype, self.device)
+        # a replan hands its lifted defaults on (an upload is a sync in a
+        # rebuild step); others lift the kernel's
+        self.kernel_params = (lift_params(kernel, dtype, self.device)
+                              if kernel_params is None else kernel_params)
 
     @property
     def arrays(self) -> dict:
@@ -391,7 +395,8 @@ class SingleDevicePlan:
                             self.device, capacities,
                             pair_caps=dev.get("pair_caps"),
                             depth=dev.get("depth") if keep else None,
-                            batch_depth=dev.get("tdepth") if keep else None)
+                            batch_depth=dev.get("tdepth") if keep else None,
+                            kernel_params=self.kernel_params)
 
     def replan_async(self, targets,
                      sources=None) -> "PendingSingleDevicePlan":
@@ -441,8 +446,8 @@ class PendingSingleDevicePlan:
     def finalize(self):
         inner, wait_ms, grew = self._pending.finalize()
         s = self._source
-        return (SingleDevicePlan(s.config, s.kernel, inner, s.dtype),
-                wait_ms, grew)
+        return (SingleDevicePlan(s.config, s.kernel, inner, s.dtype,
+                                 s.kernel_params), wait_ms, grew)
 
 
 def _on_device(targets, sources, dtype: torch.dtype, device: torch.device):
@@ -456,7 +461,8 @@ def _on_device(targets, sources, dtype: torch.dtype, device: torch.device):
 
 def _plan_single(config: TreecodeConfig, kernel: Kernel, targets, sources,
                  device: torch.device, capacities=None, pair_caps=None,
-                 depth=None, batch_depth=None) -> SingleDevicePlan:
+                 depth=None, batch_depth=None,
+                 kernel_params=None) -> SingleDevicePlan:
     if isinstance(capacities, str) and capacities != "auto":
         raise ValueError(f"capacities must be None, 'auto', 'keep' or a "
                          f"Capacities, got {capacities!r}")
@@ -478,7 +484,7 @@ def _plan_single(config: TreecodeConfig, kernel: Kernel, targets, sources,
             skin=config.skin,
             capacities=None if capacities == "auto" else capacities,
             pair_caps=pair_caps, depth=depth, batch_depth=batch_depth)
-        return SingleDevicePlan(config, kernel, inner, dtype)
+        return SingleDevicePlan(config, kernel, inner, dtype, kernel_params)
     # the host planner pulls the points and uploads the plan: a
     # sanctioned transfer inside a caller's no_implicit_syncs()
     with _rt.explicit_sync("host_build"):
@@ -495,15 +501,20 @@ def _plan_single(config: TreecodeConfig, kernel: Kernel, targets, sources,
                           if capacities == "auto"
                           else capacities.grown_to_fit(inner))
             inner = _eval.pad_plan(inner, capacities)
-    return SingleDevicePlan(config, kernel, inner, dtype)
+    return SingleDevicePlan(config, kernel, inner, dtype, kernel_params)
 
 
 class TreecodeSolver:
     """Fast summation phi_i = sum_j G(x_i, y_j) q_j in O(N log N).
 
     `device` defaults to CUDA; pass ``device="cpu"`` for the plain
-    PyTorch path. A user-registered kernel runs only on
-    ``backend="torch"`` (the CUDA kernel knows Coulomb and Yukawa)."""
+    PyTorch path. On CUDA any kernel runs through the hand-written
+    kernels: Coulomb and Yukawa on their hand-tuned paths, a user kernel
+    (`register_kernel`, `Kernel(...)`) through its user library, whose G
+    and 2 G' are generated from its torch `of_r2` and built at first use
+    (`kernels.codegen`). A kernel the generator does not take raises
+    NotImplementedError when the solver is built, naming what it met;
+    ``backend="torch"`` takes any kernel."""
 
     def __init__(self, config: TreecodeConfig = TreecodeConfig(),
                  device=None):
@@ -512,9 +523,7 @@ class TreecodeSolver:
         self._kernel = config.make_kernel()
         if (self.device.type == "cuda" and config.backend != "torch"
                 and builtin_id(self._kernel) is None):
-            raise NotImplementedError(
-                f"kernel {self._kernel.name!r} has no CUDA kernel; use "
-                f"backend='torch' (user kernels on CUDA: ROADMAP queue B)")
+            kernel_source(self._kernel)      # the generator's refusal, now
 
     @property
     def kernel(self) -> Kernel:

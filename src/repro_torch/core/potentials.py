@@ -155,16 +155,47 @@ def yukawa(kappa: float = 0.5) -> Kernel:
     return Kernel("yukawa", _yukawa, (float(kappa),), ("kappa",))
 
 
-#: Kernel functions the CUDA batch-cluster kernel implements, by the id
-#: its template takes. A user kernel runs on the "torch" backend only.
+#: Kernel functions the CUDA batch-cluster kernels have hand-tuned paths
+#: for, by the id their templates take. Any other kernel runs through
+#: its user library, built from `kernel_source`.
 BUILTIN_IDS = {_coulomb: 0, _yukawa: 1}
 
 _REGISTRY = {"coulomb": coulomb, "yukawa": yukawa}
+
+#: Generated headers by (of_r2, parameter tree structure): the trace is
+#: paid once a kernel function, not once a launch.
+_SOURCES: dict = {}
 
 
 def builtin_id(kernel: Kernel):
     """The CUDA kernel id of a built-in kernel, None for user kernels."""
     return BUILTIN_IDS.get(kernel.of_r2)
+
+
+def _structure(tree):
+    if isinstance(tree, (tuple, list)):
+        return tuple(_structure(t) for t in tree)
+    return None
+
+
+def kernel_source(kernel: Kernel, params=None):
+    """The CUDA header generated from `kernel`'s torch `of_r2`
+    (`kernels.codegen.Generated`: the text, its digest, the packed
+    parameters it reads), which the CUDA kernels of a user kernel are
+    built with. `params` is the tree `of_r2` is called with (None: the
+    kernel's defaults; a plan passes its kernel stripped of them, and the
+    values apart); only its structure matters, so kernels that differ in
+    their defaults share the header. Raises NotImplementedError naming
+    what the generator does not take (backend='torch' takes any
+    kernel)."""
+    structure = _structure(kernel.params if params is None else params)
+    key = (kernel.of_r2, structure)
+    src = _SOURCES.get(key)
+    if src is None:
+        from repro_torch.kernels import codegen
+        src = codegen.generate(kernel.of_r2, structure, kernel.name)
+        _SOURCES[key] = src
+    return src
 
 
 def register_kernel(name: str, factory: Callable[..., Kernel],

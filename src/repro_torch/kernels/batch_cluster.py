@@ -32,6 +32,14 @@ interaction, so ONE kernel evaluates both: against leaf source particles
   `batch_cluster_field_grid_plain` does the same factored arithmetic in
   tensors; on the grid's points it is `batch_cluster_field_plain`.
 
+Kernels: the CUDA sources have hand-tuned paths for Coulomb and Yukawa
+(`potentials.builtin_id`). Any other kernel runs through the same three
+sources built as its *user library*, whose G and 2 G' are generated from
+the kernel's torch `of_r2` (`kernels.codegen`, `kernel_id`); it builds at
+first use, the grid field kernel's for the degree it is asked for. A
+kernel the generator does not take raises `NotImplementedError` at the
+launch; the plain versions take any kernel.
+
 Sentinel contract: a ``-1`` slot contributes exactly zero wherever it
 sits in a row (the Verlet-skin gate writes interior sentinels).
 
@@ -61,7 +69,8 @@ import ctypes
 
 import torch
 
-from repro_torch.core.potentials import Kernel, builtin_id, system_params
+from repro_torch.core.potentials import (Kernel, builtin_id, kernel_source,
+                                         system_params)
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.kernels import _build
 from repro_torch.kernels.modified_charges import DEGREE_LATER
@@ -92,8 +101,11 @@ _GRID_SIG = (_P,) * 7 + (_I,) * 10 + (_D,) * 3 + (_P,)
 GRID_FIELD_SIGNATURES = {"bcfg_eval_f32": _GRID_SIG,
                          "bcfg_eval_f64": _GRID_SIG, "bcfg_tile": (_I, _I)}
 
-#: Degrees the grid field kernel is instantiated for (n+1 = 2..15).
+#: Degrees the grid field kernel is instantiated for (n+1 = 2..15); a
+#: user library instantiates the one it is built for.
 GRID_DEGREES = range(1, 15)
+#: The CUDA kernels' id of a user kernel (`csrc/field_common.cuh:kUser`).
+USER_ID = 2
 
 #: Element budget of one (batch chunk, NB, m) pairwise block in the plain
 #: versions.
@@ -114,15 +126,34 @@ def grid_tile(itemsize: int, n1: int) -> int:
     return 32 * (2 if itemsize == 4 and n1 <= 9 else 1)
 
 
-def kernel_id(kernel: Kernel) -> int:
-    """The CUDA kernel's id for `kernel`; raises for user kernels."""
+def kernel_id(kernel: Kernel, params=None):
+    """(id, generated header) of `kernel` on the CUDA kernels: a
+    built-in's id and None (the base libraries' hand-tuned paths), or
+    USER_ID and the `codegen.Generated` header of its user library
+    (`potentials.kernel_source`; `params` the tree its parameters come
+    in, None: its defaults). Raises NotImplementedError naming what the
+    code generator does not take; backend='torch' takes any kernel."""
     kid = builtin_id(kernel)
-    if kid is None:
+    if kid is not None:
+        return kid, None
+    return USER_ID, kernel_source(kernel, params)
+
+
+def _library(what: str, name: str, signatures: dict, kernel: Kernel,
+             par: torch.Tensor, params: tuple | None, defines: tuple = ()):
+    """(the loaded library of source `name` for `kernel`, its id): the
+    base library for a built-in, else the kernel's user library, built
+    with its generated header and `defines` at first use."""
+    kid, src = kernel_id(kernel, params)
+    if src is None:
+        return _build.load(name, signatures), kid
+    if par.shape[-1] != max(src.n_params, 1):
         raise NotImplementedError(
-            f"the CUDA batch-cluster kernel implements coulomb and yukawa; "
-            f"kernel {kernel.name!r} runs on backend='torch' (user kernels "
-            f"on CUDA: ROADMAP queue B)")
-    return kid
+            f"{what}: kernel {kernel.name!r} has {src.n_params} scalar "
+            f"parameters, which pack to {par.shape[-1]} values (a "
+            f"parameter of several values is not taken on CUDA); "
+            f"backend='torch' takes any kernel")
+    return _build.load(name, signatures, src.text, tuple(defines)), kid
 
 
 def swept_pairs(idx: torch.Tensor, nb: int, m: int,
@@ -252,8 +283,8 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
                             space=_FREE, kahan: bool = False,
                             r2_mode: str = "diff",
                             tgt_count: torch.Tensor | None = None,
-                            src_count: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            src_count: torch.Tensor | None = None,
+                            params=None) -> torch.Tensor:
     """phi (B, NB) by one launch of the CUDA kernel.
 
     idx (B, S) int32 (-1 = empty slot), par the packed kernel parameters
@@ -263,7 +294,9 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
     prefix lengths (the module's count contract). `r2_mode="matmul"`
     takes |x|^2+|y|^2-2x.y in free space; periodic spaces always take
     the difference form. With a leading systems axis on every operand
-    (par (W, P)) the one launch sweeps all W systems: phi (W, B, NB)."""
+    (par (W, P)) the one launch sweeps all W systems: phi (W, B, NB).
+    `params` is the tree `par` packs (None: the kernel's defaults), whose
+    structure a user kernel's generated code follows."""
     global LAUNCHES
     what = "batch_cluster_eval_cuda"
     single = idx.dim() == 2
@@ -273,12 +306,12 @@ def batch_cluster_eval_cuda(idx: torch.Tensor, par: torch.Tensor,
                                       tgt_count, src_count)
     if r2_mode not in ("diff", "matmul"):
         raise ValueError(f"unknown r2_mode {r2_mode!r}")
-    kid = kernel_id(kernel)
     periodic = bool(space.periodic)
     lengths = space.lengths if periodic else (1.0, 1.0, 1.0)
     matmul = r2_mode == "matmul" and not periodic
 
-    lib = _build.load("batch_cluster", _SIGNATURES)
+    lib, kid = _library(what, "batch_cluster", _SIGNATURES, kernel, par,
+                        params)
     fn = lib.bc_eval_f32 if tgt.dtype == torch.float32 else lib.bc_eval_f64
     out = torch.empty((w, b, nb), dtype=tgt.dtype, device=tgt.device)
     with torch.cuda.device(tgt.device):
@@ -299,13 +332,14 @@ def batch_cluster_field_cuda(idx: torch.Tensor, par: torch.Tensor,
                              src_q: torch.Tensor, *, kernel: Kernel,
                              space=_FREE, kahan: bool = False,
                              tgt_count: torch.Tensor | None = None,
-                             src_count: torch.Tensor | None = None
-                             ) -> torch.Tensor:
+                             src_count: torch.Tensor | None = None,
+                             params=None) -> torch.Tensor:
     """(B, NB, 4) = (phi, grad_x phi) by one launch of the field kernel.
 
     The arguments are those of `batch_cluster_eval_cuda` (a leading
-    systems axis included), without `r2_mode`: the gradient needs the
-    displacement, so the field kernel always takes the difference form."""
+    systems axis and `params` included), without `r2_mode`: the gradient
+    needs the displacement, so the field kernel always takes the
+    difference form."""
     global FIELD_LAUNCHES
     what = "batch_cluster_field_cuda"
     single = idx.dim() == 2
@@ -313,11 +347,11 @@ def batch_cluster_field_cuda(idx: torch.Tensor, par: torch.Tensor,
         what, idx, par, tgt, src_pts, src_q, tgt_count, src_count)
     w, b, s, nb, c, m = _check_inputs(what, idx, par, tgt, src_pts, src_q,
                                       tgt_count, src_count)
-    kid = kernel_id(kernel)
     periodic = bool(space.periodic)
     lengths = space.lengths if periodic else (1.0, 1.0, 1.0)
 
-    lib = _build.load("batch_cluster_field", FIELD_SIGNATURES)
+    lib, kid = _library(what, "batch_cluster_field", FIELD_SIGNATURES,
+                        kernel, par, params)
     fn = lib.bcf_eval_f32 if tgt.dtype == torch.float32 else lib.bcf_eval_f64
     out = torch.empty((w, b, nb, 4), dtype=tgt.dtype, device=tgt.device)
     with torch.cuda.device(tgt.device):
@@ -364,8 +398,8 @@ def batch_cluster_field_grid_cuda(idx: torch.Tensor, par: torch.Tensor,
                                   tgt: torch.Tensor, nodes: torch.Tensor,
                                   q_hat: torch.Tensor, *, kernel: Kernel,
                                   space=_FREE, kahan: bool = False,
-                                  tgt_count: torch.Tensor | None = None
-                                  ) -> torch.Tensor:
+                                  tgt_count: torch.Tensor | None = None,
+                                  params=None) -> torch.Tensor:
     """(B, NB, 4) = (phi, grad_x phi) over Chebyshev grids, one launch.
 
     idx (B, S) int32 (-1 = empty slot), par the packed kernel parameters,
@@ -374,7 +408,7 @@ def batch_cluster_field_grid_cuda(idx: torch.Tensor, par: torch.Tensor,
     CUDA tensors on one device, float32 or float64 alike; tgt_count (B,)
     optional int32 prefix lengths. Degrees 1-14; others raise. With a
     leading systems axis on every operand (par (W, P)) the one launch
-    sweeps all W systems."""
+    sweeps all W systems. `params` as in `batch_cluster_eval_cuda`."""
     global GRID_FIELD_LAUNCHES
     what = "batch_cluster_field_grid_cuda"
     single = idx.dim() == 2
@@ -382,11 +416,12 @@ def batch_cluster_field_grid_cuda(idx: torch.Tensor, par: torch.Tensor,
         what, idx, par, tgt, nodes, q_hat, tgt_count)
     w, b, s, nb, c, n1 = _check_grid_inputs(what, idx, par, tgt, nodes,
                                             q_hat, tgt_count)
-    kid = kernel_id(kernel)
     periodic = bool(space.periodic)
     lengths = space.lengths if periodic else (1.0, 1.0, 1.0)
 
-    lib = _build.load("batch_cluster_field_grid", GRID_FIELD_SIGNATURES)
+    lib, kid = _library(what, "batch_cluster_field_grid",
+                        GRID_FIELD_SIGNATURES, kernel, par, params,
+                        (f"REPRO_USER_N1={n1}",))
     fn = (lib.bcfg_eval_f32 if tgt.dtype == torch.float32
           else lib.bcfg_eval_f64)
     out = torch.empty((w, b, nb, 4), dtype=tgt.dtype, device=tgt.device)

@@ -78,6 +78,13 @@
 //     jnp.round / torch.round do (CUDA's round() would round half away);
 //   - kernel parameters come through a device pointer, so a kappa sweep
 //     reuses this binary and never waits on the host;
+//   - a user kernel (any Kernel but the two built-ins) takes kUser: G
+//     from repro_user_g, the function kernels/codegen.py generates from
+//     the kernel's torch of_r2, on the masked r2 (1 where r2 is below
+//     the mask), its parameters in registers (field::Params). Only a user
+//     library (this source with -DREPRO_USER_KERNEL and -include of the
+//     generated header) instantiates kUser, and only kUser; everything
+//     else above holds for it unchanged;
 //   - layouts are the natural (..., P, 3) ones of the callers, so the
 //     wrapper makes no transposed copies.
 // Double-buffering the chunks (cp.async) is left out: a warp's chunk
@@ -88,6 +95,8 @@
 #include <cfloat>
 
 #include <cuda_runtime.h>
+
+#include "field_common.cuh"
 
 namespace {
 
@@ -100,8 +109,9 @@ constexpr int kUnroll = 4;                 // inner-loop unroll
 static_assert(kTile == kThreads, "the final combine maps thread t to target t");
 static_assert(kChunk % kUnroll == 0, "a chunk rounds up inside its buffer");
 
-constexpr int kCoulomb = 0;
-constexpr int kYukawa = 1;
+using field::kCoulomb;
+using field::kUser;
+using field::kYukawa;
 
 // Blocks per SM the register budget is sized for: 8 x 4 warps of f32
 // (<= 64 registers a thread), 4 x 4 warps of f64.
@@ -116,8 +126,14 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
 
 // s + G(r2) q, or s where r2 is 0 (G = 0 there).
 template <typename T, int KID>
-__device__ __forceinline__ T add_pair(T s, T r2, T q, T kappa) {
-  if constexpr (sizeof(T) == 4) {
+__device__ __forceinline__ T add_pair(T s, T r2, T q,
+                                      const field::Params<T, KID>& kp) {
+  if constexpr (KID == kUser) {
+    const bool pos = field::nonzero(r2);
+    const T g = repro_user_g<T>(pos ? r2 : T(1), kp.p);
+    return pos ? s + g * q : s;
+  } else if constexpr (sizeof(T) == 4) {
+    const float kappa = kp.kappa;
     // The MUFU runs for every pair; the r2 test predicates the fma, so
     // r2 == 0 costs no select (the unused rinv is +inf there).
     const float rinv = rsqrt_ftz(r2);
@@ -126,7 +142,7 @@ __device__ __forceinline__ T add_pair(T s, T r2, T q, T kappa) {
   } else {
     if (!(r2 > 0.0)) return s;
     const double r = sqrt(r2);
-    const double g = KID == kCoulomb ? 1.0 / r : exp(-kappa * r) / r;
+    const double g = KID == kCoulomb ? 1.0 / r : exp(-kp.kappa * r) / r;
     return s + g * q;
   }
 }
@@ -206,7 +222,7 @@ batch_cluster_kernel(const int* __restrict__ idx, const T* __restrict__ par,
     acc[r] = T(0);
     comp[r] = T(0);
   }
-  const T kappa = KID == kYukawa ? par[blockIdx.z * P] : T(0);
+  const field::Params<T, KID> kp(par + static_cast<size_t>(blockIdx.z) * P);
   const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
 
   T* buf = stage[warp];
@@ -261,7 +277,7 @@ batch_cluster_kernel(const int* __restrict__ idx, const T* __restrict__ par,
                 }
                 r2 = dx * dx + dy * dy + dz * dz;
               }
-              slot[r] = add_pair<T, KID>(slot[r], r2, sv.q, kappa);
+              slot[r] = add_pair<T, KID>(slot[r], r2, sv.q, kp);
             }
           }
         }
@@ -339,28 +355,42 @@ void launch_space(const Args& a, const T* par, const T* tgt, const T* src,
                                             Lz, st);
 }
 
+template <typename T, int KID>
+void launch_kid(const Args& a, const T* par, const T* tgt, const T* src,
+                const T* q, T* out, int periodic, int kahan, int matmul,
+                T Lx, T Ly, T Lz, cudaStream_t st) {
+  if (kahan)
+    launch_space<T, KID, true>(a, par, tgt, src, q, out, periodic, matmul,
+                               Lx, Ly, Lz, st);
+  else
+    launch_space<T, KID, false>(a, par, tgt, src, q, out, periodic, matmul,
+                                Lx, Ly, Lz, st);
+}
+
+// A base library launches the built-ins, a user library kUser alone;
+// any other id is refused.
 template <typename T>
 int launch(const Args& a, const T* par, const T* tgt, const T* src,
            const T* q, T* out, int kernel_id, int periodic, int kahan,
            int matmul, T Lx, T Ly, T Lz, cudaStream_t st) {
+#ifdef REPRO_USER_KERNEL
+  if (kernel_id != kUser) return static_cast<int>(cudaErrorInvalidValue);
+#else
   if (kernel_id != kCoulomb && kernel_id != kYukawa)
     return static_cast<int>(cudaErrorInvalidValue);
+#endif
   if (a.W > 0 && a.B > 0 && a.NB > 0) {
-    if (kernel_id == kCoulomb) {
-      if (kahan)
-        launch_space<T, kCoulomb, true>(a, par, tgt, src, q, out, periodic,
-                                        matmul, Lx, Ly, Lz, st);
-      else
-        launch_space<T, kCoulomb, false>(a, par, tgt, src, q, out, periodic,
-                                         matmul, Lx, Ly, Lz, st);
-    } else {
-      if (kahan)
-        launch_space<T, kYukawa, true>(a, par, tgt, src, q, out, periodic,
-                                       matmul, Lx, Ly, Lz, st);
-      else
-        launch_space<T, kYukawa, false>(a, par, tgt, src, q, out, periodic,
-                                        matmul, Lx, Ly, Lz, st);
-    }
+#ifdef REPRO_USER_KERNEL
+    launch_kid<T, kUser>(a, par, tgt, src, q, out, periodic, kahan, matmul,
+                         Lx, Ly, Lz, st);
+#else
+    if (kernel_id == kCoulomb)
+      launch_kid<T, kCoulomb>(a, par, tgt, src, q, out, periodic, kahan,
+                              matmul, Lx, Ly, Lz, st);
+    else
+      launch_kid<T, kYukawa>(a, par, tgt, src, q, out, periodic, kahan,
+                             matmul, Lx, Ly, Lz, st);
+#endif
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -64,7 +64,11 @@
 //   - the periodic fold decides each image as the reference does,
 //     rint(d / L) half to even, to the last bit (fold() in
 //     field_common.cuh);
-//   - f64 keeps IEEE sqrt and division.
+//   - f64 keeps IEEE sqrt and division;
+//   - a user kernel takes kUser (see batch_cluster.cu): g and c = 2 G'
+//     from repro_user_gc on the masked r2, then phi += g q and
+//     grad += (c q) d under the same predicate; only a user library
+//     instantiates it.
 
 #include <cfloat>
 
@@ -77,6 +81,7 @@ namespace {
 using field::kCoulomb;
 using field::kOut;
 using field::kThreads;
+using field::kUser;
 using field::kWarps;
 using field::kYukawa;
 using field::kahan_add;
@@ -108,8 +113,20 @@ __device__ __forceinline__ void zero(Field<T>& f) {
 // FLT_MIN); without it the caller has shown r2 is above that.
 template <typename T, int KID, bool CHECK>
 __device__ __forceinline__ void add_pair(Field<T>& f, T dx, T dy, T dz, T r2,
-                                         T q, T kappa) {
-  if constexpr (sizeof(T) == 4) {
+                                         T q, const field::Params<T, KID>& kp) {
+  if constexpr (KID == kUser) {
+    const bool pos = !CHECK || field::nonzero(r2);
+    T g, c;
+    repro_user_gc<T>(pos ? r2 : T(1), kp.p, &g, &c);
+    if (pos) {
+      const T cq = c * q;
+      f.p = f.p + g * q;
+      f.x = f.x + cq * dx;
+      f.y = f.y + cq * dy;
+      f.z = f.z + cq * dz;
+    }
+  } else if constexpr (sizeof(T) == 4) {
+    const float kappa = kp.kappa;
     const float rinv = rsqrt_ftz(r2);
     const float g = KID == kCoulomb ? rinv : expf(-kappa * (r2 * rinv)) * rinv;
     const float gq = g * q;
@@ -123,6 +140,7 @@ __device__ __forceinline__ void add_pair(Field<T>& f, T dx, T dy, T dz, T r2,
       f.z = fmaf(-s, dz, f.z);
     }
   } else {
+    const double kappa = kp.kappa;
     if (CHECK && !(r2 > 0.0)) return;
     const double r = sqrt(r2);
     const double g = KID == kCoulomb ? 1.0 / r : exp(-kappa * r) / r;
@@ -170,7 +188,8 @@ template <typename T, int KID, bool PERIODIC, bool CHECK>
 __device__ __forceinline__ void sweep_chunk(
     const T* buf, int padded, const T (&tx)[kPerThread],
     const T (&ty)[kPerThread], const T (&tz)[kPerThread],
-    Field<T> (&slot)[kPerThread], T kappa, T Lx, T Ly, T Lz) {
+    Field<T> (&slot)[kPerThread], const field::Params<T, KID>& kp, T Lx,
+    T Ly, T Lz) {
   const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
   for (int t = 0; t < padded; t += kUnroll) {
 #pragma unroll
@@ -185,7 +204,7 @@ __device__ __forceinline__ void sweep_chunk(
           dz = field::fold(dz, Lz, iLz);
         }
         const T r2 = dx * dx + dy * dy + dz * dz;
-        add_pair<T, KID, CHECK>(slot[r], dx, dy, dz, r2, sv.q, kappa);
+        add_pair<T, KID, CHECK>(slot[r], dx, dy, dz, r2, sv.q, kp);
       }
     }
   }
@@ -240,7 +259,7 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
       comp[r][k] = T(0);
     }
   }
-  const T kappa = KID == kYukawa ? par[blockIdx.z * P] : T(0);
+  const field::Params<T, KID> kp(par + static_cast<size_t>(blockIdx.z) * P);
 
   T* buf = stage[warp];
   const int* row = idx + static_cast<size_t>(b) * S;
@@ -309,10 +328,10 @@ field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
         __syncwarp();
         if (clear)
           sweep_chunk<T, KID, PERIODIC, false>(buf, padded, tx, ty, tz, slot,
-                                               kappa, Lx, Ly, Lz);
+                                               kp, Lx, Ly, Lz);
         else
           sweep_chunk<T, KID, PERIODIC, true>(buf, padded, tx, ty, tz, slot,
-                                              kappa, Lx, Ly, Lz);
+                                              kp, Lx, Ly, Lz);
       }
     }
     // the slot's sums into this warp's totals, once a slot (a lane owns
@@ -363,19 +382,30 @@ void launch_kid(const Args& a, const T* par, const T* tgt, const T* src,
   }
 }
 
+// A base library launches the built-ins, a user library kUser alone;
+// any other id is refused.
 template <typename T>
 int launch(const Args& a, const T* par, const T* tgt, const T* src,
            const T* q, T* out, int kernel_id, int periodic, int kahan, T Lx,
            T Ly, T Lz, cudaStream_t st) {
+#ifdef REPRO_USER_KERNEL
+  if (kernel_id != kUser) return static_cast<int>(cudaErrorInvalidValue);
+#else
   if (kernel_id != kCoulomb && kernel_id != kYukawa)
     return static_cast<int>(cudaErrorInvalidValue);
+#endif
   if (a.W > 0 && a.B > 0 && a.NB > 0) {
+#ifdef REPRO_USER_KERNEL
+    launch_kid<T, kUser>(a, par, tgt, src, q, out, periodic, kahan, Lx, Ly,
+                         Lz, st);
+#else
     if (kernel_id == kCoulomb)
       launch_kid<T, kCoulomb>(a, par, tgt, src, q, out, periodic, kahan, Lx,
                               Ly, Lz, st);
     else
       launch_kid<T, kYukawa>(a, par, tgt, src, q, out, periodic, kahan, Lx,
                              Ly, Lz, st);
+#endif
   }
   return static_cast<int>(cudaGetLastError());
 }

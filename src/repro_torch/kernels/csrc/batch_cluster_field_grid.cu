@@ -62,7 +62,12 @@
 //     the compensation in shared memory too, when asked), then the warps'
 //     totals in warp order: the count contract and the -1 sentinels of
 //     the generic kernel;
-//   - n+1 is a template parameter for degrees 1-14 (n+1 = 2..15).
+//   - n+1 is a template parameter for degrees 1-14 (n+1 = 2..15);
+//   - a user kernel takes kUser (see batch_cluster.cu): g and c = 2 G'
+//     from repro_user_gc on the masked r2, s = -c q. A user library
+//     instantiates kUser alone, and for one n+1, REPRO_USER_N1, the
+//     degree it is built for at first use: all 14 would take as long as
+//     half of this file's base build.
 
 #include <cfloat>
 
@@ -75,11 +80,21 @@ namespace {
 using field::kCoulomb;
 using field::kOut;
 using field::kThreads;
+using field::kUser;
 using field::kWarps;
 using field::kYukawa;
 using field::rsqrt_ftz;
 
 constexpr int kMaxN1 = 15;
+
+// The n+1 this library instantiates: 2..15, or a user library's one.
+constexpr bool instantiated(int n1) {
+#ifdef REPRO_USER_N1
+  return n1 == REPRO_USER_N1;
+#else
+  return n1 >= 2;
+#endif
+}
 
 // Launch geometry of one (T, n+1) instantiation.
 template <typename T, int N1>
@@ -124,9 +139,22 @@ __device__ __forceinline__ void load_row(const double* p, double (&v)[ROW]) {
 // FLT_MIN (r2 > 0 in f64), so an exact hit adds nothing. The expressions
 // are the generic kernel's add_pair.
 template <typename T, int KID, bool CHECK>
-__device__ __forceinline__ void grid_pair(T ab, T dz, T q, T kappa, T& p,
-                                          T& row, T& gz) {
-  if constexpr (sizeof(T) == 4) {
+__device__ __forceinline__ void grid_pair(T ab, T dz, T q,
+                                          const field::Params<T, KID>& kp,
+                                          T& p, T& row, T& gz) {
+  if constexpr (KID == kUser) {
+    const T r2 = fma(dz, dz, ab);
+    const bool pos = !CHECK || field::nonzero(r2);
+    T g, c;
+    repro_user_gc<T>(pos ? r2 : T(1), kp.p, &g, &c);
+    if (pos) {
+      const T s = -(c * q);
+      p = fma(g, q, p);
+      row += s;
+      gz = fma(s, dz, gz);
+    }
+  } else if constexpr (sizeof(T) == 4) {
+    const float kappa = kp.kappa;
     const float r2 = fmaf(dz, dz, ab);
     const float rinv = rsqrt_ftz(r2);
     const float g = KID == kCoulomb ? rinv : expf(-kappa * (r2 * rinv)) * rinv;
@@ -140,6 +168,7 @@ __device__ __forceinline__ void grid_pair(T ab, T dz, T q, T kappa, T& p,
       gz = fmaf(s, dz, gz);
     }
   } else {
+    const double kappa = kp.kappa;
     const double r2 = fma(dz, dz, ab);
     if (CHECK && !(r2 > 0.0)) return;
     const double r = sqrt(r2);
@@ -167,7 +196,8 @@ template <typename T, int N1, int KID, int P, int R, bool CHECK>
 __device__ __forceinline__ void sweep_row(int k2, const T* qp,
                                           const T (*yd)[P][32], int lane,
                                           const T (&a)[P],
-                                          const T (&dz)[P][N1], T kappa,
+                                          const T (&dz)[P][N1],
+                                          const field::Params<T, KID>& kp,
                                           T (&sp)[P], T (&sy)[P],
                                           T (&sz)[P], T (&pl)[P]) {
   T qv[R];
@@ -179,8 +209,7 @@ __device__ __forceinline__ void sweep_row(int k2, const T* qp,
     T rs = T(0);
 #pragma unroll
     for (int k3 = 0; k3 < N1; ++k3)
-      grid_pair<T, KID, CHECK>(ab, dz[r][k3], qv[k3], kappa, sp[r], rs,
-                               sz[r]);
+      grid_pair<T, KID, CHECK>(ab, dz[r][k3], qv[k3], kp, sp[r], rs, sz[r]);
     sy[r] = fma(dy, rs, sy[r]);
     pl[r] += rs;
   }
@@ -189,22 +218,25 @@ __device__ __forceinline__ void sweep_row(int k2, const T* qp,
 // The rows of one plane. The unchecked sweep (every plane but those a
 // target shares in x) unrolls all of them, for the pairs in flight and
 // the loop and load overhead; the rare checked one does not, to keep the
-// code and the build small.
+// code and the build small. Nor does a user kernel's: its generated G and
+// 2 G' can be many times the built-ins' instructions, and unrolled rows
+// multiply its code and its build time with them.
 template <typename T, int N1, int KID, int P, int R, bool CHECK>
 __device__ __forceinline__ void sweep_plane(const T* qp, const T (*yd)[P][32],
                                             int lane, const T (&a)[P],
-                                            const T (&dz)[P][N1], T kappa,
+                                            const T (&dz)[P][N1],
+                                            const field::Params<T, KID>& kp,
                                             T (&sp)[P], T (&sy)[P],
                                             T (&sz)[P], T (&pl)[P]) {
-  if constexpr (CHECK) {
+  if constexpr (CHECK || KID == kUser) {
 #pragma unroll 1
     for (int k2 = 0; k2 < N1; ++k2)
-      sweep_row<T, N1, KID, P, R, true>(k2, qp, yd, lane, a, dz, kappa, sp,
-                                        sy, sz, pl);
+      sweep_row<T, N1, KID, P, R, true>(k2, qp, yd, lane, a, dz, kp, sp, sy,
+                                        sz, pl);
   } else {
 #pragma unroll
     for (int k2 = 0; k2 < N1; ++k2)
-      sweep_row<T, N1, KID, P, R, false>(k2, qp, yd, lane, a, dz, kappa, sp,
+      sweep_row<T, N1, KID, P, R, false>(k2, qp, yd, lane, a, dz, kp, sp,
                                          sy, sz, pl);
   }
 }
@@ -258,7 +290,7 @@ grid_field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
     for (int k = 0; k < kOut; ++k)
       tot[warp][k][lane + 32 * r] = comp[warp][k][lane + 32 * r] = T(0);
   }
-  const T kappa = KID == kYukawa ? par[blockIdx.z * np] : T(0);
+  const field::Params<T, KID> kp(par + static_cast<size_t>(blockIdx.z) * np);
   const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
 
   T* qp = plane[warp];
@@ -312,10 +344,10 @@ grid_field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
         // the predicate only where a target shares this plane's x
         if (clear)
           sweep_plane<T, N1, KID, P, R, false>(qp, ydisp[warp], lane, a, dz,
-                                               kappa, sp, sy, sz, pl);
+                                               kp, sp, sy, sz, pl);
         else
           sweep_plane<T, N1, KID, P, R, true>(qp, ydisp[warp], lane, a, dz,
-                                              kappa, sp, sy, sz, pl);
+                                              kp, sp, sy, sz, pl);
 #pragma unroll
         for (int r = 0; r < P; ++r) sx[r] = fma(dx[r], pl[r], sx[r]);
       }
@@ -367,16 +399,24 @@ bool dispatch(int n1, const Args& a, const T* par, const T* tgt,
               int periodic, int kahan, T Lx, T Ly, T Lz) {
   if constexpr (N1 > kMaxN1) {
     return false;
+  } else if constexpr (!instantiated(N1)) {
+    return dispatch<T, N1 + 1>(n1, a, par, tgt, nodes, qhat, out, kernel_id,
+                               periodic, kahan, Lx, Ly, Lz);
   } else {
     if (n1 != N1)
       return dispatch<T, N1 + 1>(n1, a, par, tgt, nodes, qhat, out,
                                  kernel_id, periodic, kahan, Lx, Ly, Lz);
+#ifdef REPRO_USER_KERNEL
+    launch_one<T, N1, kUser>(a, par, tgt, nodes, qhat, out, periodic, kahan,
+                             Lx, Ly, Lz);
+#else
     if (kernel_id == kCoulomb)
       launch_one<T, N1, kCoulomb>(a, par, tgt, nodes, qhat, out, periodic,
                                   kahan, Lx, Ly, Lz);
     else
       launch_one<T, N1, kYukawa>(a, par, tgt, nodes, qhat, out, periodic,
                                  kahan, Lx, Ly, Lz);
+#endif
     return true;
   }
 }
@@ -386,7 +426,8 @@ int tile(int n1) {
   if constexpr (N1 > kMaxN1) {
     return 0;
   } else {
-    return n1 == N1 ? GridGeo<T, N1>::TILE : tile<T, N1 + 1>(n1);
+    return n1 == N1 && instantiated(N1) ? GridGeo<T, N1>::TILE
+                                        : tile<T, N1 + 1>(n1);
   }
 }
 
@@ -394,7 +435,12 @@ template <typename T>
 int launch(const Args& a, const T* par, const T* tgt, const T* nodes,
            const T* qhat, T* out, int n1, int kernel_id, int periodic,
            int kahan, T Lx, T Ly, T Lz) {
-  if ((kernel_id != kCoulomb && kernel_id != kYukawa) || tile<T>(n1) == 0)
+#ifdef REPRO_USER_KERNEL
+  const bool known = kernel_id == kUser;
+#else
+  const bool known = kernel_id == kCoulomb || kernel_id == kYukawa;
+#endif
+  if (!known || tile<T>(n1) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.W > 0 && a.B > 0 && a.NB > 0)
     dispatch<T>(n1, a, par, tgt, nodes, qhat, out, kernel_id, periodic, kahan,

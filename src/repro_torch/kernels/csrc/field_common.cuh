@@ -1,13 +1,28 @@
 // Device helpers shared by the two field kernels (batch_cluster_field.cu,
 // the generic one over explicit points, and batch_cluster_field_grid.cu,
-// the one over a cluster's tensor-product Chebyshev grid). Header only;
-// `_build.library_path` hashes it into both libraries' names, so an edit
-// here rebuilds both.
+// the one over a cluster's tensor-product Chebyshev grid), and the kernel
+// ids and parameters of all three batch-cluster kernels (batch_cluster.cu
+// too). Header only; `_build.library_path` hashes it into every library's
+// name, so an edit here rebuilds them.
 #pragma once
 
 #include <cfloat>
 
 #include <cuda_runtime.h>
+
+#ifndef REPRO_USER_KERNEL
+// A base library: the user kernel's functions (generated by
+// kernels/codegen.py into the header a user library is built with) are
+// declared, never defined, and never instantiated: every kUser branch is
+// an `if constexpr`.
+#define REPRO_USER_NPAR 0
+namespace {
+template <typename T>
+__device__ T repro_user_g(T r2, const T* p);
+template <typename T>
+__device__ void repro_user_gc(T r2, const T* p, T* g, T* c);
+}  // namespace
+#endif
 
 namespace field {
 
@@ -17,6 +32,40 @@ constexpr int kOut = 4;                // phi, gx, gy, gz
 
 constexpr int kCoulomb = 0;
 constexpr int kYukawa = 1;
+// Any other kernel: G and 2 G' from the header kernels/codegen.py
+// generates from the kernel's torch function. Only a user library
+// (-DREPRO_USER_KERNEL -include <header>) instantiates it, and it
+// instantiates nothing else; the built-ins keep their hand-tuned paths.
+constexpr int kUser = 2;
+
+// A kernel's parameters in registers, read once a block from its system's
+// row of par: Yukawa's kappa (Coulomb reads none), or a user kernel's
+// REPRO_USER_NPAR values (the packed order of potentials.pack_params).
+template <typename T, int KID>
+struct Params {
+  T kappa;
+  __device__ __forceinline__ explicit Params(const T* row)
+      : kappa(KID == kYukawa ? row[0] : T(0)) {}
+};
+
+constexpr int kUserParams = REPRO_USER_NPAR > 0 ? REPRO_USER_NPAR : 1;
+
+template <typename T>
+struct Params<T, kUser> {
+  T p[kUserParams];
+  __device__ __forceinline__ explicit Params(const T* row) {
+#pragma unroll
+    for (int k = 0; k < kUserParams; ++k)
+      p[k] = k < REPRO_USER_NPAR ? row[k] : T(0);
+  }
+};
+
+// The pair mask of every kernel: r2 >= FLT_MIN in f32 (MUFU.RSQ reads a
+// denormal as 0), r2 > 0 in f64. A user kernel's G and 2 G' are taken on
+// the masked value (r2, or 1 where the mask is off), never at r2 == 0,
+// as Kernel.__call__ does: a 0/0 never reaches the sums.
+__device__ __forceinline__ bool nonzero(float r2) { return r2 >= FLT_MIN; }
+__device__ __forceinline__ bool nonzero(double r2) { return r2 > 0.0; }
 
 // MUFU.RSQ on its own: a denormal x reads as 0 and gives +inf.
 __device__ __forceinline__ float rsqrt_ftz(float x) {

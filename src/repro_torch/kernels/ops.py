@@ -208,7 +208,7 @@ def batch_cluster_eval(
             idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
             src_pts.contiguous(), src_q.contiguous(), kernel=kernel,
             space=space, kahan=kahan, r2_mode=r2_mode, tgt_count=counts[0],
-            src_count=counts[1])
+            src_count=counts[1], params=params)
     else:
         out = _bc.batch_cluster_eval_plain(
             idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
@@ -249,7 +249,7 @@ def batch_cluster_field(
             idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
             src_pts.contiguous(), src_q.contiguous(), kernel=kernel,
             space=space, kahan=kahan, tgt_count=counts[0],
-            src_count=counts[1])
+            src_count=counts[1], params=params)
     else:
         out = _bc.batch_cluster_field_plain(
             idx, tgt, src_pts, src_q, params, kernel=kernel, space=space,
@@ -286,7 +286,7 @@ def batch_cluster_field_grid(
         out = _bc.batch_cluster_field_grid_cuda(
             idx.to(torch.int32).contiguous(), par, tgt.contiguous(),
             nodes.contiguous(), q_hat.contiguous(), kernel=kernel,
-            space=space, kahan=kahan, tgt_count=count)
+            space=space, kahan=kahan, tgt_count=count, params=params)
     else:
         out = _bc.batch_cluster_field_grid_plain(
             idx, tgt, nodes, q_hat, params, kernel=kernel, space=space,

@@ -189,8 +189,11 @@ def test_device_defaults_to_cuda():
             TreecodeSolver(TreecodeConfig())
     soft = Kernel("soft", lambda r2, p: 1.0 / torch.sqrt(r2 + 1.0))
     if torch.cuda.is_available():
-        with pytest.raises(NotImplementedError, match="torch"):
-            TreecodeSolver(TreecodeConfig(kernel=soft))
+        # a user kernel builds its user library and executes on the card
+        x, q = _particles(3, 300)
+        phi = TreecodeSolver(TreecodeConfig(kernel=soft, leaf_size=32,
+                                            degree=3)).plan(x).execute(q)
+        assert phi.is_cuda and torch.isfinite(phi).all()
 
 
 def test_paper_presets():

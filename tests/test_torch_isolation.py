@@ -75,8 +75,20 @@ def test_cuda_sources_are_present():
         assert not re.search(r"\b(rsqrtf?|__fdividef|__expf)\s*\(", text)
         assert text.count("rsqrt.approx") == (
             name in ("batch_cluster.cu", "field_common.cuh"))
+        # the three batch-cluster sources share the kernel ids, the
+        # parameters and the user-kernel hook of field_common.cuh
         assert ('#include "field_common.cuh"' in text) == (
-            name.startswith("batch_cluster_field"))
+            name.startswith("batch_cluster"))
+    # ... nor in a user library's generated header, whose -1/2 and -3/2
+    # powers and rsqrt are IEEE 1 / sqrt in both precisions
+    import torch
+    from repro_torch.core.potentials import Kernel, kernel_source
+    for of_r2 in (lambda r2, p: (r2 + p[0]) ** -0.5,
+                  lambda r2, p: torch.rsqrt(r2 + p[0]) * torch.exp(-r2)):
+        text = re.sub(r"//.*", "", kernel_source(
+            Kernel("user", of_r2, (1e-4,), ("eps2",))).text)
+        assert not re.search(r"\b(rsqrtf?|__fdividef|__expf)\s*\(", text)
+        assert "rsqrt" not in text and ".approx" not in text
     from repro_torch.kernels import _build
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
 

@@ -226,9 +226,13 @@ def test_cuda_backend_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="unknown backend"):
         tops.batch_cluster_eval(idx, x, x, torch.zeros(1, 8), kernel=tk,
                                 backend="xla")
+    # a user kernel selects its user library; one the CUDA code
+    # generator does not take is refused, naming backend='torch'
     user = tpot.Kernel("soft", lambda r2, p: 1.0 / torch.sqrt(r2 + 1.0))
+    assert tbc.kernel_id(user)[0] == tbc.USER_ID
+    bessel = tpot.Kernel("bessel", lambda r2, p: torch.special.bessel_j0(r2))
     with pytest.raises(NotImplementedError, match="torch"):
-        tbc.kernel_id(user)
+        tbc.kernel_id(bessel)
 
 
 def test_mac_gate_matches_reference(rng, x64):

@@ -33,7 +33,12 @@ the fake 256- and 512-rank meshes in a subprocess; each also alone) and 19
 2 torchrun ranks sharing the card under gloo beside one rank, 19b, the
 SMOKE launcher's 2-rank checkpoints resumed on one rank, 19c, the four
 example twins; each also alone; 19m, internlm2 SMOKE on a (data 1, model
-2) mesh of 2 ranks, alone only). A failing phase prints its traceback
+2) mesh of 2 ranks, alone only) and 20 (user kernels on the card: 20a, the
+user libraries' three kernels against their plain versions, 20b,
+yukawa_user against the built-in Yukawa and plummer against an f64 direct
+sum on the Fig. 4 plan, built here unless 4 ran first, 20c, a plummer MD;
+each also alone; the user libraries build with the base sources). A
+failing phase prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
 line compares the hierarchical q_hat with this run's direct one only
 (phase 4 runs here only when named). Prints the
@@ -63,8 +68,10 @@ def main() -> int:
     smi = c.smi_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    _build.build()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    _build.build(list(_build.SOURCES) + c.user_library_specs())
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s "
+          f"{ {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()} }",
+          flush=True)
     rng = np.random.default_rng(2020)               # phase 4's points
     x = rng.uniform(-1, 1, (c.MAIN_N, 3)).astype(np.float32)
     q = torch.as_tensor(rng.uniform(-1, 1, c.MAIN_N).astype(np.float32),
@@ -133,6 +140,10 @@ def main() -> int:
         "19b": lambda: c.phase_mesh(dev, smi, ("19b",)),
         "19c": lambda: c.phase_mesh(dev, smi, ("19c",)),
         "19m": lambda: c.phase_mesh(dev, smi, ("19m",)),
+        "20": lambda: c.phase_user(dev, smi, fig4_plan(), x, q),
+        "20a": lambda: c.phase_user_cases(dev),
+        "20b": lambda: c.phase_user_fig4(dev, smi, fig4_plan(), x, q),
+        "20c": lambda: c.phase_user_md(dev),
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:
