@@ -288,10 +288,30 @@ Phases (each asserts; any failure exits non-zero):
     batch rows; (20c) a USER_MD_STEPS-step plummer
     MD on USER_MD_M^3 points of phase 8's lattice: one host sync a refit
     step, no build after step 1, energy balance <= ENERGY_BAR;
+ 21. any degree (the runtime-degree kernels of the modified charges,
+    their transpose and the grid field kernel, which run from degree 15
+    on): (21a) each forced at phase 4's degree 8 on its plan against its
+    template (the modified charges at phase 4's rule, the grid field
+    kernel and the transpose bitwise or at 4f's / 14's), both timed;
+    (21b) the Fig. 4 points at 10^6 in f64 at degree HIGH_DEGREE (16):
+    execute, `potential_and_forces`, the charge cotangent and the
+    hierarchical precompute with every launch counter from 0 (each
+    runtime kernel launched), phi and forces against an f64 direct sum
+    on 1000 sampled targets (HIGH_PHI_BAR, HIGH_FORCE_BAR), the
+    hierarchical q_hat against the direct one (phase 11's rule), each
+    kernel against its plain version (the modified charges on every
+    node, the transpose on every particle, the potential kernel and both
+    field lanes on phase 4's 33 rows) and timed against its bound (f64
+    operations over PEAK_FP64, the modified charges' contractions over
+    PEAK_FP64_TC, or bytes); (21c)
+    degree 24 (n+1 = 25): phase 2g's and 3's cases, both systems-axis
+    cases, the transpose on ragged and flat nodes, and the plummer user
+    kernel's grid library at degree 15;
  7. one JSON line per kernel (launches, error against the plain
     version, times, bound; the plain version timed on the rows it is
-    held to, `plain_rows`), the device line, and the final status
-    line.
+    held to, `plain_rows`; the runtime-degree kernels named
+    `...[runtime]`, their launches 21b's), the device line, and the
+    final status line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -311,6 +331,8 @@ SRC = os.path.join(ROOT, "src")
 
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 PEAK_FP32 = 67e12      # FLOP/s outside the tensor cores
+PEAK_FP64 = 34e12      # f64 FLOP/s outside the tensor cores
+PEAK_FP64_TC = 67e12   # f64 FLOP/s on the tensor cores (DMMA, IEEE f64)
 PEAK_BYTES = 3.35e12   # HBM3 bytes/s
 PEAK_BF16 = 989e12     # dense bf16 FLOP/s on the tensor cores
 # MUFU (special function unit) results per clock per SM for the f32
@@ -686,38 +708,67 @@ def fold_ties(length):
 
 
 def phase_field_grid(dev):
-    """The grid field kernel against its plain version on ragged cases:
-    degrees 1, 4, 8, 14; free space, a periodic box, and a box whose x
-    edge puts targets at minimum-image ties of a cluster of zero width
-    in x; Coulomb and Yukawa at two kappas; f32 and f64; Kahan and target
-    counts on and off; -1 sentinels, an all-empty row, targets exactly on
-    grid points, and a scratch node (a unit box with q_hat 0). Also its
-    phi against the potential kernel's on the same clusters as grid
-    points (PHI_K per entry), and the plain version against the field
-    kernel's plain version on those points."""
+    """The grid field kernel against its plain version on ragged cases
+    (`grid_cases`) at degrees 1, 4, 8, 14, Coulomb and Yukawa at two
+    kappas, then its systems-axis cases."""
+    import torch
+    from repro_torch.core.potentials import coulomb, yukawa
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+
+    lib = _build.load("batch_cluster_field_grid", bcm.GRID_FIELD_SIGNATURES)
+    for size in (4, 8):    # the templates to n+1 = 15, then one a lane
+        assert [lib.bcfg_tile(size, n1) for n1 in range(1, 30)] == [0] + [
+            bcm.grid_tile(size, n1) for n1 in range(2, 30)], "tiles"
+    assert [lib.bcfg_runtime(n1) for n1 in range(1, 30)] == [0] + [
+        int(n1 - 1 not in bcm.GRID_DEGREES) for n1 in range(2, 30)], "runtime"
+    n, worst, ties = grid_cases(dev, (1, 4, 8, 14),
+                                (coulomb(), yukawa(0.5), yukawa(1.7)))
+    f32, f64 = worst[torch.float32], worst[torch.float64]
+    print(f"[2g] batch_cluster_field_grid vs plain: {n} cases ok (degrees 1,"
+          f" 4, 8, 14; {ties} tie displacements); max abs err f32 "
+          f"{f32[0]:.3e}, f64 {f64[0]:.3e} (phi rtol/atol {FIELD_TOL[4]} "
+          f"f32, rtol {FIELD_TOL[8][0]} f64; gradient GRAD_K * sum|terms| "
+          f"per entry); gradient max err / sum|terms| f32 {f32[1]:.3e}, f64 "
+          f"{f64[1]:.3e}; phi vs the potential kernel on the grid points, "
+          f"max err / sum|G q| f32 {f32[2]:.3e}, f64 {f64[2]:.3e} (PHI_K "
+          f"{PHI_K[4]} f32, {PHI_K[8]} f64)", flush=True)
+    print_systems_axis("[2g]", "grid_field", dev)
+
+
+def grid_cases(dev, degrees, kernels, spaces=("free", "box", "tie"),
+               phi_per_entry=False):
+    """The grid field kernel against its plain version on ragged cases at
+    `degrees` with `kernels`: free space, a periodic box, and a box whose
+    x edge puts targets at minimum-image ties of a cluster of zero width
+    in x (`spaces`); f32 and f64; Kahan and target counts on and off; -1
+    sentinels, an all-empty row, targets exactly on grid points, and a
+    scratch node (a unit box with q_hat 0). Also its phi against the
+    potential kernel's on the same clusters as grid points (PHI_K per
+    entry), and the plain version against the field kernel's plain
+    version on those points. `phi_per_entry` holds phi, against the
+    plain version too, per entry to PHI_K times its sum |G q| (phase 4f's
+    rule) instead of FIELD_TOL. Returns (cases, {dtype: [max abs err, the
+    gradient's max err / sum|terms|, phi's max err / sum|G q| against the
+    potential kernel]}, tie displacements)."""
     import numpy as np
     import torch
     from repro_torch.core import cheby
-    from repro_torch.core.potentials import coulomb, yukawa
     from repro_torch.core.space import FREE, PeriodicBox
-    from repro_torch.kernels import _build
     from repro_torch.kernels import batch_cluster as bcm
     from repro_torch.kernels import ops
 
-    lib = _build.load("batch_cluster_field_grid", bcm.GRID_FIELD_SIGNATURES)
-    for size in (4, 8):
-        assert [lib.bcfg_tile(size, n1) for n1 in range(1, 17)] == [0] + [
-            bcm.grid_tile(size, n1) for n1 in range(2, 16)] + [0], "tiles"
     rng = np.random.default_rng(17)
     box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
     tie_len = 1.7778428792953491
     tie = PeriodicBox((tie_len, 7.0, 7.0))
     ties = fold_ties(tie_len)
+    named = {"free": FREE, "box": box, "tie": tie}
     n = 0
     worst = {torch.float32: [0.0, 0.0, 0.0], torch.float64: [0.0, 0.0, 0.0]}
     for dtype, degree, space, kern, kahan, counts in itertools.product(
-            (torch.float32, torch.float64), (1, 4, 8, 14), (FREE, box, tie),
-            (coulomb(), yukawa(0.5), yukawa(1.7)), (False, True),
+            (torch.float32, torch.float64), degrees,
+            [named[k] for k in spaces], kernels, (False, True),
             (False, True)):
         rtol, atol = FIELD_TOL[dtype.itemsize]
         qlo = -1.0 if dtype == torch.float32 else 0.0
@@ -763,10 +814,19 @@ def phase_field_grid(dev):
         mag = bcm.batch_cluster_field_grid_plain(*args, magnitude=True, **kw)
         what = (f"batch_cluster_field_grid {dtype} degree={degree} {space} "
                 f"{kern.name}{kern.params} kahan={kahan} counts={counts}")
-        err, ratio = field_close(got, want, mag, rtol, atol, what)
+        def held(got, want, what):
+            if not phi_per_entry:
+                return field_close(got, want, mag, rtol, atol, what)
+            e, _ = phi_close(got[..., 0], want[..., 0], mag[..., 0],
+                             f"{what}: phi")
+            g, r = grad_close(got[..., 1:], want[..., 1:], mag[..., 1:],
+                              what)
+            return max(e, g), r
+
+        err, ratio = held(got, want, what)
         # the plain version against the field kernel's on the grid points
         ref = bcm.batch_cluster_field_plain(it, tgt, pts, qh, **kw)
-        field_close(want, ref, mag, rtol, atol, f"{what}: plain vs points")
+        held(want, ref, f"{what}: plain vs points")
         phi = ops.batch_cluster_eval(it, tgt, pts, qh, backend="cuda", **kw)
         _, phi_ratio = phi_close(got[..., 0], phi, mag[..., 0],
                                  f"{what}: phi vs potential kernel")
@@ -779,16 +839,7 @@ def phase_field_grid(dev):
             assert (got[pad] == 0).all(), what
         n += 1
     torch.cuda.synchronize()
-    f32, f64 = worst[torch.float32], worst[torch.float64]
-    print(f"[2g] batch_cluster_field_grid vs plain: {n} cases ok (degrees 1,"
-          f" 4, 8, 14; {len(ties)} tie displacements); max abs err f32 "
-          f"{f32[0]:.3e}, f64 {f64[0]:.3e} (phi rtol/atol {FIELD_TOL[4]} "
-          f"f32, rtol {FIELD_TOL[8][0]} f64; gradient GRAD_K * sum|terms| "
-          f"per entry); gradient max err / sum|terms| f32 {f32[1]:.3e}, f64 "
-          f"{f64[1]:.3e}; phi vs the potential kernel on the grid points, "
-          f"max err / sum|G q| f32 {f32[2]:.3e}, f64 {f64[2]:.3e} (PHI_K "
-          f"{PHI_K[4]} f32, {PHI_K[8]} f64)", flush=True)
-    print_systems_axis("[2g]", "grid_field", dev)
+    return n, worst, len(ties)
 
 
 #: (rtol, atol) of the field kernel's phi against its plain version:
@@ -905,12 +956,13 @@ def stacked_case(rng, dtype, dev, B=5, S=7, NB=150, C=8, m=200,
             t(rng.uniform(0.5, 2.0, W)))
 
 
-def systems_axis_cases(dev, kind, kernels=None, W=SYSTEMS_W):
+def systems_axis_cases(dev, kind, kernels=None, W=SYSTEMS_W, degree=None):
     """A kernel (`kind`: "batch_cluster", "field", "grid_field" or
     "modified_charges") on stacked operands of W systems against
     its plain version (the tolerances of its phase), f32 and f64, free
     space and a periodic box, Coulomb and Yukawa with a kappa per system
-    (or `kernels`, each parameter a value per system):
+    (or `kernels`, each parameter a value per system), at degrees 4 and 8
+    (the modified charges) or 8 (the grid field kernel), or `degree`:
     one launch a call, the scratch rows and the dummy slot exactly 0, and
     each system bitwise its own single-system launch. Returns (cases,
     max abs err)."""
@@ -929,7 +981,8 @@ def systems_axis_cases(dev, kind, kernels=None, W=SYSTEMS_W):
     if kind == "modified_charges":
         lib = _build.load("modified_charges", mcm._SIGNATURES)
         for dtype, degree in itertools.product(
-                (torch.float32, torch.float64), (4, 8)):
+                (torch.float32, torch.float64), (degree,) if degree
+                else (4, 8)):
             rtol, atol = ((3e-3, 3e-4) if dtype == torch.float32
                           else (1e-10, 1e-12))
             tile = lib.mc_tile(dtype.itemsize, degree + 1)
@@ -953,7 +1006,7 @@ def systems_axis_cases(dev, kind, kernels=None, W=SYSTEMS_W):
                 assert torch.equal(got[w], one), f"{what}: system {w}"
             n += 1
         return n, worst
-    degree = 8
+    degree = degree or 8
     for dtype, space, kern in itertools.product(
             (torch.float32, torch.float64), (FREE, box),
             kernels or (coulomb(), yukawa())):
@@ -1090,17 +1143,46 @@ def sass_loop(lib_path, symbol, marker="MUFU.RSQ"):
 def phase_modified_charges(dev):
     import numpy as np
     import torch
+    from repro_torch.kernels import modified_charges as mcm
+
+    out = mc_cases(dev, np.random.default_rng(12), (1, 4, 8, 14))
+    worst = out["worst"]
+    print(f"[3] modified_charges vs plain: {out['n']} cases ok (dense and "
+          f"ranged); max abs err f32 {worst[torch.float32]:.3e} (rtol 3e-3 "
+          f"atol 3e-4; ranged: times max|q_hat|), f64 "
+          f"{worst[torch.float64]:.3e} (rtol 1e-10, atol 1e-12 "
+          f"max|q_hat|)", flush=True)
+    worst = out["flat_worst"]
+    print(f"[3] modified_charges on flat nodes (flat in {FLAT_DIMS}, counts "
+          f"1, 37, 300, {mcm.CHUNK + 3} and their parent): {out['flat_n']} "
+          f"cases ok against the plain version, max abs err f32 "
+          f"{worst[torch.float32]:.3e}, f64 {worst[torch.float64]:.3e} (the "
+          f"tolerances above, times max|q_hat|); each node's q_hat sums to "
+          f"its charge within {out['sum_err']:.3e} of sum|q| (bars 1e-4 f32, "
+          f"1e-11 f64)", flush=True)
+    print_systems_axis("[3]", "modified_charges", dev)
+
+
+def mc_cases(dev, rng, degrees):
+    """The modified-charge kernel against its plain version at `degrees`,
+    f32 and f64: the dense (C, m) form with random points, exact hits on
+    the nodes and center-filled padding; the ranged form over ragged node
+    ranges (`ranged_case`: two launches a call, bitwise equal calls, 0 on
+    nodes without particles); and nodes flat in one, two and three
+    dimensions (`flat_node_case`: every particle hits all n+1 coincident
+    nodes there), each node's q_hat summing to its charge. Returns {"n",
+    "worst", "flat_n", "flat_worst", "sum_err"}."""
+    import torch
     from repro_torch.core import cheby
     from repro_torch.kernels import _build
     from repro_torch.kernels import modified_charges as mcm
     from repro_torch.kernels import ops
 
-    rng = np.random.default_rng(12)
     n = 0
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     for dtype in (torch.float32, torch.float64):
         rtol, atol = (3e-3, 3e-4) if dtype == torch.float32 else (1e-10, 1e-12)
-        for degree in (1, 4, 8, 14):
+        for degree in degrees:
             for (C, m) in [(7, 512), (1, 4096), (3, 100), (300, 64)]:
                 lo = rng.uniform(-1, 0, (C, 3))
                 hi = lo + rng.uniform(0.3, 1, (C, 3))
@@ -1128,7 +1210,7 @@ def phase_modified_charges(dev):
     lib = _build.load("modified_charges", mcm._SIGNATURES)
     for dtype in (torch.float32, torch.float64):
         rtol, atol = (3e-3, 3e-4) if dtype == torch.float32 else (1e-10, 1e-12)
-        for degree in (1, 4, 8, 14):
+        for degree in degrees:
             tile = lib.mc_tile(dtype.itemsize, degree + 1)
             args = ranged_case(rng, dtype, degree, dev, tile)
             before = mcm.LAUNCHES
@@ -1147,23 +1229,20 @@ def phase_modified_charges(dev):
                 scale="max"))
             n += 1
     torch.cuda.synchronize()
-    print(f"[3] modified_charges vs plain: {n} cases ok (dense and ranged); "
-          f"max abs err f32 {worst[torch.float32]:.3e} (rtol 3e-3 atol 3e-4"
-          f"; ranged: times max|q_hat|), f64 {worst[torch.float64]:.3e} "
-          f"(rtol 1e-10, atol 1e-12 max|q_hat|)", flush=True)
     # nodes flat in 1, 2 and 3 dimensions (lo == hi there: every particle
     # hits all n+1 coincident nodes, whose count is the denominator)
-    n, worst, sum_err = 0, {torch.float32: 0.0, torch.float64: 0.0}, 0.0
+    flat_n, flat_worst, sum_err = 0, {torch.float32: 0.0,
+                                      torch.float64: 0.0}, 0.0
     for dtype in (torch.float32, torch.float64):
         rtol, atol = (3e-3, 3e-4) if dtype == torch.float32 else (1e-10, 1e-12)
-        for degree in (1, 4, 8, 14):
+        for degree in degrees:
             for flat in FLAT_DIMS:
                 *args, charges = flat_node_case(rng, dtype, degree, flat, dev)
                 got = ops.modified_charges_ranged(*args, degree=degree,
                                                   backend="cuda")
                 want = ops.modified_charges_ranged(*args, degree=degree,
                                                    backend="torch")
-                worst[dtype] = max(worst[dtype], close(
+                flat_worst[dtype] = max(flat_worst[dtype], close(
                     got, want, rtol, atol, f"modified_charges flat {flat} "
                     f"{dtype} degree={degree}", scale="max"))
                 scale = args[1].abs().sum().item()
@@ -1172,16 +1251,10 @@ def phase_modified_charges(dev):
                 assert e <= tol, (f"flat {flat} {dtype} degree={degree}: "
                                   f"q_hat sums off the node charges by {e}")
                 sum_err = max(sum_err, e)
-                n += 1
+                flat_n += 1
     torch.cuda.synchronize()
-    print(f"[3] modified_charges on flat nodes (flat in {FLAT_DIMS}, counts "
-          f"1, 37, 300, {mcm.CHUNK + 3} and their parent): {n} cases ok "
-          f"against the plain version, max abs err f32 "
-          f"{worst[torch.float32]:.3e}, f64 {worst[torch.float64]:.3e} (the "
-          f"tolerances above, times max|q_hat|); each node's q_hat sums to "
-          f"its charge within {sum_err:.3e} of sum|q| (bars 1e-4 f32, 1e-11 "
-          f"f64)", flush=True)
-    print_systems_axis("[3]", "modified_charges", dev)
+    return dict(n=n, worst=worst, flat_n=flat_n, flat_worst=flat_worst,
+                sum_err=sum_err)
 
 
 #: A node's flat dimensions in phase 3's flat cases: a sheet, a line, a
@@ -1229,11 +1302,13 @@ def flat_node_case(rng, dtype, degree, flat, dev):
             torch.as_tensor(ptr, device=dev), lo, hi, charges)
 
 
-def print_systems_axis(tag, kind, dev):
+def print_systems_axis(tag, kind, dev, degree=None):
     import torch
-    n, err = systems_axis_cases(dev, kind)
+    n, err = systems_axis_cases(dev, kind, degree=degree)
     torch.cuda.synchronize()
-    print(f"{tag} systems axis (W={SYSTEMS_W}: ragged per-system counts, "
+    at = f" at degree {degree}" if degree else ""
+    print(f"{tag} {kind} systems axis{at} (W={SYSTEMS_W}: ragged per-system "
+          f"counts, "
           f"per-system kappas, a dummy slot, scratch batch rows; f32 and "
           f"f64, free and periodic): {n} cases ok against the plain "
           f"version (the tolerances above), max abs err {err:.3e}; one "
@@ -1329,12 +1404,14 @@ def print_grid_usage(usage):
 
 def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_bytes, sm_mhz,
              flops_per_pair=FLOPS_PER_PAIR, outputs=1, flops=None,
-             rows=None, mufu_per_pair=MUFU_PER_PAIR):
+             rows=None, mufu_per_pair=MUFU_PER_PAIR, peak=PEAK_FP32):
     """The bound of one batch-cluster (or field) launch, {"ms", "side",
     "pairs", "sides"}: the pairs the data needs (real targets x real
     sources of every valid slot), and the largest ("side") of three
-    times ("sides", in ms): the operations over
-    PEAK_FP32 (`flops_per_pair` a pair, or `flops(pairs)`), the MUFU
+    times ("sides", in ms): the operations over `peak` (PEAK_FP32, or
+    PEAK_FP64 for an f64 launch, whose IEEE sqrt and division count as an
+    operation each, with `mufu_per_pair` 0) (`flops_per_pair` a pair, or
+    `flops(pairs)`), the MUFU
     operations (`mufu_per_pair` a pair) over the SFU rate at `sm_mhz`
     (None: MAX_SM_MHZ), and the
     bytes over PEAK_BYTES (the lists, the targets, `src_bytes` of
@@ -1358,7 +1435,7 @@ def bc_bound(plan, idx, m_of_cluster, dtype_bytes, src_bytes, sm_mhz,
               + b * nb * outputs * dtype_bytes)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_flops = flops(pairs) if flops else pairs * flops_per_pair
-    times = {"FLOP": n_flops / PEAK_FP32,
+    times = {"FLOP": n_flops / peak,
              "SFU": pairs * mufu_per_pair / (
                  SFU_PER_SM_CLOCK * sms * (sm_mhz or MAX_SM_MHZ) * 1e6),
              "bytes": nbytes / PEAK_BYTES}
@@ -1380,41 +1457,51 @@ def bound_by(sides):
     return "bytes" if all(v == "bytes" for v in sides) else "operations"
 
 
-def mc_bound(plan, degree, dtype_bytes):
+def mc_bound(plan, degree, dtype_bytes, peak=PEAK_FP32, tc_peak=None):
     """(bound_ms, side) of one execute's modified charges (an ensemble's
     over all its members): per real particle of every cluster 3 rows of
     n+1 terms (sub, div, add), the
     denominator and q~ (2 mul, 1 div), t3*q~ (n+1 mul), t1 x t2 once
     ((n+1)^2 mul), then one FMA (2 operations) per (n+1)^3 output; bytes:
-    xyz + q per real particle, the nodes and q_hat."""
+    xyz + q per real particle, the nodes and q_hat. The operations take
+    `peak`, but the contraction over particles (the FMAs, a GEMM of
+    (n+1)^2 x particles by particles x (n+1) per node) takes `tc_peak`
+    where given: PEAK_FP64_TC in f64, whose tensor cores keep IEEE f64 (in
+    f32, TF32 would break f32's accuracy, so it stays on `peak`)."""
     members = plan.members if hasattr(plan, "members") else [plan.inner]
     trees = [m.tree for m in members]
     n1 = degree + 1
     particles = float(sum(t.count.sum() for t in trees))   # over all nodes
     nodes = sum(t.num_nodes for t in trees)
-    flops = particles * (9 * n1 + 3 + n1 + n1 ** 2 + 2 * n1 ** 3)
+    rows = particles * (9 * n1 + 3 + n1 + n1 ** 2)
+    contraction = particles * 2 * n1 ** 3
     nbytes = (particles * 4 * dtype_bytes
               + nodes * (3 * n1 + n1 ** 3) * dtype_bytes)
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    t_ops = rows / peak + contraction / (tc_peak or peak)
+    t_bytes = nbytes / PEAK_BYTES
     side = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes) * 1e3, side
 
 
-def mct_bound(plan, degree, dtype_bytes):
+def mct_bound(plan, degree, dtype_bytes, peak=PEAK_FP32, tc_peak=None):
     """(bound_ms, side) of one transposed modified-charge call (the
     `mc_bound` twin): per real particle of every cluster the three rows
     (sub, div, add per term), the denominator (2 mul), the contraction
     in factored form ((n+1)^3 + (n+1)^2 + (n+1) FMAs, 2 operations each)
     and the division by the denominator; bytes: xyz per real particle of
     every cluster, the nodes and q_hat's cotangent, and qbar written once
-    per particle."""
+    per particle. Its first step, the (n+1)^3 FMAs (per node a GEMM of
+    particles x (n+1) by (n+1) x (n+1)^2), takes `tc_peak` where given,
+    as in `mc_bound`; the rest takes `peak`."""
     tree = plan.inner.tree
     n1 = degree + 1
     particles = float(tree.count.sum())                    # over all nodes
-    flops = particles * (9 * n1 + 3 + 2 * (n1 ** 3 + n1 ** 2 + n1))
+    rows = particles * (9 * n1 + 3 + 2 * (n1 ** 2 + n1))
+    contraction = particles * 2 * n1 ** 3
     nbytes = ((particles * 3 + plan.num_sources) * dtype_bytes
               + tree.num_nodes * (3 * n1 + n1 ** 3) * dtype_bytes)
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    t_ops = rows / peak + contraction / (tc_peak or peak)
+    t_bytes = nbytes / PEAK_BYTES
     side = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes) * 1e3, side
 
@@ -2642,7 +2729,6 @@ def phase_differentiable(dev, smi, plan, x, q):
 
     # -- the slice's main path: forward and backward, counts from 0 ----
     zero_launch_counts()
-    mcm.TRANSPOSE_LAUNCHES = 0
     (phi, tbar, qbar), _, per_back = diff_vjp(plan, q, u)
     path = dict(zip(("batch_cluster", "modified_charges", "field",
                      "grid_field", "modified_charges_transpose"),
@@ -2952,7 +3038,8 @@ def user_kernels():
 def user_library_specs():
     """`_build.build` entries of phase 20's user libraries: each user
     kernel's potential and field libraries and its grid field libraries
-    at USER_GRID_DEGREES."""
+    at USER_GRID_DEGREES; and phase 21c's plummer grid field library for
+    the degrees from 15."""
     from repro_torch.core.potentials import kernel_source
     specs = []
     for kern in user_kernels().values():
@@ -2961,6 +3048,10 @@ def user_library_specs():
                   ("batch_cluster_field", text, ())]
         specs += [("batch_cluster_field_grid", text,
                    (f"REPRO_USER_N1={d + 1}",)) for d in USER_GRID_DEGREES]
+    # phase 21c's: plummer's grid field library for every degree from 15
+    specs.append(("batch_cluster_field_grid",
+                  kernel_source(user_kernels()["plummer"]).text,
+                  ("REPRO_USER_N1=0",)))
     return specs
 
 
@@ -3452,6 +3543,550 @@ def phase_user(dev, smi, plan, x, q):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: any degree on the card (the runtime-degree kernels)
+
+#: The degree of 21b's path at full width (n+1 = 17: past every template).
+HIGH_DEGREE = 16
+#: 21b's bars on phi and the forces (relative 2-norm against an f64 direct
+#: sum on 1000 sampled targets): 3x what the reference reads in the same
+#: tree shape (`tools/degree16_bar.py 350000 16 712`: 3.5*10^5 points
+#: with leaves of 712 give 10^6's tree with leaves of 2000, its 72
+#: approximated clusters at levels 1-2 and its 14% of level-3 boxes split
+#: in eight; 77% of the pairs approximated), 3.654e-12 and 4.983e-12.
+HIGH_PHI_BAR = 1.1e-11
+HIGH_FORCE_BAR = 1.5e-11
+#: 21b holds the potential kernel and both field lanes to their plain
+#: versions on phase 4's 33 batch rows, and the transposed modified
+#: charges on every particle (phase 14's rows); each entry within HIGH_K
+#: times its sum of the terms' magnitudes (phase 2f's f64 gradient rule;
+#: phase 14's MCT_K for the transpose). The field lanes on 4f's 128 rows
+#: would add about a minute of their plain versions in f64 to a script
+#: near its time limit (PERF.md section 6).
+HIGH_K = GRAD_K[8]
+#: 21c: the degree of the small cases (n+1 = 25, past every template's
+#: layout) and of the user kernel's.
+HIGH_CASE_DEGREE = 24
+HIGH_USER_DEGREE = 15
+
+
+def mct_rows_close(got, want, mag, k, what):
+    """The transposed modified charges on the particles of some tiles:
+    |got - want| <= k * mag per entry; returns (max abs err, max err /
+    mag)."""
+    import torch
+    assert torch.isfinite(got).all(), f"{what}: non-finite"
+    err = (got - want).abs()
+    bad = err > k * mag
+    assert not bad.any(), (f"{what}: {int(bad.sum())} entries outside {k} "
+                           f"* their sum of magnitudes (max abs err "
+                           f"{err.max().item():.3e})")
+    ratio = (err / mag)[mag > 0]
+    return err.max().item(), ratio.max().item() if ratio.numel() else 0.0
+
+
+def phase_runtime_vs_templates(dev, plan, q):
+    """21a: each runtime-degree kernel forced at phase 4's degree 8 (n+1 =
+    9, where the templates run), on phase 4's plan and inputs, against its
+    templated instantiation, both timed (CUDA events, median of 10, in
+    turns): the modified charges on every node (phase 4's rtol 3e-3, atol
+    3e-4 max|q_hat|); the grid field kernel on the whole approximation
+    lane (bitwise, or on the first FORCE_ROWS rows within 4f's rule); the
+    transposed modified charges on the whole plan for a seeded q_hat
+    cotangent (bitwise, or on every particle within 14's MCT_K rule)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cheby
+    from repro_torch.core import eval as ev
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.kernels import ops
+
+    a = plan.arrays
+    degree = plan.config.degree
+    n1 = degree + 1
+    i32 = torch.int32
+    inp = ev.kernel_inputs(a, q, degree=degree)
+    nodes = ops._cluster_nodes(a["node_lo"], a["node_hi"], degree)
+    w = cheby.bary_weights_1d(degree, q.dtype, dev)
+    mc_args = (a["src_sorted"].contiguous(), inp.q_sorted.contiguous(),
+               a["mc_chunks"].to(i32).contiguous(),
+               a["mc_chunk_ptr"].to(i32).contiguous(), nodes.contiguous(),
+               w, degree)
+
+    def mc(rt):
+        return mcm.modified_charges_ranged_cuda(*mc_args, _runtime=rt)
+
+    def turns(fn):
+        """(template ms, runtime ms): template, runtime, runtime,
+        template, each the median of 10."""
+        t = [event_ms(lambda: fn(r), 10) for r in (False, True, True, False)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    mc_err = close(mc(True), mc(False), 3e-3, 3e-4,
+                   "[21a] runtime modified charges vs the template",
+                   scale="max")
+    mc_ms = turns(mc)
+
+    idx, nd, qh, cnt = plan_lanes(plan, q)["approx"]
+    tgt, kern = a["tgt_batched"].contiguous(), plan.kernel
+    gargs = (idx.to(i32).contiguous(), ops._packed(kern, None, idx, tgt),
+             tgt, nd.contiguous(), qh.contiguous())
+    tc = cnt["tgt_count"].to(i32).contiguous()
+
+    def grid(rt):
+        return bcm.batch_cluster_field_grid_cuda(*gargs, kernel=kern,
+                                                 tgt_count=tc, _runtime=rt)
+
+    g_t, g_r = grid(False), grid(True)
+    g_bitwise = torch.equal(g_t, g_r)
+    if g_bitwise:
+        g_err = 0.0
+    else:
+        rows = slice(0, FORCE_ROWS)
+        mag = bcm.batch_cluster_field_grid_plain(
+            idx[rows], tgt[rows], nd, qh, kernel=kern, tgt_count=tc[rows],
+            magnitude=True)
+        g_err, _, _ = field_rows_close(g_r[rows], g_t[rows], mag,
+                                       a["tgt_mask"][rows],
+                                       "[21a] runtime grid field kernel")
+    grid_ms = turns(grid)
+
+    levels, n_src = len(a["bucket_nodes"]), a["src_sorted"].shape[0]
+    tiles, chain = mcm.tile_table(a["mc_chunks"], a["parent_of"], levels,
+                                  n_src)
+    qhat_bar = torch.as_tensor(np.random.default_rng(2121).uniform(
+        -1, 1, (a["node_lo"].shape[0], n1 ** 3)), dtype=q.dtype, device=dev)
+    targs = (a["src_sorted"].contiguous(), qhat_bar, tiles, chain,
+             a["node_lo"].contiguous(), a["node_hi"].contiguous(), degree)
+
+    def mct(rt):
+        return mcm.modified_charges_transpose_ranged_cuda(*targs,
+                                                          _runtime=rt)
+
+    t_t, t_r = mct(False), mct(True)
+    t_bitwise = torch.equal(t_t, t_r)
+    if t_bitwise:
+        t_err = 0.0
+    else:
+        mag = mcm.modified_charges_transpose_ranged_plain(*targs,
+                                                          magnitude=True)
+        t_err, _ = mct_rows_close(t_r, t_t, mag, MCT_K[4],
+                                  "[21a] runtime transposed modified charges")
+    mct_ms = turns(mct)
+    torch.cuda.synchronize()
+    print(f"[21a] runtime-degree kernels forced at n+1={n1} on phase 4's "
+          f"plan, against their templates (template / runtime ms, CUDA "
+          f"events, median of 10 in turns): modified charges on all "
+          f"{a['node_lo'].shape[0]} nodes {mc_ms[0]:.3f} / {mc_ms[1]:.3f}, "
+          f"max abs err {mc_err:.3e} (rtol 3e-3, atol 3e-4 max|q_hat|); grid "
+          f"field kernel on the approximation lane {tuple(idx.shape)} "
+          f"{grid_ms[0]:.3f} / {grid_ms[1]:.3f}, bitwise {g_bitwise} (max "
+          f"abs err {g_err:.3e}); transposed modified charges on "
+          f"{int((tiles[:, 0] < tiles[:, 1]).sum())} tiles {mct_ms[0]:.3f} / "
+          f"{mct_ms[1]:.3f}, bitwise {t_bitwise} (max abs err {t_err:.3e})",
+          flush=True)
+
+
+def phase_high_degree_fig4(dev, smi):
+    """21b: the Fig. 4 points at N = 10^6 uniform in [-1, 1]^3, charges
+    uniform in [-1, 1], in f64 at degree HIGH_DEGREE (theta 0.7, N_L = N_B
+    = 2000, Coulomb): the plan (every approximated cluster holds more than
+    (n+1)^3 particles), then with every launch counter from 0 `execute`,
+    `potential_and_forces`, the charge cotangent of
+    `differentiable_execute` and the hierarchical precompute: each
+    runtime-degree kernel launched. phi and the forces against an f64
+    direct sum on 1000 sampled targets (HIGH_PHI_BAR, HIGH_FORCE_BAR); the
+    hierarchical q_hat against the direct one at phase 11's f64 rule (its
+    charges uniform in [0.5, 1.5]); each kernel against its plain version
+    (the modified charges on every node at phase 3's f64 rule, the others
+    per entry, HIGH_K or MCT_K, on the rows HIGH_K's comment names);
+    execute, forces and the backward timed, each kernel against its bound
+    (f64 operations over PEAK_FP64, the modified charges' contractions
+    over PEAK_FP64_TC, or bytes). Returns the runtime-degree kernels'
+    report entries."""
+    import numpy as np
+    import torch
+    from repro_torch.core import eval as ev
+    from repro_torch.core.api import TreecodeSolver
+    from repro_torch.core.direct import direct_field, direct_sum
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.kernels import ops
+
+    degree, n1 = HIGH_DEGREE, HIGH_DEGREE + 1
+    cfg = dataclasses.replace(fig4_config(), degree=degree, dtype="float64")
+    n = MAIN_N
+    rng = np.random.default_rng(2020)
+    x = rng.uniform(-1, 1, (n, 3))
+    q = torch.as_tensor(rng.uniform(-1, 1, n), device=dev)
+    t0 = time.perf_counter()
+    plan = TreecodeSolver(cfg).plan(x)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    a, st = plan.arrays, plan.stats()
+    approx = a["approx_idx"]
+    used = approx[approx >= 0].long().unique()
+    held = torch.as_tensor(plan.inner.tree.count, device=dev)[used]
+    assert used.numel() > 0 and (held > n1 ** 3).all(), "the size rule"
+    k = a["mc_chunks"].shape[0]
+    built = {name: round(_build.BUILD_SECONDS.get(name, 0.0), 1)
+             for name in _build.SOURCES}
+    print(f"[21b] plan N={n} f64 theta={cfg.theta} degree={degree} "
+          f"N_L=N_B={cfg.leaf_size}: {plan_ms:.1f} ms host build; nodes "
+          f"{st['num_nodes']}, batches {st['num_batches']}, approx "
+          f"{tuple(approx.shape)} ({int((approx >= 0).sum())} slots over "
+          f"{used.numel()} clusters of {int(held.min())}-{int(held.max())} "
+          f"particles, all > (n+1)^3 = {n1 ** 3}), direct "
+          f"{tuple(a['direct_idx'].shape)}; the modified charges' partial "
+          f"scratch {k} chunks x {n1 ** 3} x 8 bytes = "
+          f"{k * n1 ** 3 * 8 / 2 ** 20:.1f} MiB; the base libraries, "
+          f"runtime-degree kernels included, built in {built} s in this "
+          f"process (tools/build_compare.py times them beside an earlier "
+          f"checkout's)", flush=True)
+
+    # -- the main path the counters read --------------------------------
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    phi = plan.execute(q)
+    _, force = plan.potential_and_forces(q)
+    u = torch.as_tensor(rng.uniform(-1, 1, n), device=dev)
+    (phi_d, _, qbar), bwd_ms, _ = diff_vjp(plan, q, u, targets=False)
+    q_pos = torch.as_tensor(rng.uniform(0.5, 1.5, n), device=dev)
+    qs_pos = q_pos[a["src_perm"]]
+    hier = ev.compute_qhat_hierarchical(
+        ev.add_hierarchical_tables(plan.inner).arrays, qs_pos,
+        degree=degree, backend="cuda")
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {"batch_cluster": bcm.LAUNCHES,
+                "batch_cluster_field": bcm.FIELD_LAUNCHES,
+                "modified_charges": mcm.LAUNCHES,
+                "modified_charges[runtime]": mcm.RUNTIME_LAUNCHES,
+                "modified_charges_transpose[runtime]":
+                    mcm.TRANSPOSE_RUNTIME_LAUNCHES,
+                "batch_cluster_field_grid[runtime]":
+                    bcm.GRID_FIELD_RUNTIME_LAUNCHES}
+    assert all(launches.values()), launches
+    assert launches["modified_charges[runtime]"] * 2 == mcm.LAUNCHES
+    assert launches["modified_charges_transpose[runtime]"] == \
+        mcm.TRANSPOSE_LAUNCHES
+    assert launches["batch_cluster_field_grid[runtime]"] == \
+        bcm.GRID_FIELD_LAUNCHES
+    assert torch.equal(phi_d, phi), "differentiable_execute's phi"
+
+    sample = torch.as_tensor(rng.choice(n, 1000, replace=False), device=dev)
+    x64 = torch.as_tensor(x, device=dev)
+    ref = direct_sum(x64[sample], x64, q, kernel=plan.kernel,
+                     source_chunk=1 << 15)
+    _, grad = direct_field(x64[sample], x64, q, kernel=plan.kernel,
+                           source_chunk=1 << 14)
+    perr = rel2(phi[sample], ref)
+    ferr = rel2(force[sample], -q[sample, None] * grad)
+    assert torch.isfinite(phi).all() and torch.isfinite(force).all()
+    assert torch.isfinite(qbar).all()
+    assert perr <= HIGH_PHI_BAR, perr
+    assert ferr <= HIGH_FORCE_BAR, ferr
+    direct = ev.compute_qhat_direct(a, qs_pos, degree=degree,
+                                    backend="cuda")
+    h_err = close(hier, direct, 1e-10, 1e-12, "[21b] hierarchical q_hat",
+                  scale="max")
+    print(f"[21b] the path (execute, potential_and_forces, the charge "
+          f"cotangent, the hierarchical precompute) in {path_s:.1f} s, "
+          f"launches {launches}; relative 2-norm error against an f64 "
+          f"direct sum on 1000 sampled targets: phi {perr:.3e} (bar "
+          f"{HIGH_PHI_BAR}), forces {ferr:.3e} (bar {HIGH_FORCE_BAR}); "
+          f"hierarchical q_hat against the direct one max abs err "
+          f"{h_err:.3e} (rtol 1e-10, atol 1e-12 max|q_hat|)", flush=True)
+
+    # -- each kernel against its plain version, its time and bound -------
+    exec_ms = event_ms(lambda: plan.execute(q), 3)
+    pf_ms = event_ms(lambda: plan.potential_and_forces(q), 2)
+    inp = ev.kernel_inputs(a, q, degree=degree)
+    mc_args = (a["src_sorted"], inp.q_sorted, a["mc_chunks"],
+               a["mc_chunk_ptr"], a["node_lo"], a["node_hi"])
+    qhat = ops.modified_charges_ranged(*mc_args, degree=degree,
+                                       backend="cuda")
+    want, mc_plain_ms = timed(lambda: ops.modified_charges_ranged(
+        *mc_args, degree=degree, backend="torch"))
+    mc_err = close(qhat, want, 1e-10, 1e-12, "[21b] modified charges",
+                   scale="max")
+    mc_ms = event_ms(lambda: ops.modified_charges_ranged(
+        *mc_args, degree=degree, backend="cuda"), 5)
+    mc_bd = mc_bound(plan, degree, 8, peak=PEAK_FP64, tc_peak=PEAK_FP64_TC)
+
+    tgt, real, kern = a["tgt_batched"], a["tgt_mask"], plan.kernel
+    b = tgt.shape[0]
+    rows = torch.arange(0, b, max(1, b // 32), device=dev)    # phase 4's
+    leaf_counts = (a["leaf_gather"] >= 0).sum(1)
+    n1c = torch.full((a["node_lo"].shape[0],), n1 ** 3, device=dev)
+    out, entries = [], {}
+    pot = {"approx": (a["approx_idx"], inp.grids, qhat,
+                      {"tgt_count": inp.tgt_count}),
+           "direct": (a["direct_idx"], inp.leaf_pts, inp.leaf_q,
+                      {"tgt_count": inp.tgt_count,
+                       "src_count": inp.leaf_count})}
+    fields = plan_lanes(plan, q)
+    for lane in ("approx", "direct"):
+        idx, pts, qq, cnt = pot[lane]
+        fidx, fsrc, fq, fcnt = fields[lane]
+        op, plain = field_lane(lane)
+        sub = dict(cnt, tgt_count=cnt["tgt_count"][rows])
+        fsub = dict(fcnt, tgt_count=fcnt["tgt_count"][rows])
+        mag = plain(fidx[rows], tgt[rows], fsrc, fq, kernel=kern,
+                    magnitude=True, **fsub)
+        got = ops.batch_cluster_eval(idx[rows], tgt[rows], pts, qq,
+                                     kernel=kern, backend="cuda", **sub)
+        want, p_plain_ms = timed(lambda: ops.batch_cluster_eval(
+            idx[rows], tgt[rows], pts, qq, kernel=kern, backend="torch",
+            **sub))
+        assert (got[~real[rows]] == 0).all(), f"{lane}: padded slots"
+        p_err, p_ratio = mct_rows_close(
+            got[real[rows]], want[real[rows]], mag[..., 0][real[rows]],
+            HIGH_K, f"[21b] batch_cluster {lane} lane rows")
+        fgot = op(fidx[rows], tgt[rows], fsrc, fq, kernel=kern,
+                  backend="cuda", **fsub)
+        fwant, f_plain_ms = timed(lambda: op(
+            fidx[rows], tgt[rows], fsrc, fq, kernel=kern, backend="torch",
+            **fsub))
+        assert (fgot[~real[rows]] == 0).all(), f"{lane}: padded slots"
+        f_err, f_ratio = mct_rows_close(
+            fgot[real[rows]], fwant[real[rows]], mag[real[rows]], HIGH_K,
+            f"[21b] field {lane} lane rows")
+        p_ms = event_ms(lambda: ops.batch_cluster_eval(
+            idx, tgt, pts, qq, kernel=kern, backend="cuda", **cnt), 2)
+        f_ms = event_ms(lambda: op(fidx, tgt, fsrc, fq, kernel=kern,
+                                   backend="cuda", **fcnt), 2)
+        m_of = n1c if lane == "approx" else leaf_counts
+        src_bytes = (pts.numel() + qq.numel()) * 8
+        p_bd = bc_bound(plan, idx, m_of, 8, src_bytes, None, peak=PEAK_FP64,
+                        mufu_per_pair=0)
+        if lane == "approx":
+            f_bd = bc_bound(plan, fidx, m_of, 8, (fsrc.numel() + fq.numel())
+                            * 8, None, outputs=4, peak=PEAK_FP64,
+                            mufu_per_pair=0,
+                            flops=lambda p: grid_flops(p, n1))
+        else:
+            f_bd = bc_bound(plan, fidx, m_of, 8, src_bytes, None,
+                            FIELD_FLOPS_PER_PAIR, 4, peak=PEAK_FP64,
+                            mufu_per_pair=0)
+        name = ("batch_cluster_field_grid[runtime]" if lane == "approx"
+                else "batch_cluster_field")
+        out.append(f"{lane} lane: potential kernel {p_ms:.3f} ms against "
+                   f"its {p_bd['ms']:.3f} ms bound by {p_bd['side']} "
+                   f"({p_bd['pairs']:.4e} pairs; plain {p_plain_ms:.1f} ms "
+                   f"on phase 4's {rows.numel()} rows, max abs err "
+                   f"{p_err:.3e}, max err / sum|G q| {p_ratio:.3e}); {name} "
+                   f"{f_ms:.3f} ms against {f_bd['ms']:.3f} ms by "
+                   f"{f_bd['side']} (plain {f_plain_ms:.1f} ms on the same "
+                   f"rows, max abs err {f_err:.3e}, max err / sum|terms| "
+                   f"{f_ratio:.3e})")
+        entries[lane] = (f_ms, f_plain_ms, f_err, f_bd)
+
+    levels, n_src = len(a["bucket_nodes"]), a["src_sorted"].shape[0]
+    tiles, chain = mcm.tile_table(a["mc_chunks"], a["parent_of"], levels,
+                                  n_src)
+    qhat_bar = torch.as_tensor(np.random.default_rng(2122).uniform(
+        -1, 1, (a["node_lo"].shape[0], n1 ** 3)), device=dev)
+    mct_args = (a["src_sorted"], qhat_bar, tiles, chain, a["node_lo"],
+                a["node_hi"])
+    got = ops.modified_charges_transpose_ranged(*mct_args, degree=degree,
+                                                backend="cuda")
+    want, mct_plain_ms = timed(lambda: ops.modified_charges_transpose_ranged(
+        *mct_args, degree=degree, backend="torch"))
+    mag = mcm.modified_charges_transpose_ranged_plain(*mct_args, degree,
+                                                      magnitude=True)
+    mct_err, mct_ratio = mct_rows_close(got, want, mag, MCT_K[8],
+                                        "[21b] transposed modified charges")
+    mct_ms = event_ms(lambda: ops.modified_charges_transpose_ranged(
+        *mct_args, degree=degree, backend="cuda"), 3)
+    mct_bd = mct_bound(plan, degree, 8, peak=PEAK_FP64,
+                       tc_peak=PEAK_FP64_TC)
+    torch.cuda.synchronize()
+    print(f"[21b] times at n+1={n1}, f64 ({smi}; bounds: f64 operations "
+          f"over {PEAK_FP64 / 1e12:.0f} TFLOP/s, IEEE sqrt and division one "
+          f"each, the modified charges' contractions over "
+          f"{PEAK_FP64_TC / 1e12:.0f} TFLOP/s (f64 tensor cores), or bytes "
+          f"over 3.35 TB/s): execute {exec_ms:.3f} ms (median "
+          f"of 3), potential_and_forces {pf_ms:.3f} ms (median of 2), the "
+          f"charge cotangent's backward {bwd_ms:.3f} ms (one); modified "
+          f"charges (runtime) {mc_ms:.3f} ms against {mc_bd[0]:.4f} ms by "
+          f"{mc_bd[1]} (plain {mc_plain_ms:.1f} ms on all {qhat.shape[0]} "
+          f"nodes, max abs err {mc_err:.3e}, rtol 1e-10 atol 1e-12 "
+          f"max|q_hat|); transposed (runtime) {mct_ms:.3f} ms against "
+          f"{mct_bd[0]:.4f} ms by {mct_bd[1]} (plain {mct_plain_ms:.1f} ms on "
+          f"all {tiles.shape[0]} tiles, max abs err {mct_err:.3e}, max err / "
+          f"sum of magnitudes {mct_ratio:.3e}, MCT_K {MCT_K[8]}); per entry "
+          f"{HIGH_K} of the sum of the terms' magnitudes: " + "; ".join(out),
+          flush=True)
+    g_ms, g_plain_ms, g_err, g_bd = entries["approx"]
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        dict(name="modified_charges[runtime]", route="cuda",
+             source=src + "modified_charges.cu",
+             replaces="src/repro/kernels/modified_charges.py:65",
+             launches=launches["modified_charges[runtime]"],
+             max_abs_err=mc_err, ms=mc_ms, plain_ms=mc_plain_ms,
+             plain_rows=f"all {qhat.shape[0]} nodes, f64, n+1 = {n1}",
+             bound_ms=mc_bd[0], bound_by=mc_bd[1], library_ms=None),
+        dict(name="modified_charges_transpose[runtime]", route="cuda",
+             source=src + "modified_charges.cu",
+             replaces="src/repro/core/eval.py:496 (jax.vjp of the XLA "
+                      "modified charges; no TPU kernel)",
+             launches=launches["modified_charges_transpose[runtime]"],
+             max_abs_err=mct_err, ms=mct_ms, plain_ms=mct_plain_ms,
+             plain_rows=f"all {tiles.shape[0]} tiles, f64, n+1 = {n1}",
+             bound_ms=mct_bd[0], bound_by=mct_bd[1], library_ms=None),
+        dict(name="batch_cluster_field_grid[runtime]", route="cuda",
+             source=src + "batch_cluster_field_grid.cu",
+             replaces="src/repro/core/eval.py:442 (XLA JVP forces path; "
+                      "no TPU kernel)",
+             launches=launches["batch_cluster_field_grid[runtime]"],
+             max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms,
+             plain_rows=f"{rows.numel()} of {b} batch rows, f64, n+1 = "
+                        f"{n1}",
+             bound_ms=g_bd["ms"], bound_by=bound_by([g_bd["side"]]),
+             library_ms=None),
+    ]
+
+
+def phase_high_degree_cases(dev):
+    """21c: at degree HIGH_CASE_DEGREE (n+1 = 25, past every template's
+    layout) the cases of phases 2g and 3 (f32 and f64, free space and a
+    periodic box, Coulomb and Yukawa, Kahan and counts, exact hits, flat
+    nodes whose rows hit every node) and the systems-axis cases of the
+    modified charges and the grid field kernel (W = SYSTEMS_W), at their
+    tolerances; the transposed modified charges on ranged and flat nodes
+    under a two-level tile table (MCT_K per entry); and the `plummer`
+    user kernel's grid field library at degree HIGH_USER_DEGREE against
+    its plain version (f32 and f64, free and periodic)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cheby
+    from repro_torch.core.potentials import coulomb, yukawa
+    from repro_torch.core.space import FREE, PeriodicBox
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import batch_cluster as bcm
+    from repro_torch.kernels import modified_charges as mcm
+    from repro_torch.kernels import ops
+
+    degree, n1 = HIGH_CASE_DEGREE, HIGH_CASE_DEGREE + 1
+    before = (mcm.RUNTIME_LAUNCHES, mcm.TRANSPOSE_RUNTIME_LAUNCHES,
+              bcm.GRID_FIELD_RUNTIME_LAUNCHES)
+    # phi per entry to PHI_K: at n+1 = 25 the Chebyshev nodes crowd the
+    # box edges, and an f32 phi that cancels near one can fall outside
+    # FIELD_TOL's absolute 2e-4 while within PHI_K of its sum |G q|
+    n, worst, _ = grid_cases(dev, (degree,), (coulomb(), yukawa(0.5)),
+                             ("free", "box"), phi_per_entry=True)
+    f32, f64 = worst[torch.float32], worst[torch.float64]
+    print(f"[21c] batch_cluster_field_grid at degree {degree} vs plain: {n} "
+          f"cases ok (phase 2g's, free and periodic, Coulomb and Yukawa "
+          f"0.5; phi per entry PHI_K {PHI_K[4]} f32, {PHI_K[8]} f64 times "
+          f"its sum|G q|); max abs err f32 {f32[0]:.3e}, f64 {f64[0]:.3e}; "
+          f"gradient max "
+          f"err / sum|terms| f32 {f32[1]:.3e}, f64 {f64[1]:.3e}; phi vs the "
+          f"potential kernel max err / sum|G q| f32 {f32[2]:.3e}, f64 "
+          f"{f64[2]:.3e}", flush=True)
+    print_systems_axis("[21c]", "grid_field", dev, degree)
+    out = mc_cases(dev, np.random.default_rng(24), (degree,))
+    err = {t: max(out["worst"][t], out["flat_worst"][t])
+           for t in (torch.float32, torch.float64)}
+    print(f"[21c] modified_charges at degree {degree} vs plain: {out['n']} "
+          f"dense and ranged cases, {out['flat_n']} flat; max abs err f32 "
+          f"{err[torch.float32]:.3e}, f64 {err[torch.float64]:.3e} (phase "
+          f"3's rules); q_hat sums to the node charges within "
+          f"{out['sum_err']:.3e} of sum|q|", flush=True)
+    print_systems_axis("[21c]", "modified_charges", dev, degree)
+
+    # the transpose on ragged and flat nodes under their spanning node
+    rng = np.random.default_rng(25)
+    lib = _build.load("modified_charges", mcm._SIGNATURES)
+    t_n, t_ratio = 0, 0.0
+    for dtype in (torch.float32, torch.float64):
+        cases = [ranged_case(rng, dtype, degree, dev,
+                             lib.mc_tile(dtype.itemsize, n1))]
+        cases += [flat_node_case(rng, dtype, degree, flat, dev)[:-1]
+                  for flat in FLAT_DIMS]
+        for pts, _, chunks, _, lo, hi in cases:
+            m = lo.shape[0]
+            parent = torch.full((m,), m - 1, device=dev)
+            parent[-1] = -1
+            tiles, chain = mcm.tile_table(chunks, parent, 2, pts.shape[0])
+            qhat_bar = torch.as_tensor(rng.uniform(-1, 1, (m, n1 ** 3)),
+                                       dtype=dtype, device=dev)
+            args = (pts, qhat_bar, tiles, chain, lo, hi)
+            got = ops.modified_charges_transpose_ranged(*args, degree=degree,
+                                                        backend="cuda")
+            want = ops.modified_charges_transpose_ranged(
+                *args, degree=degree, backend="torch")
+            mag = mcm.modified_charges_transpose_ranged_plain(
+                *args, degree, magnitude=True)
+            _, r = mct_rows_close(got, want, mag, MCT_K[dtype.itemsize],
+                                  f"[21c] transpose {dtype}")
+            t_ratio = max(t_ratio, r)
+            t_n += 1
+
+    # the plummer user kernel's runtime-degree grid library
+    kern = user_kernels()["plummer"]
+    ud, un1 = HIGH_USER_DEGREE, HIGH_USER_DEGREE + 1
+    box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
+    u_n, u_ratio = 0, 0.0
+    for dtype, space in itertools.product((torch.float32, torch.float64),
+                                          (FREE, box)):
+        B, S, NB, C = 4, 6, 100, 5
+        lo = torch.as_tensor(rng.uniform(-1, 0.5, (C, 3)), dtype=dtype,
+                             device=dev)
+        hi = lo + torch.as_tensor(rng.uniform(0.1, 0.5, (C, 3)), dtype=dtype,
+                                  device=dev)
+        nodes = ops._cluster_nodes(lo, hi, ud).contiguous()
+        grid = cheby.cluster_grid(lo, hi, ud)
+        qlo = -1.0 if dtype == torch.float32 else 0.0   # as in phase 2g
+        qh = torch.as_tensor(rng.uniform(qlo, 1, (C, un1 ** 3)), dtype=dtype,
+                             device=dev)
+        tgt = torch.as_tensor(rng.uniform(-1, 1, (B, NB, 3)), dtype=dtype,
+                              device=dev)
+        tgt[-1, :3] = grid[0, [0, un1 ** 3 // 2, un1 ** 3 - 1]]  # hits
+        idx = torch.as_tensor(rng.integers(-1, C, (B, S)), dtype=torch.int32,
+                              device=dev)
+        tc = torch.as_tensor(rng.integers(0, NB + 1, B), dtype=torch.int32,
+                             device=dev)
+        kw = dict(kernel=kern, space=space, tgt_count=tc)
+        args = (idx, tgt, nodes, qh)
+        n0 = bcm.GRID_FIELD_RUNTIME_LAUNCHES
+        got = ops.batch_cluster_field_grid(*args, backend="cuda", **kw)
+        assert bcm.GRID_FIELD_RUNTIME_LAUNCHES == n0 + 1
+        want = ops.batch_cluster_field_grid(*args, backend="torch", **kw)
+        mag = bcm.batch_cluster_field_grid_plain(*args, magnitude=True, **kw)
+        _, r = field_close(got, want, mag, *FIELD_TOL[dtype.itemsize],
+                           f"[21c] plummer grid {dtype} {space}")
+        u_ratio = max(u_ratio, r)
+        u_n += 1
+    torch.cuda.synchronize()
+    ran = (mcm.RUNTIME_LAUNCHES - before[0],
+           mcm.TRANSPOSE_RUNTIME_LAUNCHES - before[1],
+           bcm.GRID_FIELD_RUNTIME_LAUNCHES - before[2])
+    assert all(ran), ran
+    print(f"[21c] transposed modified charges at degree {degree}: {t_n} "
+          f"cases (ragged and flat nodes under a spanning node, f32 and "
+          f"f64) within MCT_K of their sums of magnitudes (max ratio "
+          f"{t_ratio:.3e}); plummer's grid field library for every degree "
+          f"past {bcm.GRID_DEGREES.stop - 1} (REPRO_USER_N1=0) at degree "
+          f"{ud}: "
+          f"{u_n} cases ok (phi FIELD_TOL, gradient GRAD_K; gradient max "
+          f"err / sum|terms| {u_ratio:.3e}); runtime "
+          f"launches (forward, transpose, grid) {ran}", flush=True)
+
+
+def phase_high_degree(dev, smi, plan, q):
+    """Phase 21 (21a on phase 4's plan and charges, 21b, 21c); returns
+    21b's report entries."""
+    phase_runtime_vs_templates(dev, plan, q)
+    report = phase_high_degree_fig4(dev, smi)
+    phase_high_degree_cases(dev)
+    return report
+
+
 def phase_periodic(dev):
     import numpy as np
     import torch
@@ -3528,6 +4163,8 @@ def zero_launch_counts():
     from repro_torch.kernels import modified_charges as mcm
     bcm.LAUNCHES = mcm.LAUNCHES = 0
     bcm.FIELD_LAUNCHES = bcm.GRID_FIELD_LAUNCHES = 0
+    mcm.RUNTIME_LAUNCHES = mcm.TRANSPOSE_LAUNCHES = 0
+    mcm.TRANSPOSE_RUNTIME_LAUNCHES = bcm.GRID_FIELD_RUNTIME_LAUNCHES = 0
 
 
 def flat_systems(a, idx, m_of_cluster):
@@ -6227,6 +6864,8 @@ def main() -> int:
     lap("4s, 5")
     report += phase_user(dev, smi, plan, x, q)
     lap("20")
+    report += phase_high_degree(dev, smi, plan, q)
+    lap("21")
     phase_sharded(dev, smi, x, q, plan)
     lap("13a")
     report.append(phase_differentiable(dev, smi, plan, x, q))

@@ -73,7 +73,6 @@ from repro_torch.core.potentials import (Kernel, builtin_id, kernel_source,
                                          system_params)
 from repro_torch.core.space import FREE as _FREE
 from repro_torch.kernels import _build
-from repro_torch.kernels.modified_charges import DEGREE_LATER
 
 #: Launches of the potential kernel since import (or the last reset by a
 #: caller).
@@ -82,6 +81,9 @@ LAUNCHES = 0
 FIELD_LAUNCHES = 0
 #: Launches of the grid field kernel (`batch_cluster_field_grid_cuda`).
 GRID_FIELD_LAUNCHES = 0
+#: Of those, the launches of its runtime-degree kernel
+#: (`grid_field_rt_kernel`: past the templates, or forced).
+GRID_FIELD_RUNTIME_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,13 +98,16 @@ _FIELD_SIG = (_P,) * 8 + (_I,) * 10 + (_D,) * 3 + (_P,)
 FIELD_SIGNATURES = {"bcf_eval_f32": _FIELD_SIG, "bcf_eval_f64": _FIELD_SIG,
                     "bcf_geometry": (_I,)}
 # idx, par, tgt, nodes, q_hat, tgt_count, out; B, S, NB, n1, W, C, P,
-# kernel id, periodic, kahan; the box lengths; the stream
-_GRID_SIG = (_P,) * 7 + (_I,) * 10 + (_D,) * 3 + (_P,)
+# kernel id, periodic, kahan; the box lengths; force_runtime; the stream
+_GRID_SIG = (_P,) * 7 + (_I,) * 10 + (_D,) * 3 + (_I, _P)
 GRID_FIELD_SIGNATURES = {"bcfg_eval_f32": _GRID_SIG,
-                         "bcfg_eval_f64": _GRID_SIG, "bcfg_tile": (_I, _I)}
+                         "bcfg_eval_f64": _GRID_SIG, "bcfg_tile": (_I, _I),
+                         "bcfg_runtime": (_I,)}
 
-#: Degrees the grid field kernel is instantiated for (n+1 = 2..15); a
-#: user library instantiates the one it is built for.
+#: Degrees the grid field kernel has templates for (n+1 = 2..15, the
+#: source's kMaxN1; `bcfg_tile` and `bcfg_runtime` hold this side to it);
+#: a user library instantiates the one it is built for. Every other
+#: degree runs its runtime-degree kernel.
 GRID_DEGREES = range(1, 15)
 #: The CUDA kernels' id of a user kernel (`csrc/field_common.cuh:kUser`).
 USER_ID = 2
@@ -120,10 +125,12 @@ _TARGETS_PER_BLOCK = 128
 _SOURCE_UNROLL = 4
 
 
-def grid_tile(itemsize: int, n1: int) -> int:
+def grid_tile(itemsize: int, n1: int, runtime: bool = False) -> int:
     """Targets a block of the grid field kernel (`bcfg_tile`): 32 lanes
-    times two targets a lane in f32 up to n+1 = 9, else one."""
-    return 32 * (2 if itemsize == 4 and n1 <= 9 else 1)
+    times two targets a lane in f32 up to n+1 = 9, else one; one on the
+    runtime-degree kernel (past GRID_DEGREES, or `runtime`)."""
+    runtime = runtime or n1 - 1 not in GRID_DEGREES
+    return 32 * (2 if itemsize == 4 and n1 <= 9 and not runtime else 1)
 
 
 def kernel_id(kernel: Kernel, params=None):
@@ -367,7 +374,8 @@ def batch_cluster_field_cuda(idx: torch.Tensor, par: torch.Tensor,
     return out[0] if single else out
 
 
-def _check_grid_inputs(what, idx, par, tgt, nodes, q_hat, tgt_count):
+def _check_grid_inputs(what, idx, par, tgt, nodes, q_hat, tgt_count,
+                       runtime):
     """Device, dtype, shape, contiguity and degree checks of a grid field
     launch on stacked operands; returns (W, B, S, NB, C, n1)."""
     _check_tensors(what, idx, tgt, {"par": par, "nodes": nodes,
@@ -382,14 +390,11 @@ def _check_grid_inputs(what, idx, par, tgt, nodes, q_hat, tgt_count):
             f"{what}: shapes idx {tuple(idx.shape)}, tgt {tuple(tgt.shape)},"
             f" nodes {tuple(nodes.shape)}, q_hat {tuple(q_hat.shape)} do not"
             f" match (W,B,S),(W,B,NB,3),(W,C,3,n+1),(W,C,(n+1)^3)")
-    if n1 - 1 not in GRID_DEGREES:
-        raise NotImplementedError(
-            f"{what}: degree {n1 - 1}; the grid field kernel is built for "
-            f"degrees {GRID_DEGREES.start}-{GRID_DEGREES.stop - 1} "
-            f"({DEGREE_LATER}); backend='torch' takes any degree")
+    if n1 < 2:
+        raise ValueError(f"{what}: degree {n1 - 1} (>= 1)")
     if tgt_count is not None:
         _check_count(what, "tgt_count", tgt_count, (w, b), tgt.device)
-    _check_grid_limit(what, nb, grid_tile(tgt.element_size(), n1))
+    _check_grid_limit(what, nb, grid_tile(tgt.element_size(), n1, runtime))
     _check_systems(what, w)
     return w, b, s, nb, c, n1
 
@@ -399,41 +404,50 @@ def batch_cluster_field_grid_cuda(idx: torch.Tensor, par: torch.Tensor,
                                   q_hat: torch.Tensor, *, kernel: Kernel,
                                   space=_FREE, kahan: bool = False,
                                   tgt_count: torch.Tensor | None = None,
-                                  params=None) -> torch.Tensor:
+                                  params=None,
+                                  _runtime: bool = False) -> torch.Tensor:
     """(B, NB, 4) = (phi, grad_x phi) over Chebyshev grids, one launch.
 
     idx (B, S) int32 (-1 = empty slot), par the packed kernel parameters,
     tgt (B, NB, 3), nodes (C, 3, n+1) the clusters' 1-D Chebyshev nodes
     (`ops._cluster_nodes`), q_hat (C, (n+1)^3) k3 fastest, all contiguous
     CUDA tensors on one device, float32 or float64 alike; tgt_count (B,)
-    optional int32 prefix lengths. Degrees 1-14; others raise. With a
-    leading systems axis on every operand (par (W, P)) the one launch
-    sweeps all W systems. `params` as in `batch_cluster_eval_cuda`."""
-    global GRID_FIELD_LAUNCHES
+    optional int32 prefix lengths. Any degree >= 1: the templates at
+    GRID_DEGREES, the runtime-degree kernel past them (and at any degree
+    with `_runtime`, the checks that hold it against the templates). With
+    a leading systems axis on every operand (par (W, P)) the one launch
+    sweeps all W systems. `params` as in `batch_cluster_eval_cuda`; a
+    user kernel's library is built for its degree in GRID_DEGREES, and
+    once for every degree past them."""
+    global GRID_FIELD_LAUNCHES, GRID_FIELD_RUNTIME_LAUNCHES
     what = "batch_cluster_field_grid_cuda"
     single = idx.dim() == 2
     idx, par, tgt, nodes, q_hat, tgt_count = _stacked(
         what, idx, par, tgt, nodes, q_hat, tgt_count)
     w, b, s, nb, c, n1 = _check_grid_inputs(what, idx, par, tgt, nodes,
-                                            q_hat, tgt_count)
+                                            q_hat, tgt_count, _runtime)
     periodic = bool(space.periodic)
     lengths = space.lengths if periodic else (1.0, 1.0, 1.0)
 
     lib, kid = _library(what, "batch_cluster_field_grid",
                         GRID_FIELD_SIGNATURES, kernel, par, params,
-                        (f"REPRO_USER_N1={n1}",))
+                        (f"REPRO_USER_N1="
+                         f"{n1 if n1 - 1 in GRID_DEGREES else 0}",))
     fn = (lib.bcfg_eval_f32 if tgt.dtype == torch.float32
           else lib.bcfg_eval_f64)
+    runtime = bool(_runtime or lib.bcfg_runtime(n1))
     out = torch.empty((w, b, nb, 4), dtype=tgt.dtype, device=tgt.device)
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = fn(idx.data_ptr(), par.data_ptr(), tgt.data_ptr(),
                 nodes.data_ptr(), q_hat.data_ptr(), _ptr(tgt_count),
                 out.data_ptr(), b, s, nb, n1, w, c, par.shape[1], kid,
-                int(periodic), int(kahan), *map(float, lengths), stream)
+                int(periodic), int(kahan), *map(float, lengths),
+                int(_runtime), stream)
     _build.check(rc, "batch_cluster_field_grid")
     if w > 0 and b > 0 and nb > 0:   # the C entry launches nothing otherwise
         GRID_FIELD_LAUNCHES += 1
+        GRID_FIELD_RUNTIME_LAUNCHES += int(runtime)
     return out[0] if single else out
 
 

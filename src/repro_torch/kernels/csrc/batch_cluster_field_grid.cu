@@ -62,12 +62,15 @@
 //     the compensation in shared memory too, when asked), then the warps'
 //     totals in warp order: the count contract and the -1 sentinels of
 //     the generic kernel;
-//   - n+1 is a template parameter for degrees 1-14 (n+1 = 2..15);
+//   - n+1 is a template parameter for degrees 1-14 (n+1 = 2..15); any
+//     other degree runs grid_field_rt_kernel (below), whose n+1 is a
+//     run-time argument and whose shared memory has a fixed size;
 //   - a user kernel takes kUser (see batch_cluster.cu): g and c = 2 G'
 //     from repro_user_gc on the masked r2, s = -c q. A user library
 //     instantiates kUser alone, and for one n+1, REPRO_USER_N1, the
 //     degree it is built for at first use: all 14 would take as long as
-//     half of this file's base build.
+//     half of this file's base build. REPRO_USER_N1=0 (the build for any
+//     degree from 15 up) instantiates the runtime-degree kernel alone.
 
 #include <cfloat>
 
@@ -87,7 +90,9 @@ using field::rsqrt_ftz;
 
 constexpr int kMaxN1 = 15;
 
-// The n+1 this library instantiates: 2..15, or a user library's one.
+// The n+1 this library instantiates: 2..15, or a user library's one
+// (none for REPRO_USER_N1=0). Every library has the runtime-degree
+// kernel too.
 constexpr bool instantiated(int n1) {
 #ifdef REPRO_USER_N1
   return n1 == REPRO_USER_N1;
@@ -374,6 +379,156 @@ grid_field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
     field::write_tile<T, false, TILE>(tot, orow, i0, nt, NB);
 }
 
+// ---------------------------------------------------------------------------
+// The runtime-degree path: n+1 an argument, for every n+1 the templates do
+// not take (n+1 >= 16: degree 15 and above; a user library built for such
+// a degree), and at any n+1 where an entry's force_runtime is set (the
+// checks hold it against the templates). The template's static planes, node
+// axes, d_y columns and register d_z rows grow with n+1 and pass the 48 KB
+// of static shared memory at n+1 = 23 (f64). Here every table has a fixed
+// size, whatever the degree:
+//   - one target a lane (32 a block), 4 warps, the same grid, counts,
+//     sentinels, systems axis, Kahan totals and warp-order sums;
+//   - k3 is cut into blocks of at most kRtKB points. A warp's unit of work
+//     is a (k3 block, plane k1) pair, planes fastest; the units of a
+//     cluster go round robin to the warps, continuing over the row, as the
+//     template's planes do. Per k3 block a lane writes its d_z column
+//     (shared memory, kRtKB values) once; per plane it stages the plane's
+//     part of q_hat in runs of kRtRB rows, and per row recomputes d_y
+//     from the cluster's nodes (read from global memory, the same value
+//     the template tabulates);
+//   - the pair, the fold, the FLT_MIN / r2 > 0 predicate and the plane
+//     test that skips it are the template's (grid_pair, clear_of_hits).
+// Where n+1 <= kRtKB (one k3 block) every sum runs in the template's
+// order, so the result is the template's; above, a row's sum is split at
+// the block edges.
+
+constexpr int kRtKB = 16;  // k3 points a block
+constexpr int kRtRB = 16;  // plane rows a staged run
+
+template <typename T, int KID, bool CHECK>
+__device__ __forceinline__ void sweep_row_rt(T ab, const T* dzc, const T* qr,
+                                             int len, int lane,
+                                             const field::Params<T, KID>& kp,
+                                             T& sp, T& rs, T& sz) {
+  for (int k = 0; k < len; ++k)
+    grid_pair<T, KID, CHECK>(ab, dzc[k * 32 + lane], qr[k], kp, sp, rs, sz);
+}
+
+template <typename T, int KID>
+__global__ void __launch_bounds__(kThreads)
+grid_field_rt_kernel(const int* __restrict__ idx, const T* __restrict__ par,
+                     const T* __restrict__ tgt, const T* __restrict__ nodes,
+                     const T* __restrict__ qhat,
+                     const int* __restrict__ tgt_count, T* __restrict__ out,
+                     int S, int NB, int C, int np, int n1, bool periodic,
+                     bool kahan, T Lx, T Ly, T Lz) {
+  constexpr int TILE = 32;
+  const int b = blockIdx.z * gridDim.x + blockIdx.x;
+  const int cbase = blockIdx.z * C;
+  const int i0 = blockIdx.y * TILE;
+  const int nt = tgt_count ? min(max(tgt_count[b], 0), NB) : NB;
+  T* orow = out + static_cast<size_t>(b) * NB * kOut;
+  if (i0 >= nt) {  // no real target in this tile: the whole block leaves
+    field::zero_tile<T, TILE>(orow, i0, NB);
+    return;
+  }
+
+  __shared__ T plane[kWarps][kRtRB][kRtKB];  // a run of a plane's rows
+  __shared__ T zcol[kWarps][kRtKB][32];      // each lane's d_z block
+  __shared__ T tot[kWarps][kOut][TILE];      // running totals
+  __shared__ T comp[kWarps][kOut][TILE];     // their compensation
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool real = lane < nt - i0;
+  const T* tb = tgt + (static_cast<size_t>(b) * NB + i0 + lane) * 3;
+  const T tx = real ? tb[0] : T(0), ty = real ? tb[1] : T(0),
+          tz = real ? tb[2] : T(0);
+#pragma unroll
+  for (int k = 0; k < kOut; ++k)
+    tot[warp][k][lane] = comp[warp][k][lane] = T(0);
+  const field::Params<T, KID> kp(par + static_cast<size_t>(blockIdx.z) * np);
+  const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
+
+  const size_t n2 = static_cast<size_t>(n1) * n1;
+  const int units = n1 * ((n1 + kRtKB - 1) / kRtKB);  // per cluster
+  T(*qp)[kRtKB] = plane[warp];
+  T* zc = &zcol[warp][0][0];
+  const int* row = idx + static_cast<size_t>(b) * S;
+  int g = 0;  // unit counter over the row, the same in every warp
+  for (int s = 0; s < S; ++s) {
+    const int c = row[s];  // the same for every thread: uniform branch
+    T sp = T(0), sx = T(0), sy = T(0), sz = T(0);
+    int u = ((warp - g) % kWarps + kWarps) % kWarps;
+    if (c >= 0 && u < units) {
+      const size_t cg = static_cast<size_t>(cbase + c);
+      const T* cq = qhat + cg * n2 * n1;
+      const T* ax = nodes + cg * 3 * n1;
+      int blk = -1;
+      for (; u < units; u += kWarps) {
+        const int b3 = u / n1, k1 = u - b3 * n1;
+        const int k3a = b3 * kRtKB, len = min(kRtKB, n1 - k3a);
+        if (b3 != blk) {  // this lane's d_z block (its own column)
+          for (int k = 0; k < len; ++k) {
+            T d3 = tz - ax[2 * n1 + k3a + k];
+            if (periodic) d3 = field::fold(d3, Lz, iLz);
+            zc[k * 32 + lane] = d3;
+          }
+          blk = b3;
+        }
+        T dx = tx - ax[k1];
+        if (periodic) dx = field::fold(dx, Lx, iLx);
+        const T a = dx * dx;
+        // the predicate only where the target shares this plane's x
+        const bool clear = clear_of_hits(a);
+        T pl = T(0);
+        for (int k2a = 0; k2a < n1; k2a += kRtRB) {
+          const int nr = min(kRtRB, n1 - k2a);
+          __syncwarp();  // this warp's previous run is consumed
+          for (int t = lane; t < nr * len; t += 32) {
+            const int i = t / len, k = t - i * len;
+            qp[i][k] = cq[(static_cast<size_t>(k1) * n1 + k2a + i) * n1 +
+                          k3a + k];
+          }
+          __syncwarp();
+          for (int i = 0; i < nr; ++i) {
+            T dy = ty - ax[n1 + k2a + i];
+            if (periodic) dy = field::fold(dy, Ly, iLy);
+            const T ab = fma(dy, dy, a);
+            T rs = T(0);
+            if (clear)
+              sweep_row_rt<T, KID, false>(ab, zc, qp[i], len, lane, kp, sp,
+                                          rs, sz);
+            else
+              sweep_row_rt<T, KID, true>(ab, zc, qp[i], len, lane, kp, sp,
+                                         rs, sz);
+            sy = fma(dy, rs, sy);
+            pl += rs;
+          }
+        }
+        sx = fma(dx, pl, sx);
+      }
+    }
+    if (c >= 0) g += units;
+    // the slot's sums into this warp's totals (g = -sum s d), once a slot
+    const T v[kOut] = {sp, -sx, -sy, -sz};
+#pragma unroll
+    for (int k = 0; k < kOut; ++k) {
+      if (kahan)
+        field::add_total<T, true>(tot[warp][k][lane], comp[warp][k][lane],
+                                  v[k]);
+      else
+        field::add_total<T, false>(tot[warp][k][lane], comp[warp][k][lane],
+                                   v[k]);
+    }
+  }
+  if (kahan)
+    field::write_tile<T, true, TILE>(tot, orow, i0, nt, NB);
+  else
+    field::write_tile<T, false, TILE>(tot, orow, i0, nt, NB);
+}
+
 struct Args {
   const int* idx;
   const int* tgt_count;
@@ -390,6 +545,34 @@ void launch_one(const Args& a, const T* par, const T* tgt, const T* nodes,
   grid_field_kernel<T, N1, KID><<<grid, kThreads, 0, a.stream>>>(
       a.idx, par, tgt, nodes, qhat, a.tgt_count, out, a.S, a.NB, a.C, a.P,
       periodic != 0, kahan != 0, Lx, Ly, Lz);
+}
+
+template <typename T, int KID>
+void launch_one_rt(const Args& a, const T* par, const T* tgt,
+                   const T* nodes, const T* qhat, T* out, int n1,
+                   int periodic, int kahan, T Lx, T Ly, T Lz) {
+  const dim3 grid(a.B, (a.NB + 31) / 32, a.W);
+  grid_field_rt_kernel<T, KID><<<grid, kThreads, 0, a.stream>>>(
+      a.idx, par, tgt, nodes, qhat, a.tgt_count, out, a.S, a.NB, a.C, a.P,
+      n1, periodic != 0, kahan != 0, Lx, Ly, Lz);
+}
+
+// The runtime-degree launch of this library's kernel id.
+template <typename T>
+void dispatch_rt(int n1, const Args& a, const T* par, const T* tgt,
+                 const T* nodes, const T* qhat, T* out, int kernel_id,
+                 int periodic, int kahan, T Lx, T Ly, T Lz) {
+#ifdef REPRO_USER_KERNEL
+  launch_one_rt<T, kUser>(a, par, tgt, nodes, qhat, out, n1, periodic, kahan,
+                          Lx, Ly, Lz);
+#else
+  if (kernel_id == kCoulomb)
+    launch_one_rt<T, kCoulomb>(a, par, tgt, nodes, qhat, out, n1, periodic,
+                               kahan, Lx, Ly, Lz);
+  else
+    launch_one_rt<T, kYukawa>(a, par, tgt, nodes, qhat, out, n1, periodic,
+                              kahan, Lx, Ly, Lz);
+#endif
 }
 
 // n+1 at run time -> the instantiation for it; false if there is none.
@@ -421,6 +604,7 @@ bool dispatch(int n1, const Args& a, const T* par, const T* tgt,
   }
 }
 
+// Targets a block of the instantiation for n1, 0 if there is none.
 template <typename T, int N1 = 2>
 int tile(int n1) {
   if constexpr (N1 > kMaxN1) {
@@ -431,20 +615,26 @@ int tile(int n1) {
   }
 }
 
+// runtime: the runtime-degree kernel at any n1 >= 2; otherwise the
+// instantiation for n1 where there is one, else the runtime-degree kernel.
 template <typename T>
 int launch(const Args& a, const T* par, const T* tgt, const T* nodes,
            const T* qhat, T* out, int n1, int kernel_id, int periodic,
-           int kahan, T Lx, T Ly, T Lz) {
+           int kahan, T Lx, T Ly, T Lz, bool runtime) {
 #ifdef REPRO_USER_KERNEL
   const bool known = kernel_id == kUser;
 #else
   const bool known = kernel_id == kCoulomb || kernel_id == kYukawa;
 #endif
-  if (!known || tile<T>(n1) == 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (a.W > 0 && a.B > 0 && a.NB > 0)
-    dispatch<T>(n1, a, par, tgt, nodes, qhat, out, kernel_id, periodic, kahan,
-                Lx, Ly, Lz);
+  if (!known || n1 < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.W > 0 && a.B > 0 && a.NB > 0) {
+    if (runtime || tile<T>(n1) == 0)
+      dispatch_rt<T>(n1, a, par, tgt, nodes, qhat, out, kernel_id, periodic,
+                     kahan, Lx, Ly, Lz);
+    else
+      dispatch<T>(n1, a, par, tgt, nodes, qhat, out, kernel_id, periodic,
+                  kahan, Lx, Ly, Lz);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,38 +644,40 @@ int launch(const Args& a, const T* par, const T* tgt, const T* nodes,
 // `stream` the caller's cudaStream_t; idx (W, B, S) int32 with -1
 // sentinels; par (W, P); tgt (W, B, NB, 3); nodes (W, C, 3, n1); qhat
 // (W, C, n1^3), k3 fastest; tgt_count (W, B) may be null (every target
-// slot is real); out (W, B, NB, 4); W = 1 is a single system. n1 is
-// 2..15. The launch is asynchronous and the return value is
-// cudaGetLastError() right after it (0 = launched).
-extern "C" int bcfg_eval_f32(const int* idx, const float* par,
-                             const float* tgt, const float* nodes,
-                             const float* qhat, const int* tgt_count,
-                             float* out, int B, int S, int NB, int n1, int W,
-                             int C, int P, int kernel_id, int periodic,
-                             int kahan, double Lx, double Ly, double Lz,
-                             void* stream) {
-  const Args a{idx, tgt_count, B, S, NB, W, C, P,
-               static_cast<cudaStream_t>(stream)};
-  return launch<float>(a, par, tgt, nodes, qhat, out, n1, kernel_id, periodic,
-                       kahan, static_cast<float>(Lx), static_cast<float>(Ly),
-                       static_cast<float>(Lz));
+// slot is real); out (W, B, NB, 4); W = 1 is a single system. n1 >= 2:
+// the instantiations where this library has them (2..15 in a base
+// library), the runtime-degree kernel elsewhere, and at any n1 where
+// force_runtime is nonzero. The launch is asynchronous and the return
+// value is cudaGetLastError() right after it (0 = launched).
+#define BCFG_ENTRY(name, T)                                                   \
+  extern "C" int name(const int* idx, const T* par, const T* tgt,             \
+                      const T* nodes, const T* qhat, const int* tgt_count,    \
+                      T* out, int B, int S, int NB, int n1, int W, int C,     \
+                      int P, int kernel_id, int periodic, int kahan,          \
+                      double Lx, double Ly, double Lz, int force_runtime,     \
+                      void* stream) {                                         \
+    const Args a{idx, tgt_count, B, S, NB, W, C, P,                           \
+                 static_cast<cudaStream_t>(stream)};                          \
+    return launch<T>(a, par, tgt, nodes, qhat, out, n1, kernel_id, periodic, \
+                     kahan, static_cast<T>(Lx), static_cast<T>(Ly),           \
+                     static_cast<T>(Lz), force_runtime != 0);                 \
+  }
+BCFG_ENTRY(bcfg_eval_f32, float)
+BCFG_ENTRY(bcfg_eval_f64, double)
+
+// 1 where a launch at n1 >= 2 that does not force the runtime-degree
+// kernel runs it all the same (this library has no instantiation for
+// n1); the wrapper counts its launches by this.
+extern "C" int bcfg_runtime(int n1) {
+  return n1 >= 2 && tile<float>(n1) == 0;
 }
 
-extern "C" int bcfg_eval_f64(const int* idx, const double* par,
-                             const double* tgt, const double* nodes,
-                             const double* qhat, const int* tgt_count,
-                             double* out, int B, int S, int NB, int n1,
-                             int W, int C, int P, int kernel_id, int periodic,
-                             int kahan, double Lx, double Ly, double Lz,
-                             void* stream) {
-  const Args a{idx, tgt_count, B, S, NB, W, C, P,
-               static_cast<cudaStream_t>(stream)};
-  return launch<double>(a, par, tgt, nodes, qhat, out, n1, kernel_id,
-                        periodic, kahan, Lx, Ly, Lz);
-}
-
-// Targets a block of the (dtype size, n1) instantiation (0 if none): the
-// wrapper's grid check and the accounting of swept pairs.
+// Targets a block at (dtype size, n1) (0 for n1 < 2): the
+// instantiation's, or the runtime-degree kernel's 32 where this library
+// has no instantiation for n1. The wrapper's grid check and the
+// accounting of swept pairs.
 extern "C" int bcfg_tile(int dtype_size, int n1) {
-  return dtype_size == 4 ? tile<float>(n1) : tile<double>(n1);
+  if (n1 < 2) return 0;
+  const int t = dtype_size == 4 ? tile<float>(n1) : tile<double>(n1);
+  return t > 0 ? t : 32;
 }

@@ -31,6 +31,13 @@ tree-ordered sources, cut into chunks of at most `CHUNK` particles by
   `modified_charges_transpose_ranged_plain` is its plain version over the
   same table.
 
+Any degree runs on the card. Both kernels are templates for n+1 = 2..15
+(every loop unrolled to the degree); past them (`mc_runtime` in the
+source says where) they run their runtime-degree kernels
+(`mc_chunk_rt_kernel`, `mct_tile_rt_kernel`), whose n+1 is an argument
+and whose shared memory is bounded, so the only limit is the memory q_hat
+takes.
+
 The forward functions take the per-dimension mapped nodes built by
 `ops._cluster_nodes`, the transposed ones the boxes, mapped to the same
 nodes bit for bit, so the exact-hit compare sees identical nodes. The
@@ -51,11 +58,17 @@ from repro_torch.kernels import _build
 from repro_torch.lint import runtime as _rt
 
 #: Kernel launches since import (or the last reset by a caller): one for
-#: `mc_chunk_kernel` and one for `mc_reduce` per call.
+#: the chunk kernel and one for `mc_reduce` per call.
 LAUNCHES = 0
+#: Of those, the launches of the runtime-degree chunk kernel
+#: (`mc_chunk_rt_kernel`).
+RUNTIME_LAUNCHES = 0
 #: Launches of the transpose (`modified_charges_transpose_ranged_cuda`):
-#: one for `mct_tile_kernel` per call.
+#: one per call.
 TRANSPOSE_LAUNCHES = 0
+#: Of those, the launches of the runtime-degree transpose
+#: (`mct_tile_rt_kernel`).
+TRANSPOSE_RUNTIME_LAUNCHES = 0
 
 #: Particles per chunk at most (one CUDA block each).
 CHUNK = 2048
@@ -66,20 +79,16 @@ TILE = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # pts, q, nodes, w, chunks, chunk_ptr, partial, out; num_chunks,
-# num_nodes, n1, systems, num_points; the stream
-_SIG = (_P,) * 8 + (_I,) * 5 + (_P,)
+# num_nodes, n1, systems, num_points, force_runtime; the stream
+_SIG = (_P,) * 8 + (_I,) * 6 + (_P,)
 # pts, qhat_bar, node_lo, node_hi, cheb, w, tiles, chain, out; num_tiles,
-# num_levels, n1; the stream
-_T_SIG = (_P,) * 9 + (_I,) * 3 + (_P,)
+# num_levels, n1, force_runtime; the stream
+_T_SIG = (_P,) * 9 + (_I,) * 4 + (_P,)
 _SIGNATURES = {"mc_eval_f32": _SIG, "mc_eval_f64": _SIG, "mc_tile": (_I, _I),
-               "mct_eval_f32": _T_SIG, "mct_eval_f64": _T_SIG,
-               "mct_tile": ()}
+               "mc_runtime": (_I,), "mct_eval_f32": _T_SIG,
+               "mct_eval_f64": _T_SIG, "mct_tile": ()}
 #: Chain entries (tree levels) the transposed kernel reads per tile.
 MAX_LEVELS = 32
-
-MAX_DEGREE = 14  # n + 1 <= 15: the kernel's instantiations
-#: The ROADMAP item that higher degrees on CUDA wait for.
-DEGREE_LATER = "ROADMAP queue B: degree above 14 on CUDA"
 
 
 def chunk_table(start, count, chunk: int = CHUNK):
@@ -117,16 +126,20 @@ def modified_charges_ranged_cuda(pts: torch.Tensor, q: torch.Tensor,
                                  chunks: torch.Tensor,
                                  chunk_ptr: torch.Tensor,
                                  nodes: torch.Tensor, w: torch.Tensor,
-                                 degree: int) -> torch.Tensor:
+                                 degree: int, *,
+                                 _runtime: bool = False) -> torch.Tensor:
     """q_hat (num_nodes, (n+1)^3) by the CUDA kernel.
 
     pts (N, 3) and q (N,) tree-ordered particles; chunks (K, 3) and
     chunk_ptr (num_nodes + 1,) int32 from `chunk_table`; nodes
     (num_nodes, 3, n+1); w (n+1,): contiguous CUDA tensors on one device,
-    the floating ones float32 or float64 alike. With a leading systems
-    axis W on all but w (each system's chunks naming its own nodes and
-    particles), (W, num_nodes, (n+1)^3) from the same two launches."""
-    global LAUNCHES
+    the floating ones float32 or float64 alike; any degree >= 1 (the
+    runtime-degree kernel past the templates). With a leading
+    systems axis W on all but w (each system's chunks naming its own
+    nodes and particles), (W, num_nodes, (n+1)^3) from the same two
+    launches. `_runtime` takes the runtime-degree kernel at any degree
+    (the checks that hold it against the templates)."""
+    global LAUNCHES, RUNTIME_LAUNCHES
     if pts.dim() == 3:
         single = False
     else:
@@ -140,11 +153,8 @@ def modified_charges_ranged_cuda(pts: torch.Tensor, q: torch.Tensor,
     _check(what, {"pts": pts, "q": q, "nodes": nodes, "w": w}, dtype, dev)
     _check(what, {"chunks": chunks, "chunk_ptr": chunk_ptr}, torch.int32,
            dev)
-    if not 1 <= degree <= MAX_DEGREE:
-        raise NotImplementedError(
-            f"{what}: degree {degree} outside 1..{MAX_DEGREE}, the "
-            f"kernel's instantiations ({DEGREE_LATER}); backend='torch' "
-            f"takes any degree")
+    if degree < 1:
+        raise ValueError(f"{what}: degree {degree} (>= 1)")
     n1 = degree + 1
     systems, n = pts.shape[:2]
     num_nodes = chunk_ptr.shape[1] - 1
@@ -169,14 +179,17 @@ def modified_charges_ranged_cuda(pts: torch.Tensor, q: torch.Tensor,
     out = torch.empty((systems, num_nodes, n3), dtype=dtype, device=dev)
     partial = torch.empty((systems, k, n3), dtype=dtype, device=dev)
     fn = lib.mc_eval_f32 if dtype == torch.float32 else lib.mc_eval_f64
+    runtime = bool(_runtime or lib.mc_runtime(n1))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(pts.data_ptr(), q.data_ptr(), nodes.data_ptr(), w.data_ptr(),
                 chunks.data_ptr(), chunk_ptr.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), k, num_nodes, n1, systems, n, stream)
+                out.data_ptr(), k, num_nodes, n1, systems, n, int(_runtime),
+                stream)
     _build.check(rc, "modified_charges")
     if systems > 0:                              # what the C entry launched
         LAUNCHES += (k > 0) + (num_nodes > 0)
+        RUNTIME_LAUNCHES += int(runtime and k > 0)
     return out[0] if single else out
 
 
@@ -326,7 +339,9 @@ def modified_charges_transpose_ranged_cuda(pts: torch.Tensor,
                                            chain: torch.Tensor,
                                            node_lo: torch.Tensor,
                                            node_hi: torch.Tensor,
-                                           degree: int) -> torch.Tensor:
+                                           degree: int, *,
+                                           _runtime: bool = False
+                                           ) -> torch.Tensor:
     """qbar (N,) = the transpose of `modified_charges_ranged_cuda` applied
     to qhat_bar (num_nodes, (n+1)^3), by the CUDA kernel (one system).
 
@@ -336,8 +351,10 @@ def modified_charges_transpose_ranged_cuda(pts: torch.Tensor,
     L <= MAX_LEVELS); node_lo and node_hi (num_nodes, 3), the boxes the
     kernel maps its nodes from (bitwise `ops._cluster_nodes`'s):
     contiguous CUDA tensors on one device, the floating ones float32 or
-    float64 alike. One launch, a block per tile."""
-    global TRANSPOSE_LAUNCHES
+    float64 alike; any degree >= 1 (the runtime-degree kernel past the
+    templates, or at any degree with `_runtime`). One launch, a block per
+    tile."""
+    global TRANSPOSE_LAUNCHES, TRANSPOSE_RUNTIME_LAUNCHES
     dev, dtype = pts.device, pts.dtype
     what = "modified_charges_transpose_ranged_cuda"
     if dtype not in (torch.float32, torch.float64):
@@ -345,11 +362,8 @@ def modified_charges_transpose_ranged_cuda(pts: torch.Tensor,
     _check(what, {"pts": pts, "qhat_bar": qhat_bar, "node_lo": node_lo,
                   "node_hi": node_hi}, dtype, dev)
     _check(what, {"tiles": tiles, "chain": chain}, torch.int32, dev)
-    if not 1 <= degree <= MAX_DEGREE:
-        raise NotImplementedError(
-            f"{what}: degree {degree} outside 1..{MAX_DEGREE}, the "
-            f"kernel's instantiations ({DEGREE_LATER}); backend='torch' "
-            f"takes any degree")
+    if degree < 1:
+        raise ValueError(f"{what}: degree {degree} (>= 1)")
     n1 = degree + 1
     n = pts.shape[0]
     num_nodes, s = node_lo.shape[0], tiles.shape[0]
@@ -374,15 +388,17 @@ def modified_charges_transpose_ranged_cuda(pts: torch.Tensor,
     lib = _build.load("modified_charges", _SIGNATURES)
     out = torch.empty((n,), dtype=dtype, device=dev)
     fn = lib.mct_eval_f32 if dtype == torch.float32 else lib.mct_eval_f64
+    runtime = bool(_runtime or lib.mc_runtime(n1))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(pts.data_ptr(), qhat_bar.data_ptr(), node_lo.data_ptr(),
                 node_hi.data_ptr(), cheb.data_ptr(), w.data_ptr(),
                 tiles.data_ptr(), chain.data_ptr(), out.data_ptr(), s, levels,
-                n1, stream)
+                n1, int(_runtime), stream)
     _build.check(rc, "modified_charges transpose")
     if s > 0:                                    # what the C entry launched
         TRANSPOSE_LAUNCHES += 1
+        TRANSPOSE_RUNTIME_LAUNCHES += int(runtime)
     return out
 
 

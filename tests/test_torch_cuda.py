@@ -323,28 +323,101 @@ def test_simulation_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_degree_above_14_names_its_queue_item(cuda_device):
-    """The modified-charge and grid field kernels are instantiated for
-    degrees 1-14: degree 15 raises, naming its ROADMAP item, and the
-    plain versions take it."""
-    later = "queue B: degree above 14 on CUDA"
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    lo = torch.zeros((2, 3), device=cuda_device)
-    hi = lo + 1.0
-    pts = torch.rand((2, 16, 3), generator=gen, device=cuda_device)
-    q = torch.rand((2, 16), generator=gen, device=cuda_device)
-    with pytest.raises(NotImplementedError, match=later):
-        ops.modified_charges(pts, q, lo, hi, degree=15)
-    qhat = ops.modified_charges(pts, q, lo, hi, degree=15, backend="torch")
-    assert qhat.shape == (2, 16 ** 3)
-    args = (torch.zeros((1, 2), dtype=torch.int32, device=cuda_device),
-            2.0 + torch.rand((1, 8, 3), generator=gen, device=cuda_device),
-            ops._cluster_nodes(lo, hi, 15), qhat)
-    with pytest.raises(NotImplementedError, match=later):
-        ops.batch_cluster_field_grid(*args, kernel=coulomb())
-    out = ops.batch_cluster_field_grid(*args, kernel=coulomb(),
-                                       backend="torch")
-    assert out.shape == (1, 8, 4) and torch.isfinite(out).all()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("degree", [15, 24])
+def test_degree_above_14_runs_on_the_card(cuda_device, dtype, degree):
+    """Degrees past the templates (n+1 >= 16) run the runtime-degree
+    kernels, one launch each: the forward modified charges on W = 3
+    stacked systems of ragged ranges with exact hits, the transpose on
+    their two-level tile table, and the grid field kernel on W = 3
+    systems with exact hits, free and periodic, Kahan off and on, with
+    target counts; each against its plain version at the tolerances of
+    the templated tests above (the gradient per entry to 1e-5 (f32) or
+    1e-13 (f64) times its sum of the terms' magnitudes)."""
+    from repro_torch.core import cheby
+    rng = np.random.default_rng(degree)
+    dev, n1, w = cuda_device, degree + 1, 3
+    f32 = dtype == torch.float32
+    rtol, floor = (3e-3, 3e-4) if f32 else (1e-10, 1e-12)
+    lib = mcm._build.load("modified_charges", mcm._SIGNATURES)
+    pts, q, chunks, ptr, lo, hi = ranged_case(
+        rng, dtype, degree, dev, lib.mc_tile(dtype.itemsize, n1))
+
+    def stack(t):
+        return torch.stack([t] * w)
+
+    qs = torch.stack([q] + [torch.as_tensor(rng.uniform(-1, 1, q.shape),
+                                            dtype=dtype, device=dev)
+                            for _ in range(w - 1)])
+    args = (stack(pts), qs, stack(chunks), stack(ptr), stack(lo), stack(hi))
+    before = (mcm.LAUNCHES, mcm.RUNTIME_LAUNCHES)
+    got = ops.modified_charges_ranged(*args, degree=degree)
+    assert (mcm.LAUNCHES - before[0], mcm.RUNTIME_LAUNCHES - before[1]) == (
+        2, 1)
+    want = ops.modified_charges_ranged(*args, degree=degree, backend="torch")
+    assert (got[:, 0] == 0).all() and (got[:, 9] == 0).all()
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=floor * want.abs().max().item())
+
+    # the transpose: every node a leaf under the last, which spans them
+    m = lo.shape[0]
+    parent = torch.full((m,), m - 1, device=dev)
+    parent[-1] = -1
+    tiles, chain = mcm.tile_table(chunks, parent, 2, pts.shape[0])
+    qhat_bar = torch.as_tensor(rng.uniform(-1, 1, (m, n1 ** 3)), dtype=dtype,
+                               device=dev)
+    targs = (pts, qhat_bar, tiles, chain, lo, hi)
+    before = (mcm.TRANSPOSE_LAUNCHES, mcm.TRANSPOSE_RUNTIME_LAUNCHES)
+    got = ops.modified_charges_transpose_ranged(*targs, degree=degree)
+    assert (mcm.TRANSPOSE_LAUNCHES - before[0],
+            mcm.TRANSPOSE_RUNTIME_LAUNCHES - before[1]) == (1, 1)
+    want = ops.modified_charges_transpose_ranged(*targs, degree=degree,
+                                                 backend="torch")
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=floor * want.abs().max().item())
+
+    # the grid field kernel
+    box = PeriodicBox((1.5, 2.0, 1.7), origin=(-0.75, -1.0, -0.85))
+    b, s, nb, c = 4, 6, 70, 5
+    frtol, fatol = (2e-4, 2e-4) if f32 else (1e-12, 0.0)
+    gk = 1e-5 if f32 else 1e-13
+    for space, kahan, kern in ((FREE, False, coulomb()),
+                               (box, True, yukawa(0.5))):
+        lo_t = torch.as_tensor(rng.uniform(-1, 0.5, (w, c, 3)), dtype=dtype,
+                               device=dev)
+        hi_t = lo_t + torch.as_tensor(rng.uniform(0.1, 0.5, (w, c, 3)),
+                                      dtype=dtype, device=dev)
+        nodes = ops._cluster_nodes(lo_t, hi_t, degree).contiguous()
+        grid = cheby.cluster_grid(lo_t, hi_t, degree)
+        qh = torch.as_tensor(rng.uniform(-1.0 if f32 else 0.0, 1,
+                                         (w, c, n1 ** 3)),
+                             dtype=dtype, device=dev)
+        tgt = torch.as_tensor(rng.uniform(-1, 1, (w, b, nb, 3)), dtype=dtype,
+                              device=dev)
+        tgt[:, -1, :3] = grid[:, 0, [0, n1 ** 3 // 2, n1 ** 3 - 1]]  # hits
+        idx = rng.integers(-1, c, (w, b, s))
+        idx[:, :, s // 2] = -1
+        idx[:, -1, 0] = 0
+        tc = rng.integers(0, nb + 1, (w, b))
+        tc[:, -1] = nb
+        kw = dict(kernel=kern, space=space, kahan=kahan,
+                  tgt_count=torch.as_tensor(tc, dtype=torch.int32,
+                                            device=dev))
+        gargs = (torch.as_tensor(idx, dtype=torch.int32, device=dev), tgt,
+                 nodes, qh)
+        before = (bcm.GRID_FIELD_LAUNCHES, bcm.GRID_FIELD_RUNTIME_LAUNCHES)
+        got = ops.batch_cluster_field_grid(*gargs, **kw)
+        assert (bcm.GRID_FIELD_LAUNCHES - before[0],
+                bcm.GRID_FIELD_RUNTIME_LAUNCHES - before[1]) == (1, 1)
+        want = ops.batch_cluster_field_grid(*gargs, backend="torch", **kw)
+        mag = bcm.batch_cluster_field_grid_plain(*gargs, magnitude=True, **kw)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got[..., 0], want[..., 0], rtol=frtol,
+                                   atol=fatol)
+        assert ((got[..., 1:] - want[..., 1:]).abs()
+                <= gk * mag[..., 1:]).all()
+        pad = torch.arange(nb, device=dev) >= kw["tgt_count"][..., None]
+        assert (got[pad] == 0).all()
 
 
 @pytest.mark.cuda

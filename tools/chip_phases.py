@@ -8,7 +8,7 @@ Builds the kernels, makes the main phase's Fig. 4 points and charges
 (default: 10, 11, 8d and 8a: the device-built plan, the hierarchical
 precompute and the 10^6 MD with device rebuilds, synchronous and
 async), each with its own checks. Also: 4 and 4f (the Fig. 4 execute
-and forces at 10^6), w (the four kernels' systems-axis cases of phases
+and forces at 10^6), 2g (the grid field kernel's cases), w (the four kernels' systems-axis cases of phases
 2, 2f, 2g and 3) and 12a-12d (serving: the ensemble, the kappa scan,
 the service and the ensemble MD), 13a and 13b (the sharded plan at
 Fig. 4 beside the single plan, built here unless 4 ran first, and the
@@ -37,7 +37,11 @@ example twins; each also alone; 19m, internlm2 SMOKE on a (data 1, model
 user libraries' three kernels against their plain versions, 20b,
 yukawa_user against the built-in Yukawa and plummer against an f64 direct
 sum on the Fig. 4 plan, built here unless 4 ran first, 20c, a plummer MD;
-each also alone; the user libraries build with the base sources). A
+each also alone; the user libraries build with the base sources) and 21
+(any degree: 21a, the runtime-degree kernels forced at degree 8 against
+their templates on the Fig. 4 plan, built here unless 4 ran first, 21b,
+the Fig. 4 points at 10^6 in f64 at degree 16, 21c, degree-24 cases and
+the plummer user kernel at degree 15; each also alone). A
 failing phase prints its traceback
 and the rest still run; the exit code is 1 if any failed. Phase 11's
 line compares the hierarchical q_hat with this run's direct one only
@@ -107,6 +111,7 @@ def main() -> int:
     phases = {
         "4": phase_main,
         "4f": phase_forces,
+        "2g": lambda: c.phase_field_grid(dev),
         "w": systems_axis,
         "12a": lambda: c.phase_serve_ensemble(dev, smi),
         "12b": lambda: c.phase_serve_kappa_scan(dev),
@@ -144,6 +149,10 @@ def main() -> int:
         "20a": lambda: c.phase_user_cases(dev),
         "20b": lambda: c.phase_user_fig4(dev, smi, fig4_plan(), x, q),
         "20c": lambda: c.phase_user_md(dev),
+        "21": lambda: c.phase_high_degree(dev, smi, fig4_plan(), q),
+        "21a": lambda: c.phase_runtime_vs_templates(dev, fig4_plan(), q),
+        "21b": lambda: c.phase_high_degree_fig4(dev, smi),
+        "21c": lambda: c.phase_high_degree_cases(dev),
     }
     fails = 0
     for name in sys.argv[1:] or ["10", "11", "8d", "8a"]:

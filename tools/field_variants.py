@@ -62,7 +62,8 @@ def _grid_blocks(n):
 _ROW = "#pragma unroll\n    for (int k2 = 0;"
 # every pair behind the r^2 predicate, as if each chunk or plane could
 # hold an exact hit
-_PREDICATED = [("        if (clear)\n", "        if (false)\n")]
+_PREDICATED = [("        if (clear)\n          sweep",
+                "        if (false)\n          sweep")]
 # a software reciprocal square root (3 Newton steps from the bit-level
 # first guess, ~12 fp32 and integer instructions on the FMA and ALU
 # pipes) for the pairs k3 of each row that `soft` selects, the rest on
@@ -77,7 +78,7 @@ _NEWTON = """__device__ __forceinline__ float rsqrt_newton(float x) {
 __device__ __forceinline__ double rsqrt_newton(double x) { return x; }
 
 // One grid pair:"""
-_CALL = ("sp[r], rs,\n                               sz[r]);")
+_CALL = "kp, sp[r], rs, sz[r]);"
 
 
 def _soft(pick):

@@ -53,11 +53,44 @@ def parent_library(parent: str):
         else:
             os.environ["REPRO_TORCH_BUILD_DIR"] = env
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in mcm._SIGNATURES.items():
-        f = getattr(lib, fn)
-        f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
-    return lib
+    if hasattr(lib, "mc_runtime"):
+        for fn, argtypes in mcm._SIGNATURES.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        return lib
+    return Templates(lib, mcm._SIGNATURES)
+
+
+class Templates:
+    """A library from before the runtime-degree kernels, in this tree's
+    calling convention: its forward and transposed entries lack the
+    force_runtime argument (dropped here), and it has templates only."""
+
+    def __init__(self, lib, signatures):
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn, None)
+            if f is None:
+                continue
+            if fn.startswith(("mc_eval", "mct_eval")):
+                f.argtypes = list(argtypes[:-2] + argtypes[-1:])
+                f.restype = ctypes.c_int
+                setattr(self, fn, self._without_flag(f))
+            else:
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+                setattr(self, fn, f)
+
+    @staticmethod
+    def _without_flag(f):
+        def call(*args):
+            assert args[-2] == 0, "the earlier library cannot force it"
+            return f(*args[:-2], args[-1])
+        return call
+
+    @staticmethod
+    def mc_runtime(n1):
+        return 0
 
 
 def main() -> int:
