@@ -318,9 +318,11 @@ checkout of the repository.
 """
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1102,18 +1104,44 @@ def sass_inner_loop(lib_path, symbol):
     return own and (len(own), sum("MUFU.RSQ" in i for i in own))
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(lib_path):
+    """cuobjdump's SASS of a library (once a library: phases 1 and 21
+    read the grid library's), None where cuobjdump is missing."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
+@functools.lru_cache(maxsize=None)
+def res_usage(lib_path):
+    """{kernel symbol: (registers, stack frame bytes)} of a built library,
+    read with `cuobjdump -res-usage` (a cached build has no ptxas log);
+    spills go to the stack frame. None where cuobjdump is missing."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    text = subprocess.run([tool, "-res-usage", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return {m.group(1): (int(m.group(2)), int(m.group(3)))
+            for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
+                                 text)}
+
+
 def sass_loop(lib_path, symbol, marker="MUFU.RSQ"):
     """The own instructions of the loop `sass_inner_loop` picks, `marker`
     marking a pair (a list of SASS lines), None where cuobjdump is
     missing."""
     import re
-    from repro_torch.kernels import _build
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    if not os.path.isfile(tool):
+    sass = sass_text(str(lib_path))
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
     body, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -1138,6 +1166,24 @@ def sass_loop(lib_path, symbol, marker="MUFU.RSQ"):
                                                           -len(best[1]))):
             best = (mufu, own)
     return best and best[1]
+
+
+def sass_fp64_pair(lib_path, symbol):
+    """(instructions, FP64-pipe instructions (DFMA, DADD, DMUL, DSETP,
+    DMNMX), MUFU) a pair of one f64 kernel's pair loop, read from its SASS
+    as `sass_inner_loop` reads the f32 loops, MUFU.RSQ64H (the IEEE
+    sqrt's start) marking a pair; None without cuobjdump. The IEEE sqrt's
+    and division's slow paths (subnormals, special values) are calls out
+    of the loop, not counted."""
+    own = sass_loop(lib_path, symbol, marker="MUFU.RSQ64H")
+    if not own:
+        return None
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0] for i in own]
+    pairs = sum(op.startswith("MUFU.RSQ64H") for op in ops)
+    fp64 = sum(op.split(".")[0] in ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")
+               for op in ops)
+    mufu = sum(op.startswith("MUFU.") for op in ops)
+    return len(own) / pairs, fp64 / pairs, mufu / pairs
 
 
 def phase_modified_charges(dev):
@@ -1351,6 +1397,37 @@ def ranged_case(rng, dtype, degree, dev, tile):
     return (pts, dev_t(rng.uniform(-1, 1, n)),
             torch.as_tensor(chunks, device=dev),
             torch.as_tensor(ptr, device=dev), lo, hi)
+
+
+def kernel_name(symbol):
+    """A mangled kernel symbol as its name and template arguments
+    (`mc_chunk_rt_kernel<double>`, `kernel<16, 8>`), the name alone for a
+    function that is no template, the symbol where it is not mangled. A
+    name in a namespace (`_ZN...`, the anonymous one too) is its last
+    component's."""
+    m = re.match(r"_Z(N?)", symbol)
+    if not m:
+        return symbol
+    i, name = m.end(), None
+    while (n := re.match(r"\d+", symbol[i:])):
+        i += n.end()
+        name, i = symbol[i:i + int(n.group())], i + int(n.group())
+        if not m.group(1):           # not nested: one component
+            break
+    if name is None:
+        return symbol
+    rest = symbol[i:]
+    if not rest.startswith("I"):
+        return name
+    types = {"d": "double", "f": "float", "i": "int", "b": "bool"}
+    args, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        a = re.match(r"[dfib]|L[a-z](\d+)E", rest[i:])
+        if not a:                    # a type argument: keep its code
+            return f"{name}<{rest[i:]}"
+        args.append(a.group(1) or types[a.group(0)])
+        i += a.end()
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_usage(log):
@@ -3920,6 +3997,22 @@ def phase_high_degree_fig4(dev, smi):
           f"sum of magnitudes {mct_ratio:.3e}, MCT_K {MCT_K[8]}); per entry "
           f"{HIGH_K} of the sum of the terms' magnitudes: " + "; ".join(out),
           flush=True)
+    usage = res_usage(str(_build.library_path("modified_charges")))
+    usage = usage and {name: v for k, v in usage.items()
+                       if "_rt_" in (name := kernel_name(k))}
+    print("[21b] the runtime-degree modified charges' kernels (registers, "
+          "stack frame bytes, from cuobjdump -res-usage; the f64 ones with "
+          "`mma` in the name run on the tensor cores): "
+          + ("not read (no cuobjdump)" if usage is None else
+             "; ".join(f"{k} {v}" for k, v in sorted(usage.items()))),
+          flush=True)
+    pair = sass_fp64_pair(_build.library_path("batch_cluster_field_grid"),
+                          "grid_field_rt_kernelIdLi0E")
+    print("[21b] the f64 Coulomb pair of grid_field_rt_kernel from its SASS "
+          "(instructions, FP64-pipe instructions, MUFU a pair; IEEE sqrt "
+          "and division inline, their slow paths not counted): "
+          + ("not read (no cuobjdump)" if pair is None else
+             ", ".join(f"{v:.2f}" for v in pair)), flush=True)
     g_ms, g_plain_ms, g_err, g_bd = entries["approx"]
     src = "src/repro_torch/kernels/csrc/"
     return [

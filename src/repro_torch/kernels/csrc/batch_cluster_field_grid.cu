@@ -399,9 +399,13 @@ grid_field_kernel(const int* __restrict__ idx, const T* __restrict__ par,
 //     the template tabulates);
 //   - the pair, the fold, the FLT_MIN / r2 > 0 predicate and the plane
 //     test that skips it are the template's (grid_pair, clear_of_hits).
-// Where n+1 <= kRtKB (one k3 block) every sum runs in the template's
-// order, so the result is the template's; above, a row's sum is split at
-// the block edges.
+// At the templates' n+1 (forced: one k3 block) every sum runs in the
+// template's order, so the result is the template's. Past them phi is
+// summed by row (at most kRtKB pairs), the rows by unit and the units by
+// slot, so that its rounding does not grow with the slot's (n+1)^3 pairs
+// in one chain (at degrees 15 and 24 in f32 that chain left phi, where it
+// cancels, several times farther from an f64 sum than the plain version's
+// blocked sums); past one k3 block a row's sums are split at its edges.
 
 constexpr int kRtKB = 16;  // k3 points a block
 constexpr int kRtRB = 16;  // plane rows a staged run
@@ -453,6 +457,7 @@ grid_field_rt_kernel(const int* __restrict__ idx, const T* __restrict__ par,
 
   const size_t n2 = static_cast<size_t>(n1) * n1;
   const int units = n1 * ((n1 + kRtKB - 1) / kRtKB);  // per cluster
+  const bool split = n1 > kMaxN1;  // phi by row, unit and slot
   T(*qp)[kRtKB] = plane[warp];
   T* zc = &zcol[warp][0][0];
   const int* row = idx + static_cast<size_t>(b) * S;
@@ -483,6 +488,7 @@ grid_field_rt_kernel(const int* __restrict__ idx, const T* __restrict__ par,
         // the predicate only where the target shares this plane's x
         const bool clear = clear_of_hits(a);
         T pl = T(0);
+        T up = split ? T(0) : sp;  // this unit's phi (one block: the slot's)
         for (int k2a = 0; k2a < n1; k2a += kRtRB) {
           const int nr = min(kRtRB, n1 - k2a);
           __syncwarp();  // this warp's previous run is consumed
@@ -497,16 +503,19 @@ grid_field_rt_kernel(const int* __restrict__ idx, const T* __restrict__ par,
             if (periodic) dy = field::fold(dy, Ly, iLy);
             const T ab = fma(dy, dy, a);
             T rs = T(0);
+            T rp = split ? T(0) : up;  // this row's phi
             if (clear)
-              sweep_row_rt<T, KID, false>(ab, zc, qp[i], len, lane, kp, sp,
+              sweep_row_rt<T, KID, false>(ab, zc, qp[i], len, lane, kp, rp,
                                           rs, sz);
             else
-              sweep_row_rt<T, KID, true>(ab, zc, qp[i], len, lane, kp, sp,
+              sweep_row_rt<T, KID, true>(ab, zc, qp[i], len, lane, kp, rp,
                                          rs, sz);
+            up = split ? up + rp : rp;
             sy = fma(dy, rs, sy);
             pl += rs;
           }
         }
+        sp = split ? sp + up : up;
         sx = fma(dx, pl, sx);
       }
     }

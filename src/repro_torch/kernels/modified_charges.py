@@ -33,10 +33,12 @@ tree-ordered sources, cut into chunks of at most `CHUNK` particles by
 
 Any degree runs on the card. Both kernels are templates for n+1 = 2..15
 (every loop unrolled to the degree); past them (`mc_runtime` in the
-source says where) they run their runtime-degree kernels
-(`mc_chunk_rt_kernel`, `mct_tile_rt_kernel`), whose n+1 is an argument
-and whose shared memory is bounded, so the only limit is the memory q_hat
-takes.
+source says where) they run their runtime-degree kernels, whose n+1 is
+an argument and whose shared memory is bounded, so the only limit is the
+memory q_hat takes. In f64 those contract on the f64 tensor cores
+(`mc_chunk_rt_mma_kernel`, `mct_tile_rt_mma_kernel`; IEEE f64 products
+and sums), in f32 with FFMA (`mc_chunk_rt_kernel`, `mct_tile_rt_kernel`,
+which f64 also takes where the tensor-core tables pass their budget).
 
 The forward functions take the per-dimension mapped nodes built by
 `ops._cluster_nodes`, the transposed ones the boxes, mapped to the same
@@ -86,7 +88,12 @@ _SIG = (_P,) * 8 + (_I,) * 6 + (_P,)
 _T_SIG = (_P,) * 9 + (_I,) * 4 + (_P,)
 _SIGNATURES = {"mc_eval_f32": _SIG, "mc_eval_f64": _SIG, "mc_tile": (_I, _I),
                "mc_runtime": (_I,), "mct_eval_f32": _T_SIG,
-               "mct_eval_f64": _T_SIG, "mct_tile": ()}
+               "mct_eval_f64": _T_SIG, "mct_tile": (),
+               # the cuda tests' probes: one f64 mma (a, b, d, shape,
+               # the stream) and the rows' division (a, b, q, n, dtype
+               # size, the stream)
+               "mc_mma_probe": (_P, _P, _P, _I, _P),
+               "mc_div_probe": (_P, _P, _P, _I, _I, _P)}
 #: Chain entries (tree levels) the transposed kernel reads per tile.
 MAX_LEVELS = 32
 

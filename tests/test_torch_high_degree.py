@@ -8,10 +8,15 @@ the port's plain path at degrees 15 and 17 against the reference's XLA
 backend on the same inputs: `execute`, `potential_and_forces` and the
 charge cotangent of the differentiable executor (against `jax.vjp` of the
 reference's), at rtol 1e-10 with an absolute floor of 1e-12 times the
-largest |value| (signed charges: an entry can cancel towards 0).
+largest |value| (signed charges: an entry can cancel towards 0); and at
+degree 24 (n+1 = 25, where the card's kernels pad and cut their slabs
+past n+1 = 24) `execute` and the charge cotangent. These pin the plain
+versions the card holds its kernels to.
 
 A cluster is approximated only when it holds more than (n+1)^3 particles,
-so the sources are one blob of 6000 points (> 16^3 = 4096 and 18^3 = 5832)
+so the sources are one blob of 6000 points (> 16^3 = 4096 and 18^3 = 5832;
+at degree 24 16000 > 25^3 = 15625, in leaves of 4000 to keep the plain
+lanes small)
 and the targets 200 points inside it (the direct lane) and 200 in a
 second blob 4 away, whose batches take the whole source blob through the
 approximation lane (asserted, so the test cannot pass on direct sums
@@ -33,6 +38,8 @@ from repro_torch.core.api import TreecodeConfig, TreecodeSolver
 
 RTOL, FLOOR = 1e-10, 1e-12
 SOURCES, TARGETS = 6000, 200
+#: (sources, leaf size) where (n+1)^3 passes SOURCES.
+LARGER = {24: (16000, 4000)}
 SETTINGS = dict(theta=0.7, leaf_size=1000, batch_size=TARGETS)
 
 
@@ -42,16 +49,17 @@ def _close(got, want, what):
                                atol=FLOOR * np.abs(want).max(), err_msg=what)
 
 
-def _points():
+def _points(degree):
     """(targets, sources, charges, target weights, cotangent): the sources
-    uniform in a cube of side 0.5 at the origin, TARGETS targets in it and
-    TARGETS in a like cube centred 4 away in x; the rest uniform in
-    [-1, 1]."""
+    (SOURCES, or LARGER's) uniform in a cube of side 0.5 at the
+    origin, TARGETS targets in it and TARGETS in a like cube centred 4
+    away in x; the rest uniform in [-1, 1]."""
     rng = np.random.default_rng(27)
-    src = rng.uniform(-0.25, 0.25, (SOURCES, 3))
+    n = LARGER.get(degree, (SOURCES,))[0]
+    src = rng.uniform(-0.25, 0.25, (n, 3))
     tgt = rng.uniform(-0.25, 0.25, (2 * TARGETS, 3))
     tgt[TARGETS:, 0] += 4.0
-    return (tgt, src, rng.uniform(-1, 1, SOURCES),
+    return (tgt, src, rng.uniform(-1, 1, n),
             rng.uniform(-1, 1, 2 * TARGETS), rng.uniform(-1, 1, 2 * TARGETS))
 
 
@@ -59,10 +67,13 @@ def _points():
 def _plans(degree):
     """(port plan on the CPU, reference plan on XLA), built once (under the
     x64 fixture)."""
-    tgt, src, _, _, _ = _points()
-    port = TreecodeSolver(TreecodeConfig(degree=degree, **SETTINGS),
+    tgt, src, _, _, _ = _points(degree)
+    settings = dict(SETTINGS)
+    if degree in LARGER:
+        settings["leaf_size"] = LARGER[degree][1]
+    port = TreecodeSolver(TreecodeConfig(degree=degree, **settings),
                           device="cpu").plan(tgt, src)
-    ref = JSolver(JConfig(backend="xla", degree=degree, **SETTINGS)).plan(
+    ref = JSolver(JConfig(backend="xla", degree=degree, **settings)).plan(
         tgt, src, nranks=1)
     return port, ref
 
@@ -76,11 +87,11 @@ def _approximated(plan, degree):
     return used.numel()
 
 
-@pytest.mark.parametrize("degree", [15, 17])
+@pytest.mark.parametrize("degree", [15, 17, 24])
 def test_execute_matches_reference(x64, degree):
     port, ref = _plans(degree)
     assert _approximated(port, degree) > 0
-    q = _points()[2]
+    q = _points(degree)[2]
     phi = port.execute(q)
     assert phi.dtype == torch.float64
     _close(phi.numpy(), np.asarray(ref.execute(q)), f"degree {degree} phi")
@@ -90,18 +101,18 @@ def test_execute_matches_reference(x64, degree):
 def test_forces_match_reference(x64, degree):
     port, ref = _plans(degree)
     assert _approximated(port, degree) > 0
-    _, _, q, w, _ = _points()
+    _, _, q, w, _ = _points(degree)
     phi, force = port.potential_and_forces(q, weights=w)
     jphi, jforce = ref.potential_and_forces(q, weights=w)
     _close(phi.numpy(), jphi, f"degree {degree} phi")
     _close(force.numpy(), jforce, f"degree {degree} forces")
 
 
-@pytest.mark.parametrize("degree", [15, 17])
+@pytest.mark.parametrize("degree", [15, 17, 24])
 def test_charge_cotangent_matches_reference(x64, degree):
     port, ref = _plans(degree)
     assert _approximated(port, degree) > 0
-    _, _, q, _, u = _points()
+    _, _, q, _, u = _points(degree)
     qt = torch.as_tensor(q).requires_grad_(True)
     phi = ev.differentiable_execute(port.arrays, qt, port.kernel_params,
                                     **port.config.exec_opts(port.kernel))
